@@ -1,0 +1,113 @@
+"""repro_torch Algorithm-5 loss: the plain versions against the reference's
+interpret-mode Pallas kernels and numpy oracle (the CUDA kernels are held
+to them in test_torch_cuda.py)."""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro import ops as ref_ops  # noqa: E402
+from repro.core import fitting_loss as ref_fitting_loss  # noqa: E402
+from repro.core import random_tree_segmentation as ref_random_tree  # noqa: E402
+from repro.core import signal_coreset as ref_signal_coreset  # noqa: E402
+from repro.data import piecewise_signal as ref_piecewise  # noqa: E402
+from repro.kernels.fitting_loss import ops as ref_fl  # noqa: E402
+from repro_torch import ops  # noqa: E402
+from repro_torch.core import SignalCoreset  # noqa: E402
+from repro_torch.kernels.fitting_loss import kernel as fl_kernel  # noqa: E402
+from repro_torch.kernels.fitting_loss import ops as fl_ops  # noqa: E402
+
+
+def _coreset(n, m, k, eps=0.3, seed=0):
+    return ref_signal_coreset(ref_piecewise(n, m, k, noise=0.2, seed=seed),
+                              k, eps)
+
+
+def _trees(n, m, k, t, seed=1):
+    rng = np.random.default_rng(seed)
+    segs = [ref_random_tree(n, m, k, rng) for _ in range(t)]
+    return (np.stack([s.rects for s in segs]).astype(np.float64),
+            np.stack([s.labels for s in segs]))
+
+
+def _carried(cs):
+    """The reference coreset as the port's, through from_arrays."""
+    d = {f: getattr(cs, f) for f in (
+        "n", "m", "k", "eps", "rects", "labels", "weights", "moments",
+        "sigma", "tolerance", "max_slices", "build_seconds", "certified")}
+    d["bicriteria"] = vars(cs.bicriteria)
+    return SignalCoreset.from_arrays(d)
+
+
+def _rel(a, b):
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return np.abs(a - b) / np.maximum(np.abs(b), 1e-30)
+
+
+# (n, m, coreset k, tree leaves, trees): B and T off every tile size, K = 1
+CASES = [(57, 41, 5, 7, 3), (60, 70, 6, 1, 5), (33, 90, 4, 12, 9),
+         (96, 64, 8, 16, 17)]
+
+
+@pytest.mark.parametrize("n,m,k,leaves,t", CASES)
+def test_plain_batched_matches_reference_pallas_and_oracle(n, m, k, leaves, t):
+    cs = _coreset(n, m, k)
+    sr, sl = _trees(n, m, leaves, t)
+    got = fl_ops.coreset_loss_batched(_carried(cs), sr, sl, device="cpu")
+    pallas = np.asarray(ref_fl.coreset_loss_batched(cs, sr, sl, interpret=True))
+    oracle = np.array([ref_fitting_loss(cs, r, lab) for r, lab in zip(sr, sl)])
+    assert got.shape == (t,)
+    assert _rel(got, pallas).max() < 1e-5
+    assert _rel(got, oracle).max() < 1e-3
+
+
+@pytest.mark.parametrize("n,m,k,leaves,t", CASES)
+def test_plain_single_matches_reference_pallas_and_oracle(n, m, k, leaves, t):
+    cs = _coreset(n, m, k)
+    sr, sl = _trees(n, m, leaves, 1, seed=t)
+    got = fl_ops.coreset_loss(_carried(cs), sr[0], sl[0], device="cpu")
+    pallas = float(ref_fl.coreset_loss(cs, sr[0], sl[0], interpret=True))
+    assert _rel(got, pallas) < 1e-5
+    assert _rel(got, ref_fitting_loss(cs, sr[0], sl[0])) < 1e-3
+
+
+def test_carried_coreset_scores_alike_in_both_packages():
+    cs = _coreset(64, 48, 6)
+    port = _carried(cs)
+    assert port.fingerprint() == cs.fingerprint()
+    sr, sl = _trees(64, 48, 9, 6)
+    assert np.array_equal(ops.fitting_loss_batched(port, sr, sl, backend="numpy"),
+                          ref_ops.fitting_loss_batched(cs, sr, sl, backend="numpy"))
+    for r, lab in zip(sr, sl):
+        assert (ops.fitting_loss(port, r, lab, backend="numpy")
+                == ref_ops.fitting_loss(cs, r, lab, backend="numpy"))
+    torch_losses = ops.fitting_loss_batched(port, sr, sl, backend="torch")
+    assert _rel(torch_losses, ref_ops.fitting_loss_batched(
+        cs, sr, sl, backend="xla")).max() < 1e-5
+
+
+def test_zero_area_padding_leaves_add_nothing():
+    cs = _carried(_coreset(57, 41, 5))
+    sr, sl = _trees(57, 41, 7, 4)
+    padded_r = np.concatenate([sr, np.zeros((4, 5, 4))], axis=1)
+    padded_l = np.concatenate([sl, np.zeros((4, 5))], axis=1)
+    a = fl_ops.coreset_loss_batched(cs, sr, sl, device="cpu")
+    b = fl_ops.coreset_loss_batched(cs, padded_r, padded_l, device="cpu")
+    assert _rel(a, b).max() < 1e-6
+
+
+def test_pack_layout():
+    rects = torch.arange(8.).reshape(2, 4)
+    blk = fl_kernel.pack_blocks(rects, rects + 10, rects + 20)
+    assert blk.shape == (2, 16) and blk.dtype == torch.float32
+    assert torch.equal(blk[:, 8:12], rects + 20)
+    assert torch.equal(blk[:, 12:], torch.zeros(2, 4))
+    seg = fl_kernel.pack_trees(torch.ones(3, 5, 4), torch.full((3, 5), 7.))
+    assert seg.shape == (3, 5, 8)
+    assert torch.equal(seg[..., 4], torch.full((3, 5), 7.))
+
+
+def test_cuda_launcher_refuses_cpu_tensors():
+    with pytest.raises((RuntimeError, ValueError)):
+        fl_kernel.fitting_loss_batched_cuda(torch.zeros(3, 16),
+                                            torch.zeros(1, 2, 8))
