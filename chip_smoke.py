@@ -1,7 +1,8 @@
 """Drive the repro_torch main path on one CUDA card and check it.
 
-    python3 chip_smoke.py            # the full-size run: a 4096 x 4096 signal
-    python3 chip_smoke.py --n 512    # a quicker run on a smaller signal
+    python3 chip_smoke.py
+
+at one size: a 4096 x 4096 signal, trees of 64 leaves, batches of 256.
 
 Phases, one JSON line each:
 
@@ -14,7 +15,9 @@ Phases, one JSON line each:
               the numpy backend's
   serve       single-tree loss requests, then batched (loss:batch / tuning
               sweep) requests with their argmin, against the numpy oracle
-  counts      the launches of every kernel during build_path + serve
+  counts      the launches of every kernel during build_path + serve, then
+              those of the script's own float32 sat_moments call (off the
+              main path: the build uses float64)
   build_stages  host seconds of each numpy stage of the build, one by one
 
 then the kernel table, nvidia-smi's line, and a last line
@@ -25,7 +28,6 @@ the repro_torch package only.
 """
 from __future__ import annotations
 
-import argparse
 import json
 import pathlib
 import subprocess
@@ -64,21 +66,48 @@ def rel_err(got, want):
     return np.abs(got - want) / np.maximum(np.abs(want), 1e-30)
 
 
-def device_ms(fn, reps: int) -> float:
-    """Mean device time of ``fn`` over ``reps`` back-to-back calls, by CUDA
-    events, after a warm-up."""
+_SPIN_CYCLES_PER_MS = []
+
+
+def spin_cycles_per_ms() -> float:
+    """Clock cycles per ms of ``torch.cuda._sleep``'s spin kernel."""
+    import torch
+    if not _SPIN_CYCLES_PER_MS:
+        torch.cuda._sleep(1000)
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        torch.cuda._sleep(10_000_000)
+        stop.record()
+        stop.synchronize()
+        _SPIN_CYCLES_PER_MS.append(10_000_000 / start.elapsed_time(stop))
+    return _SPIN_CYCLES_PER_MS[0]
+
+
+def device_ms(fn, reps: int) -> tuple[float, float]:
+    """Mean device ms of ``fn`` over ``reps`` back-to-back calls, by CUDA
+    events after a warm-up, and the mean host wall ms of one call.
+
+    A spin kernel holds the stream while the calls are queued, so the events
+    see the device's work only, not the host's launch path between calls."""
     import torch
     for _ in range(2):
         fn()
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(spin_cycles_per_ms() * (2 * wall_ms + 1)))
     start.record()
     for _ in range(reps):
         fn()
     stop.record()
     stop.synchronize()
-    return start.elapsed_time(stop) / reps
+    return start.elapsed_time(stop) / reps, wall_ms / reps
 
 
 def phase_device():
@@ -130,11 +159,12 @@ def check_sat(y_host, dtype, kern, plain_tol):
     n, m = y_host.shape
     stk = torch.stack([torch.ones_like(y), y, y * y])
     size = torch.finfo(dtype).bits // 8
+    ms, wall_ms = device_ms(lambda: sat_kernel.sat_moments_cuda(y), 10)
     row = {
-        "ms": device_ms(lambda: sat_kernel.sat_moments_cuda(y), 10),
-        "plain_ms": device_ms(lambda: sat_moments_ref(y), 10),
+        "ms": ms, "wall_ms": wall_ms,
+        "plain_ms": device_ms(lambda: sat_moments_ref(y), 10)[0],
         "library_ms": device_ms(
-            lambda: torch.cumsum(torch.cumsum(stk, dim=2), dim=1), 10),
+            lambda: torch.cumsum(torch.cumsum(stk, dim=2), dim=1), 10)[0],
         "max_abs_err": max(err),
     }
     bytes_ = 4 * n * m * size                     # read y, write 3 images
@@ -200,7 +230,9 @@ def check_fitting_loss(cs, rects, labels):
              lambda: fl_kernel.fitting_loss_batched_cuda(blk, seg),
              lambda: fitting_loss_batched_ref(cr, cl, cw, sr, sl),
              float(np.abs(got - plain).max()))):
-        row = {"name": name, "ms": device_ms(fn, 20), "plain_ms": device_ms(pfn, 5),
+        ms, wall_ms = device_ms(fn, 20)
+        row = {"name": name, "ms": ms, "wall_ms": wall_ms,
+               "plain_ms": device_ms(pfn, 5)[0],
                "library_ms": None, "max_abs_err": err,
                "kernel": (fl_kernel.FITTING_LOSS if T_ == 1
                           else fl_kernel.FITTING_LOSS_BATCHED)}
@@ -242,12 +274,7 @@ def phase_build_stages(y, ps, k, eps, cs):
     emit("build_stages", host_seconds=sec)
 
 
-def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--n", type=int, default=4096, help="signal edge (n = m)")
-    ap.add_argument("--trees", type=int, default=256, help="trees per batch")
-    args = ap.parse_args(argv)
-
+def main() -> int:
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -264,8 +291,8 @@ def main(argv=None) -> int:
     smi = phase_device()
     phase_build()
 
-    n = m = args.n
-    k, eps, leaves = 64, 0.3, 64
+    n = m = 4096
+    k, eps, leaves, batch = 64, 0.3, 64, 256
     y = piecewise_signal(n, m, k, noise=0.15, seed=0)
 
     # the numpy-backend build: the fingerprint the cuda build must reproduce,
@@ -288,17 +315,16 @@ def main(argv=None) -> int:
     # ---------------------------------------------------------------- kernels
     rows = [check_sat(y, torch.float64, sat_kernel.SAT_MOMENTS_F64, 1e-12),
             check_sat(y, torch.float32, sat_kernel.SAT_MOMENTS_F32, 5e-4)]
-    fl_rows, fl_oracle_err = check_fitting_loss(cs_np, *trees(args.trees))
+    fl_rows, fl_oracle_err = check_fitting_loss(cs_np, *trees(batch))
     rows += fl_rows
     emit("kernels", checked=[r["name"] for r in rows],
          fitting_loss_vs_oracle_max_rel=fl_oracle_err,
          times_ms={r["name"]: {key: r[key] for key in (
-             "ms", "plain_ms", "library_ms", "bound_ms")} for r in rows})
+             "ms", "wall_ms", "plain_ms", "library_ms", "bound_ms")} for r in rows})
 
     # ------------------------------------------------------------- main path
-    kernels = [r["kernel"] for r in rows]
-    for kern in kernels:
-        kern.launches = 0
+    for r in rows:
+        r["kernel"].launches = 0
     ops.reset_dispatch_counts()
 
     torch.cuda.synchronize()
@@ -311,12 +337,6 @@ def main(argv=None) -> int:
     host_s = time.perf_counter() - t0
     check(cs.fingerprint() == cs_np.fingerprint(),
           "cuda-backend coreset fingerprint differs from the numpy backend's")
-    # the same images in the reference TPU kernel's type, held to the f64 ones
-    s32 = ops.sat_moments(y, dtype=np.float32)
-    for c, p in enumerate((ps.p0, ps.p1, ps.p2)):
-        d = np.abs(s32[c].astype(np.float64) - p[1:, 1:]).max()
-        check(d <= 5e-4 * np.abs(p).max(), f"float32 images channel {c}: {d}")
-    del s32
     emit("build_path", n=n, m=m, k=k, eps=eps, blocks=cs.num_blocks,
          fingerprint=cs.fingerprint(), prefix_stats_s=ps_s,
          host_stages_s=host_s, build_s=ps_s + host_s,
@@ -333,13 +353,13 @@ def main(argv=None) -> int:
         single_err.append(float(rel_err(loss, fitting_loss(cs, r[0], lab[0]))))
     batch_lat, batch_err, best = [], [], []
     for _ in range(4):
-        r, lab = trees(args.trees)
+        r, lab = trees(batch)
         t0 = time.perf_counter()
         losses = ops.fitting_loss_batched(cs, r, lab)
         i = int(np.argmin(losses))
         batch_lat.append(time.perf_counter() - t0)
         want = np.array([fitting_loss(cs, a, b) for a, b in zip(r, lab)])
-        check(np.isfinite(losses).all() and losses.shape == (args.trees,),
+        check(np.isfinite(losses).all() and losses.shape == (batch,),
               "batched losses not finite or misshapen")
         batch_err.append(float(rel_err(losses, want).max()))
         best.append([i, float(losses[i])])
@@ -347,15 +367,29 @@ def main(argv=None) -> int:
           f"served losses vs numpy oracle: {max(single_err)}, {max(batch_err)}")
     emit("serve", single={"requests": 8, "p50_s": float(np.median(single_lat)),
                           "max_s": max(single_lat), "max_rel_err": max(single_err)},
-         batched={"requests": 4, "trees": args.trees, "leaves": leaves,
+         batched={"requests": 4, "trees": batch, "leaves": leaves,
                   "p50_s": float(np.median(batch_lat)), "max_s": max(batch_lat),
                   "max_rel_err": max(batch_err), "argmin": best})
 
     counts = {r["name"]: r["kernel"].launches for r in rows}
-    emit("counts", launches=counts,
-         dispatches={f"{o}/{b}": c for (o, b), c in ops.dispatch_counts().items()})
+    dispatches = {f"{o}/{b}": c for (o, b), c in ops.dispatch_counts().items()}
+    # the build/serve path uses float64 images; the float32 kernel (the TPU
+    # kernel's own type) runs in a call of the script's own, counted apart
+    # and held to the float64 images
+    own = sat_kernel.SAT_MOMENTS_F32
+    own.launches = 0
+    s32 = ops.sat_moments(y, dtype=np.float32)
+    own_counts = {"sat_moments_f32": own.launches}
+    for c, p in enumerate((ps.p0, ps.p1, ps.p2)):
+        d = np.abs(s32[c].astype(np.float64) - p[1:, 1:]).max()
+        check(d <= 5e-4 * np.abs(p).max(), f"float32 images channel {c}: {d}")
+    del s32
+    counts.update(own_counts)
+    emit("counts", launches={name: c for name, c in counts.items()
+                             if name not in own_counts},
+         dispatches=dispatches, outside_main_path=own_counts)
     for name, c in counts.items():
-        check(c > 0, f"kernel {name} was not launched on the main path")
+        check(c > 0, f"kernel {name} was not launched")
     phase_build_stages(y, ps, k, eps, cs)
 
     replaces = {
@@ -373,7 +407,10 @@ def main(argv=None) -> int:
                       "launches": counts[r["name"]],
                       "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                       "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-                      "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+                      "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+                      **({"launched_by": "chip_smoke's own float32 call, outside "
+                                         "build/serve"}
+                         if r["name"] in own_counts else {})})
     print(json.dumps({"kernels": table}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

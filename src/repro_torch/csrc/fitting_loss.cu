@@ -30,7 +30,8 @@
 
 namespace {
 
-constexpr int THREADS = 256;  // coreset blocks per CTA, one per thread
+// coreset blocks per CTA, one per thread; CHUNK in kernels/fitting_loss/kernel.py
+constexpr int THREADS = 256;
 constexpr int KTILE = 256;    // leaves staged in shared memory at a time
 
 __global__ void __launch_bounds__(THREADS)
@@ -108,8 +109,6 @@ __global__ void fl_reduce(const float* __restrict__ partial, float* __restrict__
 }
 
 }  // namespace
-
-extern "C" int fitting_loss_chunk(void) { return THREADS; }
 
 // blk (B, 16): rects | labels | weights | unused; seg (T, K, 8): rect | label
 // | unused; partial (T, ceil(B / THREADS)) scratch; out (T,).  B, T, K >= 1,

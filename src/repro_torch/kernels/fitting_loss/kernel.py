@@ -14,7 +14,7 @@ import ctypes
 
 import torch
 
-from ..common import CudaKernel, ceil_div, library, require_cuda
+from ..common import CudaKernel, ceil_div, require_cuda
 
 __all__ = ["FITTING_LOSS", "FITTING_LOSS_BATCHED", "pack_blocks",
            "pack_trees", "fitting_loss_batched_cuda", "fitting_loss_cuda"]
@@ -23,6 +23,9 @@ _ARGS = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
          ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
 FITTING_LOSS_BATCHED = CudaKernel("fitting_loss", "fitting_loss_batched", _ARGS)
 FITTING_LOSS = CudaKernel("fitting_loss", "fitting_loss_batched", _ARGS)
+# coreset blocks per CTA: THREADS in csrc/fitting_loss.cu, which sizes the
+# (T, ceil(B / CHUNK)) partials the launcher is given
+CHUNK = 256
 
 
 def pack_blocks(rects, labels4, weights4) -> torch.Tensor:
@@ -50,14 +53,13 @@ def _launch(kern: CudaKernel, blk: torch.Tensor, seg: torch.Tensor) -> torch.Ten
     if blk.device != seg.device:
         raise ValueError("blocks and trees lie on different devices")
     B, (T, K) = blk.shape[0], seg.shape[:2]
-    out = torch.zeros(T, dtype=torch.float32, device=blk.device)
     if B == 0 or T == 0 or K == 0:
-        return out
-    chunk = library("fitting_loss").fitting_loss_chunk()
-    nchunks = ceil_div(B, chunk)
+        return torch.zeros(T, dtype=torch.float32, device=blk.device)
+    nchunks = ceil_div(B, CHUNK)
     if T >= 2**31 or nchunks > 65535 or K >= 2**31:
         raise ValueError(f"unsupported sizes B={B} T={T} K={K}")
     partial = torch.empty((T, nchunks), dtype=torch.float32, device=blk.device)
+    out = torch.empty(T, dtype=torch.float32, device=blk.device)
     blk, seg = blk.contiguous(), seg.contiguous()
     with torch.cuda.device(blk.device):
         kern(blk.data_ptr(), seg.data_ptr(), partial.data_ptr(), out.data_ptr(),
