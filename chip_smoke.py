@@ -2,7 +2,9 @@
 
     python3 chip_smoke.py
 
-at one size: a 4096 x 4096 signal, trees of 64 leaves, batches of 256.
+at one size: slice 1 at a 4096 x 4096 signal, trees of 64 leaves, batches
+of 256; slice 2 (the §5 tuning path) at the Air-Quality shape 9358 x 15 of
+the paper's §5, the signal-tree config's coreset and forests.
 
 Phases, one JSON line each:
 
@@ -14,11 +16,23 @@ Phases, one JSON line each:
   build_path  signal_coreset on the cuda backend; its fingerprint must equal
               the numpy backend's
   serve       single-tree loss requests, then batched (loss:batch / tuning
-              sweep) requests with their argmin, against the numpy oracle
+              sweep) requests through best_segmentation, against the numpy
+              oracle
   counts      the launches of every kernel during build_path + serve, then
               those of the script's own float32 sat_moments call (off the
               main path: the build uses float64)
   build_stages  host seconds of each numpy stage of the build, one by one
+  hist_kernels  each histsplit kernel against its plain version on the card
+              (the float64 one against numpy, bitwise) at three shapes: the
+              full training set's root node, the coreset's root node and
+              the 2^24 points of the 4096 x 4096 raster, with times
+  tuning      tune_k over k in KS with methods full, coreset and uniform,
+              once on the auto backend (the card) and once on numpy: equal
+              results bitwise, the coreset within 2x of the full data's SSE;
+              the launches of every kernel during the auto run, the
+              hist_split dispatches and their host seconds on both runs
+  variants    the float32 histsplit variants through ops.hist_split, the
+              script's own calls off the main path (which uses float64)
 
 then the kernel table, nvidia-smi's line, and a last line
 {"ok": true, "device": {...}}.  Any failed check exits non-zero before the
@@ -45,6 +59,16 @@ FP64_FLOP_PER_S = 34e12
 # clipped overlaps (4 each), z, Z, Z - z (3), and per point min, max, sub,
 # max, sub, two products and the add (8 x 4)
 FL_OPS_PER_TRIPLE = 43
+# the tuning sweep of slice 2 and cart's histogram width (max_bins + 1)
+KS = [8, 16, 32, 64, 128, 256]
+HIST_BINS = 256
+HIST_TILE = 2048
+# bars of the float32 histsplit variants against their plain versions and
+# the float64 oracle, in the reference's scaled measure (scaled_err): its
+# float32 kernel tolerance (tests/test_ops.py) and the compensated path's
+# certificate (ops/autotune.py PARITY_RTOL)
+HIST_F32_TOL = 2e-4
+HIST_PARTIALS_TOL = 1e-6
 
 
 class CheckFailed(Exception):
@@ -64,6 +88,16 @@ def rel_err(got, want):
     import numpy as np
     got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
     return np.abs(got - want) / np.maximum(np.abs(want), 1e-30)
+
+
+def scaled_err(got, want) -> float:
+    """max |got - want| over the output's largest magnitude (floor 1), the
+    reference's certificate measure: a bin whose w*y sum cancels to near
+    zero keeps the rounding error of its terms, which an elementwise
+    relative error would blow up."""
+    import numpy as np
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return float(np.abs(got - want).max() / max(np.abs(want).max(), 1.0))
 
 
 _SPIN_CYCLES_PER_MS = []
@@ -108,6 +142,16 @@ def device_ms(fn, reps: int) -> tuple[float, float]:
     stop.record()
     stop.synchronize()
     return start.elapsed_time(stop) / reps, wall_ms / reps
+
+
+def host_ms(fn, reps: int) -> float:
+    """Mean host wall ms of one call of ``fn`` that returns its result on
+    the host, after a warm-up call."""
+    fn()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    return (time.perf_counter() - t0) * 1e3 / reps
 
 
 def phase_device():
@@ -274,6 +318,187 @@ def phase_build_stages(y, ps, k, eps, cs):
     emit("build_stages", host_seconds=sec)
 
 
+def hist_inputs(X, y, w):
+    """hist_split's inputs at a forest tree's root over (X, y, w): cart's own
+    quantile binning into uint8 codes, and the (w, wy, wy2) channels."""
+    from repro_torch.trees import apply_bins, quantile_bins
+    codes = apply_bins(X, quantile_bins(X, HIST_BINS - 1))
+    return codes, w, w * y, w * y * y
+
+
+def check_histsplit(shapes):
+    """Each histsplit kernel at each of ``shapes`` against its plain version
+    on the card, the float64 one also against numpy bitwise and the fused
+    one against itself over two runs, with CUDA-event times beside the plain
+    version's, the library call's (torch.bincount per feature and channel)
+    and the bound; for the float64 one also the host ms of one whole
+    ops.hist_split call on the card and on numpy.  Returns one table row
+    per kernel; its times are those at the first shape, every shape's are
+    under ``at_shapes``."""
+    import numpy as np
+    import torch
+    from repro_torch import ops
+    from repro_torch.kernels.histsplit import kernel as hk
+    from repro_torch.kernels.histsplit.ops import pack_values
+    from repro_torch.kernels.histsplit.ref import histograms_ref, partials_ref
+    kernels = {"f64": ("hist_f64", hk.HIST_F64),
+               "fused": ("hist_fused_f32", hk.HIST_FUSED),
+               "partials": ("hist_partials_f32", hk.HIST_PARTIALS),
+               "legacy": ("hist_legacy_f32", hk.HIST_LEGACY)}
+    rows = {v: {"name": name, "kernel": kern, "at_shapes": []}
+            for v, (name, kern) in kernels.items()}
+    B = HIST_BINS
+    for label, (codes, w, wy, wy2) in shapes.items():
+        P, F = codes.shape
+        C = -(-P // HIST_TILE)
+        reps = 3 if P > 1 << 20 else 20
+        oracle = ops.hist_split(codes, w, wy, wy2, B, backend="numpy")
+        c = torch.as_tensor(codes, device="cuda")
+        cols = [c[:, f].contiguous() for f in range(F)]
+        tile = torch.arange(P, device="cuda") // HIST_TILE * B
+        dev = [torch.as_tensor(a, device="cuda") for a in (w, wy, wy2)]
+        for variant, row in rows.items():
+            vals = pack_values(*dev, variant)
+            S, size = vals.shape[1], vals.element_size()
+
+            def kern(vals=vals, variant=variant):
+                return hk.histograms_cuda(c, vals, B, variant=variant,
+                                          tile_p=HIST_TILE)
+            if variant == "partials":
+                def plain(vals=vals):
+                    return partials_ref(c, vals, B, HIST_TILE)
+                ids = [tile + col for col in cols]
+
+                def library(vals=vals, ids=ids):
+                    return [torch.bincount(i, weights=vals[:, s], minlength=C * B)
+                            for i in ids for s in range(S)]
+            else:
+                def plain(vals=vals):
+                    return histograms_ref(c, vals, B)
+
+                def library(vals=vals):
+                    return [torch.bincount(col, weights=vals[:, s], minlength=B)
+                            for col in cols for s in range(S)]
+            got, want = kern(), plain()
+            torch.cuda.synchronize()
+            err = float((got.double() - want.double()).abs().max())
+            at = {"shape": label, "P": P, "max_abs_err": err}
+            if variant == "f64":
+                check(np.array_equal(got.cpu().numpy(), oracle),
+                      f"hist f64 at {label} differs from numpy")
+                # what one node's op call costs end to end: pack, one
+                # upload, the launch, the copy back; beside numpy's
+                for backend in ("cuda", "numpy"):
+                    at[f"{backend}_op_call_ms"] = host_ms(
+                        lambda backend=backend: ops.hist_split(
+                            codes, w, wy, wy2, B, backend=backend), reps)
+                at["scaled_err"] = scaled_err(got.cpu(), want.cpu())
+                check(at["scaled_err"] <= 1e-12,
+                      f"hist f64 at {label} vs plain: {at['scaled_err']}")
+            else:
+                at["scaled_err"] = scaled_err(got.cpu(), want.cpu())
+                check(at["scaled_err"] <= HIST_F32_TOL,
+                      f"hist {variant} at {label} vs plain: {at['scaled_err']}")
+            if variant == "partials":
+                p = got.cpu().numpy().astype(np.float64)
+                at["certificate"] = scaled_err(
+                    p[..., :3].sum(axis=0) + p[..., 3:].sum(axis=0), oracle)
+                check(at["certificate"] <= HIST_PARTIALS_TOL,
+                      f"hist partials at {label} vs numpy: {at['certificate']}")
+            if variant == "fused":
+                check(torch.equal(kern(), got),
+                      f"hist fused at {label} differs from run to run")
+            at["ms"], at["wall_ms"] = device_ms(kern, reps)
+            at["plain_ms"] = device_ms(plain, reps)[0]
+            at["library_ms"] = device_ms(library, reps)[0]
+            out_bytes = (C if variant == "partials" else 1) * F * B * S * size
+            peak = FP64_FLOP_PER_S if variant == "f64" else FP32_FLOP_PER_S
+            at.update(bound(P * F + P * S * size + out_bytes, S * P * F, peak))
+            row["at_shapes"].append(at)
+    for row in rows.values():
+        first = row["at_shapes"][0]
+        row.update({key: first[key] for key in (
+            "ms", "wall_ms", "plain_ms", "library_ms", "bound_ms", "bound_by")})
+        row["max_abs_err"] = max(a["max_abs_err"] for a in row["at_shapes"])
+    return list(rows.values())
+
+
+def phase_tuning(y, train, test, kernels):
+    """The §5 sweep on the auto backend (the card) with every kernel's count
+    at 0 just before it, then on numpy; returns the auto run's launches."""
+    import numpy as np
+    from repro_torch import ops
+    from repro_torch.configs import CONFIG
+    from repro_torch.trees import tune_k
+    kw = dict(ks=KS, coreset_k=CONFIG.k, target_frac=CONFIG.target_frac,
+              n_estimators=CONFIG.n_estimators)
+    runs = {}
+    for backend in ("auto", "numpy"):
+        if backend == "auto":
+            for kern in kernels.values():
+                kern.launches = 0
+        ops.reset_dispatch_counts()
+        t0 = time.perf_counter()
+        res = tune_k(y, train, test, hist_backend=backend, **kw)
+        wall = time.perf_counter() - t0
+        if backend == "auto":
+            launches = {name: kern.launches for name, kern in kernels.items()}
+        runs[backend] = {
+            "result": res, "seconds": wall,
+            "dispatches": {f"{o}/{b}": c for (o, b), c in ops.dispatch_counts().items()},
+            "dispatch_seconds": {f"{o}/{b}": t for (o, b), t
+                                 in ops.dispatch_seconds().items()}}
+    res, res_np = runs["auto"]["result"], runs["numpy"]["result"]
+    calls = runs["auto"]["dispatches"].get("hist_split/cuda", 0)
+    check(calls > 0 and set(runs["auto"]["dispatches"]) == {"hist_split/cuda"},
+          f"tune_k on auto dispatched {runs['auto']['dispatches']}")
+    check(launches["hist_f64"] == calls,
+          f"{launches['hist_f64']} float64 histsplit launches for {calls} dispatches")
+    check(all(np.isfinite(v).all() for v in res.losses.values()),
+          "held-out SSE not finite")
+    check(res.losses == res_np.losses, "cuda and numpy tune_k losses differ")
+    check(res.best_k == res_np.best_k and res.sizes == res_np.sizes,
+          "cuda and numpy tune_k best k or sizes differ")
+    check(min(res.losses["coreset"]) <= 2 * min(res.losses["full"]),
+          "coreset SSE beyond twice the full data's")
+    hs = runs["auto"]["dispatch_seconds"]["hist_split/cuda"]
+    hs_np = runs["numpy"]["dispatch_seconds"]["hist_split/numpy"]
+    emit("tuning", n=y.shape[0], m=y.shape[1], ks=KS, coreset_k=CONFIG.k,
+         target_frac=CONFIG.target_frac, n_estimators=CONFIG.n_estimators,
+         methods={name: {"seconds": res.times[name], "size": res.sizes[name],
+                         "best_k": res.best_k[name],
+                         "min_sse": min(res.losses[name]),
+                         "numpy_seconds": res_np.times[name]}
+                  for name in res.losses},
+         losses=res.losses, wall_s=runs["auto"]["seconds"],
+         numpy_wall_s=runs["numpy"]["seconds"],
+         hist_split_dispatches=calls, launches=launches,
+         hist_split_host_s=hs, numpy_hist_split_host_s=hs_np,
+         hist_split_ms_per_call=hs / calls * 1e3,
+         numpy_hist_split_ms_per_call=hs_np / runs["numpy"]["dispatches"][
+             "hist_split/numpy"] * 1e3)
+    return launches
+
+
+def phase_variants(inputs, kernels):
+    """The float32 histsplit variants through ops.hist_split on the card:
+    the script's own calls, off the main path, counted apart and held to
+    the numpy oracle.  Returns their launches."""
+    from repro_torch import ops
+    oracle = ops.hist_split(*inputs, HIST_BINS, backend="numpy")
+    own, errs = {}, {}
+    for variant, name, tol in (("fused", "hist_fused_f32", HIST_F32_TOL),
+                               ("legacy", "hist_legacy_f32", HIST_F32_TOL),
+                               ("partials", "hist_partials_f32", HIST_PARTIALS_TOL)):
+        kernels[name].launches = 0
+        got = ops.hist_split(*inputs, HIST_BINS, backend="cuda", variant=variant)
+        own[name] = kernels[name].launches
+        errs[name] = scaled_err(got, oracle)
+        check(errs[name] <= tol, f"ops.hist_split {variant} vs numpy: {errs[name]}")
+    emit("variants", P=len(inputs[1]), launches=own, scaled_err_vs_numpy=errs)
+    return own
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -282,11 +507,13 @@ def main() -> int:
     import numpy as np
 
     from repro_torch import ops
+    from repro_torch.configs import CONFIG
     from repro_torch.core import (PrefixStats, fitting_loss,
                                   random_tree_segmentation, signal_coreset)
-    from repro_torch.data import piecewise_signal
+    from repro_torch.data import patch_mask, piecewise_signal, sensor_matrix
     from repro_torch.kernels.fitting_loss import kernel as fl_kernel
     from repro_torch.kernels.sat2d import kernel as sat_kernel
+    from repro_torch.trees import best_segmentation, signal_to_points
 
     smi = phase_device()
     phase_build()
@@ -355,21 +582,22 @@ def main() -> int:
     for _ in range(4):
         r, lab = trees(batch)
         t0 = time.perf_counter()
-        losses = ops.fitting_loss_batched(cs, r, lab)
-        i = int(np.argmin(losses))
+        i, loss = best_segmentation(cs, r, lab)
         batch_lat.append(time.perf_counter() - t0)
         want = np.array([fitting_loss(cs, a, b) for a, b in zip(r, lab)])
-        check(np.isfinite(losses).all() and losses.shape == (batch,),
-              "batched losses not finite or misshapen")
-        batch_err.append(float(rel_err(losses, want).max()))
-        best.append([i, float(losses[i])])
+        check(np.isfinite(loss) and 0 <= i < batch,
+              "best segmentation not finite or out of range")
+        check(want[i] <= want.min() * (1 + 1e-3),
+              f"best segmentation {i} is not the oracle's best within 1e-3")
+        batch_err.append(float(rel_err(loss, want[i])))
+        best.append([i, loss])
     check(max(single_err) <= 1e-3 and max(batch_err) <= 1e-3,
           f"served losses vs numpy oracle: {max(single_err)}, {max(batch_err)}")
     emit("serve", single={"requests": 8, "p50_s": float(np.median(single_lat)),
                           "max_s": max(single_lat), "max_rel_err": max(single_err)},
          batched={"requests": 4, "trees": batch, "leaves": leaves,
                   "p50_s": float(np.median(batch_lat)), "max_s": max(batch_lat),
-                  "max_rel_err": max(batch_err), "argmin": best})
+                  "best_max_rel_err": max(batch_err), "best": best})
 
     counts = {r["name"]: r["kernel"].launches for r in rows}
     dispatches = {f"{o}/{b}": c for (o, b), c in ops.dispatch_counts().items()}
@@ -392,25 +620,55 @@ def main() -> int:
         check(c > 0, f"kernel {name} was not launched")
     phase_build_stages(y, ps, k, eps, cs)
 
+    # ------------------------------------------- slice 2: the §5 tuning path
+    ys = sensor_matrix(9358, 15, seed=0)
+    train, test = patch_mask(*ys.shape, CONFIG.test_fraction, CONFIG.patch,
+                             seed=1)
+    X_tr, y_tr = signal_to_points(ys, train)
+    roots = {"full_root": hist_inputs(X_tr, y_tr, np.ones(len(y_tr))),
+             "coreset_root": hist_inputs(*CONFIG.build(ys, mask=train).as_points())}
+    X_r, y_r = signal_to_points(y)
+    roots["raster_2^24"] = hist_inputs(X_r, y_r, np.ones(len(y_r)))
+    del X_r, y_r
+    hist_rows = check_histsplit(roots)
+    emit("hist_kernels", checked=[r["name"] for r in hist_rows],
+         at_shapes={r["name"]: r["at_shapes"] for r in hist_rows})
+    del roots["raster_2^24"]
+    rows += hist_rows
+
+    kernels = {r["name"]: r["kernel"] for r in rows}
+    tuning_counts = phase_tuning(ys, train, test, kernels)
+    counts.update({name: c for name, c in tuning_counts.items()
+                   if name.startswith("hist_")})
+    variant_counts = phase_variants(roots["coreset_root"], kernels)
+    counts.update(variant_counts)
+    own_counts.update(variant_counts)
+
     replaces = {
         "sat_moments_f64": "src/repro/kernels/sat2d/kernel.py:78",
         "sat_moments_f32": "src/repro/kernels/sat2d/kernel.py:78",
         "fitting_loss": "src/repro/kernels/fitting_loss/kernel.py:100",
         "fitting_loss_batched": "src/repro/kernels/fitting_loss/kernel.py:163",
+        "hist_f64": "src/repro/kernels/histsplit/kernel.py:151",
+        "hist_fused_f32": "src/repro/kernels/histsplit/kernel.py:151",
+        "hist_partials_f32": "src/repro/kernels/histsplit/kernel.py:137",
+        "hist_legacy_f32": "src/repro/kernels/histsplit/kernel.py:124",
     }
+    sources = {"sat": "sat2d", "fit": "fitting_loss", "his": "histsplit"}
     table = []
     for r in rows:
-        src = "sat2d" if r["name"].startswith("sat") else "fitting_loss"
         table.append({"name": r["name"], "route": "cuda",
-                      "source": f"src/repro_torch/csrc/{src}.cu",
+                      "source": f"src/repro_torch/csrc/{sources[r['name'][:3]]}.cu",
                       "replaces": replaces[r["name"]],
                       "launches": counts[r["name"]],
                       "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                       "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                       "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-                      **({"launched_by": "chip_smoke's own float32 call, outside "
-                                         "build/serve"}
-                         if r["name"] in own_counts else {})})
+                      **({"launched_by": "chip_smoke's own call, outside the "
+                                         "main paths"}
+                         if r["name"] in own_counts else {}),
+                      **({"timed_at": r["at_shapes"][0]["shape"]}
+                         if "at_shapes" in r else {})})
     print(json.dumps({"kernels": table}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -197,8 +197,8 @@ def signal_coreset(values: np.ndarray, k: int, eps: float, *,
                    _stats: PrefixStats | None = None) -> SignalCoreset:
     """SIGNAL-CORESET(D, k, eps); see Theorem 8.
 
-    ``mask`` (the reference's §5 missing-value protocol) needs the
-    write-path slice and raises ``NotImplementedError`` here.
+    ``mask`` (optional) marks observed cells; unobserved cells carry no mass
+    (the §5 missing-value protocol compresses only the available data).
 
     ``_stats`` (internal) supplies prebuilt integral images of ``values``, so
     repeated (k, eps) builds of one signal skip the O(N) prefix-sum rebuild.
@@ -219,11 +219,12 @@ def signal_coreset(values: np.ndarray, k: int, eps: float, *,
     y = np.asarray(values, dtype=np.float64)
     n, m = y.shape
     if mask is not None:
-        # the reference builds masked signals through
-        # streaming.weighted_signal_coreset, which arrives with the write path
-        raise NotImplementedError(
-            "signal_coreset(mask=...) needs the streaming module of the "
-            "write-path slice, which is not ported yet")
+        from .streaming import weighted_signal_coreset
+        rows, cols = np.nonzero(mask)
+        return weighted_signal_coreset(
+            n, m, rows, cols, y[mask], np.ones(rows.size), k, eps,
+            fidelity=fidelity, tolerance_override=tolerance_override,
+            max_slices_override=max_slices_override, _sigma_hint=_sigma_hint)
 
     if _stats is not None and _stats.shape != y.shape:
         raise ValueError(f"_stats shape {_stats.shape} != signal {y.shape}")

@@ -11,10 +11,10 @@ The same six op names and public signatures as ``repro.ops``:
   ``streaming_compress(coresets)``       merge-reduce recompress
 
 Each dispatches through the backend registry (numpy oracle / plain torch
-on the CPU / CUDA kernel) by the rules in ``registry.py``.  This slice of
-the port registers ``sat_moments``, ``fitting_loss`` and
-``fitting_loss_batched``; the other three raise ``BackendError`` naming the
-slice that brings them.
+on the CPU / CUDA kernel) by the rules in ``registry.py``.  The port
+registers ``sat_moments``, ``fitting_loss``, ``fitting_loss_batched`` and
+``hist_split``; ``delta_sat`` and ``streaming_compress`` raise
+``BackendError`` naming the write-path slice that brings them.
 """
 from __future__ import annotations
 
@@ -23,14 +23,15 @@ import numpy as np
 from . import backends as _backends  # noqa: F401  (registers implementations)
 from .registry import (BACKENDS, ENV_VAR, OPS, BackendError,
                        available_backends, backend_override, dispatch,
-                       dispatch_counts, register, reset_dispatch_counts,
-                       resolve, select_backend)
+                       dispatch_counts, dispatch_seconds, register,
+                       reset_dispatch_counts, resolve, select_backend)
 
 __all__ = [
     "OPS", "BACKENDS", "ENV_VAR", "BackendError",
     "available_backends", "backend_override", "dispatch", "dispatch_counts",
-    "register", "reset_dispatch_counts", "resolve", "select_backend",
-    "selected_backend", "sat_moments", "delta_sat", "fitting_loss",
+    "dispatch_seconds", "register", "reset_dispatch_counts", "resolve",
+    "select_backend", "selected_backend", "sat_moments", "delta_sat",
+    "fitting_loss",
     "fitting_loss_batched", "hist_split", "streaming_compress",
     "fitting_loss_size", "fitting_loss_batched_size",
 ]
@@ -104,8 +105,9 @@ def fitting_loss_batched(cs, seg_rects, seg_labels, *,
 
 def hist_split(codes, w, wy, wy2, n_bins: int, *,
                backend: str | None = None, **kw) -> np.ndarray:
-    """(F, n_bins, 3) per-(feature, bin) sums of (w, wy, wy2);
-    codes (P, F) integer bin ids."""
+    """(F, n_bins, 3) float64 per-(feature, bin) sums of (w, wy, wy2);
+    codes (P, F) integer bin ids.  The torch and cuda backends take
+    ``variant="f64"|"fused"|"legacy"|"partials"`` and ``tile_p``."""
     codes = np.asarray(codes)
     if codes.ndim != 2:
         raise ValueError(f"codes must be (P, F), got shape {codes.shape}")

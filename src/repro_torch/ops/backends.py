@@ -1,4 +1,4 @@
-"""Registered backends of the three ops this slice ports.
+"""Registered backends of the ported ops.
 
 Inputs are host values (SignalCoreset, numpy arrays) and outputs numpy
 arrays or Python floats, as in the reference.  ``numpy`` is the reference's
@@ -106,3 +106,41 @@ def _fitting_loss_batched_torch(device):
 
 register("fitting_loss_batched", "torch")(_fitting_loss_batched_torch("cpu"))
 register("fitting_loss_batched", "cuda")(_fitting_loss_batched_torch("cuda"))
+
+# -------------------------------------------------------------- hist_split
+# (F, n_bins, 3) per-(feature, bin) sums of (w, wy, wy2): the CART split
+# search's hot spot.  numpy's bincount is the oracle; the torch and cuda
+# backends' default variant "f64" equals it bitwise, so trees grown on any
+# backend are the same trees.  variant= selects the float32 kernels
+# ("fused", "legacy") or the compensated "partials", as the reference's
+# config={"variant": ...} does.
+
+
+@register("hist_split", "numpy")
+def _hist_split_numpy():
+    def hist(codes, w, wy, wy2, n_bins):
+        codes = np.asarray(codes)
+        out = np.empty((codes.shape[1], n_bins, 3), np.float64)
+        for f in range(codes.shape[1]):
+            c = codes[:, f]
+            out[f, :, 0] = np.bincount(c, weights=w, minlength=n_bins)
+            out[f, :, 1] = np.bincount(c, weights=wy, minlength=n_bins)
+            out[f, :, 2] = np.bincount(c, weights=wy2, minlength=n_bins)
+        return out
+    return hist
+
+
+def _hist_split_torch(device):
+    def factory():
+        from repro_torch.kernels.histsplit.ops import hist_split
+        _check(device)
+
+        def hist(codes, w, wy, wy2, n_bins, variant="f64", tile_p=2048):
+            return hist_split(codes, w, wy, wy2, n_bins, variant=variant,
+                              tile_p=tile_p, device=device)
+        return hist
+    return factory
+
+
+register("hist_split", "torch")(_hist_split_torch("cpu"))
+register("hist_split", "cuda")(_hist_split_torch("cuda"))

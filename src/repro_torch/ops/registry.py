@@ -27,12 +27,14 @@ import collections
 import contextlib
 import os
 import threading
+import time
 from typing import Callable
 
 __all__ = [
     "OPS", "BACKENDS", "ENV_VAR", "BackendError", "register",
     "available_backends", "select_backend", "resolve", "dispatch",
-    "backend_override", "dispatch_counts", "reset_dispatch_counts",
+    "backend_override", "dispatch_counts", "dispatch_seconds",
+    "reset_dispatch_counts",
 ]
 
 OPS = ("sat_moments", "delta_sat", "fitting_loss", "fitting_loss_batched",
@@ -44,7 +46,6 @@ ENV_VAR = "REPRO_TORCH_OPS_BACKEND"
 _LATER_SLICE = {
     "delta_sat": "the write-path slice",
     "streaming_compress": "the write-path slice",
-    "hist_split": "the trees slice",
 }
 
 
@@ -57,6 +58,7 @@ _RESOLVED: dict[tuple[str, str], Callable] = {}
 _LOCK = threading.Lock()
 _OVERRIDE: list[str] = []   # backend_override stack (innermost last)
 _DISPATCHES: collections.Counter = collections.Counter()
+_SECONDS: collections.Counter = collections.Counter()
 
 
 def register(op: str, backend: str):
@@ -144,7 +146,13 @@ def dispatch(op: str, *args, backend: str | None = None, **kw):
     name, fn = resolve(op, backend)
     with _LOCK:
         _DISPATCHES[(op, name)] += 1
-    return fn(*args, **kw)
+    t0 = time.perf_counter()
+    try:
+        return fn(*args, **kw)
+    finally:
+        dt = time.perf_counter() - t0
+        with _LOCK:
+            _SECONDS[(op, name)] += dt
 
 
 def dispatch_counts() -> dict[tuple[str, str], int]:
@@ -153,9 +161,18 @@ def dispatch_counts() -> dict[tuple[str, str], int]:
         return dict(_DISPATCHES)
 
 
+def dispatch_seconds() -> dict[tuple[str, str], float]:
+    """Host seconds spent inside dispatches per (op, backend) since import
+    or the last reset: the backend's whole call, transfers included."""
+    with _LOCK:
+        return dict(_SECONDS)
+
+
 def reset_dispatch_counts() -> None:
+    """Zero both the counts and the seconds."""
     with _LOCK:
         _DISPATCHES.clear()
+        _SECONDS.clear()
 
 
 @contextlib.contextmanager

@@ -116,7 +116,11 @@ def test_arrays_round_trip():
         cs.sigma, cs.tolerance, cs.max_slices, cs.certified)
 
 
-def test_mask_branch_names_the_write_path_slice():
-    y = data.piecewise_signal(16, 16, 2, seed=0)
-    with pytest.raises(NotImplementedError, match="write-path"):
-        core.signal_coreset(y, 2, 0.3, mask=np.ones_like(y, bool))
+def test_mask_branch_has_reference_fingerprint():
+    y = data.piecewise_signal(48, 40, 4, seed=0)
+    mask = np.ones_like(y, bool)
+    mask[10:20, 5:15] = False
+    got = core.signal_coreset(y, 4, 0.3, mask=mask)
+    assert got.fingerprint() == ref_core.signal_coreset(
+        y, 4, 0.3, mask=mask).fingerprint()
+    assert got.total_mass() == pytest.approx(mask.sum())

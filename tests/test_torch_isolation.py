@@ -1,6 +1,7 @@
 """repro_torch stands alone: it imports neither jax nor the reference
-package, at run time (a fresh interpreter running the CPU slice) or
-anywhere in its source and in chip_smoke.py."""
+package, at run time (a fresh interpreter running the CPU slices: a
+build, a loss query and a tune_k sweep) or anywhere in its source and in
+chip_smoke.py."""
 import ast
 import json
 import os
@@ -21,14 +22,20 @@ import numpy as np
 import repro_torch
 from repro_torch import ops
 from repro_torch.core import random_tree_segmentation, signal_coreset
-from repro_torch.data import piecewise_signal
+from repro_torch.data import patch_mask, piecewise_signal, sensor_matrix
+from repro_torch.trees import tune_k
 with ops.backend_override("numpy"):
     cs = signal_coreset(piecewise_signal(64, 64, 4, seed=0), 4, 0.3)
     seg = random_tree_segmentation(64, 64, 5, np.random.default_rng(1))
     loss = ops.fitting_loss(cs, seg.rects, seg.labels)
+y = sensor_matrix(120, 15, seed=0)
+train, test = patch_mask(*y.shape, 0.3, 5, seed=1)
+res = tune_k(y, train, test, ks=[4, 8], coreset_k=8, n_estimators=2,
+             hist_backend="numpy")
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "repro"))
-print(json.dumps({"loss": loss, "blocks": cs.num_blocks, "bad": bad}))
+print(json.dumps({"loss": loss, "blocks": cs.num_blocks, "bad": bad,
+                  "best_k": res.best_k}))
 """
 
 
@@ -41,6 +48,7 @@ def test_cpu_slice_runs_without_jax_or_reference():
     res = json.loads(out.stdout.strip().splitlines()[-1])
     assert res["bad"] == []
     assert res["blocks"] > 0 and res["loss"] > 0
+    assert set(res["best_k"]) == {"full", "coreset", "uniform"}
 
 
 def _imported_roots(path):

@@ -23,9 +23,10 @@ def no_card(monkeypatch):
 
 
 def test_registered_backends():
-    for op in ("sat_moments", "fitting_loss", "fitting_loss_batched"):
+    for op in ("sat_moments", "fitting_loss", "fitting_loss_batched",
+               "hist_split"):
         assert ops.available_backends(op) == ("numpy", "torch", "cuda")
-    for op in ("delta_sat", "hist_split", "streaming_compress"):
+    for op in ("delta_sat", "streaming_compress"):
         assert ops.available_backends(op) == ()
 
 
@@ -67,8 +68,8 @@ def test_pinned_cuda_without_card_raises(no_card):
     (lambda: ops.delta_sat(np.zeros((3, 2)), np.ones((1, 2)), backend="numpy"),
      "write-path"),
     (lambda: ops.streaming_compress([object()], backend="torch"), "write-path"),
-    (lambda: ops.hist_split(np.zeros((3, 1), int), np.ones(3), np.ones(3),
-                            np.ones(3), 2, backend="cuda"), "trees"),
+    (lambda: ops.delta_sat(np.zeros((3, 2)), np.ones((1, 2)), backend="cuda"),
+     "write-path"),
 ])
 def test_unported_ops_name_their_slice(call, slice_name):
     with pytest.raises(ops.BackendError, match=slice_name):
@@ -107,7 +108,7 @@ def test_build_writes_hash_named_libraries_atomically(tmp_path, monkeypatch):
     nvcc = _fake_nvcc(tmp_path, "open(args[args.index('-o') + 1], 'w').write('lib')")
     monkeypatch.setattr(common, "_nvcc", lambda: nvcc)
     built = common.build()
-    assert sorted(built) == ["fitting_loss", "sat2d"]
+    assert sorted(built) == ["fitting_loss", "histsplit", "sat2d"]
     for name in built:
         path = common.library_path(name)
         assert path.parent == tmp_path / "kernels" and path.read_text() == "lib"
