@@ -15,9 +15,9 @@ Eq. (1) of the paper.
 The unmasked/unweighted build routes through the ``repro_torch.ops.sat_moments``
 dispatcher (the float64 CUDA kernel when a card is present, the numpy oracle
 or the plain torch version when the caller pins one); this module remains the
-owner of the float64 query API.  The row-patching methods of the reference
-(``carry_row``, ``patch_rows``, ``append_rows``) belong to the write path and
-are not ported yet.
+owner of the float64 query API.  Replaced or appended rows patch the images
+through ``repro_torch.ops.delta_sat`` (``patch_rows``, ``append_rows``): O(band)
+instead of the O(N) rebuild, and bitwise equal to it.
 """
 from __future__ import annotations
 
@@ -83,8 +83,8 @@ class PrefixStats:
 
     @staticmethod
     def from_sat(s: np.ndarray) -> "PrefixStats":
-        """Wrap (3, n, m) inclusive integral images (one ``sat_moments``
-        output) into the zero-padded (n+1, m+1) query layout."""
+        """Wrap (3, n, m) inclusive integral images (one ``sat_moments`` /
+        ``delta_sat`` output) into the zero-padded (n+1, m+1) query layout."""
         n, m = s.shape[1], s.shape[2]
         ps = []
         for c in range(3):
@@ -92,6 +92,55 @@ class PrefixStats:
             out[1:, 1:] = s[c]
             ps.append(out)
         return PrefixStats(*ps)
+
+    # ------------------------------------------------------------ delta patch
+    def carry_row(self, r0: int) -> np.ndarray:
+        """(3, m) integral-image row just above signal row ``r0`` — the seed
+        the ``delta_sat`` op continues from (zeros when r0 == 0)."""
+        return np.stack([self.p0[r0, 1:], self.p1[r0, 1:], self.p2[r0, 1:]])
+
+    def patch_rows(self, r0: int, tail: np.ndarray, *, copy: bool = False,
+                   backend: str | None = None) -> "PrefixStats":
+        """Patch the integral images for replaced/appended signal rows.
+
+        ``tail`` (b, m) must hold the raw values of EVERY row from ``r0`` to
+        the new end of the signal (rows below a replaced band shift their
+        prefixes too); the new row count is ``r0 + b``.  Dispatches the
+        ``repro_torch.ops.delta_sat`` op — O(b * m) instead of the O(n * m)
+        rebuild — and in float64 the patched images are bitwise equal to a
+        from-scratch :meth:`build` on every backend.
+
+        When the row count is unchanged the patch is applied in place and
+        ``self`` is returned (``copy=True`` forces fresh arrays — for
+        callers whose readers may hold a reference); appends reallocate.
+        """
+        from repro_torch import ops
+        tail = np.asarray(tail, np.float64)
+        n, m = self.shape
+        if tail.ndim != 2 or tail.shape[1] != m:
+            raise ValueError(f"tail must be (rows, {m}), got {tail.shape}")
+        if not 0 <= r0 <= n:
+            raise ValueError(f"row offset {r0} outside [0, {n}]")
+        body = np.asarray(ops.delta_sat(self.carry_row(r0), tail,
+                                        backend=backend), np.float64)
+        n_new = r0 + tail.shape[0]
+        if n_new == n and not copy:
+            for c, p in enumerate((self.p0, self.p1, self.p2)):
+                p[r0 + 1:, 1:] = body[c]
+            return self
+        ps = []
+        for c, p in enumerate((self.p0, self.p1, self.p2)):
+            out = np.zeros((n_new + 1, m + 1), dtype=np.float64)
+            out[:r0 + 1] = p[:r0 + 1]
+            out[r0 + 1:, 1:] = body[c]
+            ps.append(out)
+        return PrefixStats(*ps)
+
+    def append_rows(self, band: np.ndarray, *,
+                    backend: str | None = None) -> "PrefixStats":
+        """Integral images of the signal with ``band`` appended at the
+        bottom (a pure O(band) ``delta_sat`` continuation)."""
+        return self.patch_rows(self.shape[0], band, backend=backend)
 
     @staticmethod
     def build_moments(w0: np.ndarray, w1: np.ndarray, w2: np.ndarray,

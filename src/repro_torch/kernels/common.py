@@ -121,7 +121,9 @@ class CudaKernel:
     returns a CUDA error (it returns ``cudaGetLastError()`` right after the
     launch).  ``launches`` counts the successful launches; it is the one
     place the count moves, so a run can show its path went through the
-    kernel.
+    kernel.  Threads may call one kernel at once (``sharded_coreset`` builds
+    bands on a pool): a lock guards the symbol lookup and the count, not the
+    launch.
     """
 
     def __init__(self, library: str, symbol: str, argtypes):
@@ -130,16 +132,19 @@ class CudaKernel:
         self.argtypes = list(argtypes)
         self.launches = 0
         self._fn = None
+        self._lock = threading.Lock()
 
     def __call__(self, *args) -> None:
-        if self._fn is None:
-            lib = library(self.library)
-            fn = getattr(lib, self.symbol)
-            fn.argtypes = self.argtypes
-            fn.restype = ctypes.c_int
-            self._fn = fn
-        rc = self._fn(*args)
+        with self._lock:
+            if self._fn is None:
+                fn = getattr(library(self.library), self.symbol)
+                fn.argtypes = self.argtypes
+                fn.restype = ctypes.c_int
+                self._fn = fn
+            fn = self._fn
+        rc = fn(*args)
         if rc != 0:
             msg = _LIBS[self.library].kernel_error_string(rc).decode()
             raise RuntimeError(f"{self.symbol}: CUDA error {rc} ({msg})")
-        self.launches += 1
+        with self._lock:
+            self.launches += 1

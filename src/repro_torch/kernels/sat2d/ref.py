@@ -1,19 +1,59 @@
-"""Plain PyTorch version of the sat_moments kernel.
+"""Plain PyTorch versions of the sat2d kernels.
 
-The same function as ``csrc/sat2d.cu``: a within-row scan, then a scan down
-the rows, of the (1, y, y^2) stack.  On the CPU, ``torch.cumsum`` sums each
-row and column in order, so in float64 the result equals numpy's
-``np.cumsum(np.cumsum(stk, axis=2), axis=1)`` bitwise; on a CUDA tensor it
-is a parallel scan that reorders the sums.
+The same functions as ``csrc/sat2d.cu``:
+
+- ``sat_moments_ref``: a within-row scan, then a scan down the rows, of the
+  (1, y, y^2) stack;
+- ``delta_sat_ref``: the rows of those images that change when the rows
+  from some row on are replaced or appended, continued from the stored
+  integral row above them (the write path's patch);
+- ``sat_stack_ref``: integral images of every (n, m) plane of a stack, in
+  either order (``STACK_ORDER`` gives the one each dtype's kernel keeps).
+
+On the CPU, ``torch.cumsum`` sums each row and column in order, so in
+float64 the results equal numpy's bitwise (up to the sign of a zero: it
+starts from 0 + the first element); on a CUDA tensor it is a parallel scan
+that reorders the sums.
 """
 from __future__ import annotations
 
 import torch
 
-__all__ = ["sat_moments_ref"]
+__all__ = ["sat_moments_ref", "delta_sat_ref", "sat_stack_ref", "STACK_ORDER"]
+
+# the order of each dtype's sat_stack kernel: float64 integrates the columns
+# first, as PrefixStats.build_moments (the numpy streaming_compress oracle)
+# does; float32 the rows first, as the reference's Pallas sat_stack does
+STACK_ORDER = {torch.float64: "cols_first", torch.float32: "rows_first"}
 
 
 def sat_moments_ref(y: torch.Tensor) -> torch.Tensor:
     """(3, n, m) inclusive integral images of (1, y, y^2), in y's dtype."""
     stk = torch.stack([torch.ones_like(y), y, y * y])
     return torch.cumsum(torch.cumsum(stk, dim=2), dim=1)
+
+
+def delta_sat_ref(carry: torch.Tensor, tail: torch.Tensor) -> torch.Tensor:
+    """(3, b, m) patched integral-image rows: ``carry`` (3, m) is the integral
+    row just above the patch (zeros at row 0), ``tail`` (b, m) the raw rows
+    from the first changed row to the new end.
+
+    The numpy oracle's order: a within-row scan of the (1, t, t^2) stack,
+    then a scan down the rows with the carry row prepended, which is dropped
+    again; so row i is row i-1 + inner[i], the adds a full build makes."""
+    stk = torch.stack([torch.ones_like(tail), tail, tail * tail])
+    inner = torch.cumsum(stk, dim=2)
+    full = torch.cat([carry.to(tail.dtype)[:, None, :], inner], dim=1)
+    return torch.cumsum(full, dim=1)[:, 1:, :]
+
+
+def sat_stack_ref(stk: torch.Tensor, order: str) -> torch.Tensor:
+    """Inclusive integral images over the last two axes of a (..., n, m)
+    stack: ``"cols_first"`` scans down the columns, then along the rows (the
+    order of ``PrefixStats.build_moments``); ``"rows_first"`` the other way
+    round (the order of the reference's ``sat_stack``)."""
+    if order == "cols_first":
+        return torch.cumsum(torch.cumsum(stk, dim=-2), dim=-1)
+    if order == "rows_first":
+        return torch.cumsum(torch.cumsum(stk, dim=-1), dim=-2)
+    raise ValueError(f"unknown order {order!r}; 'cols_first' or 'rows_first'")

@@ -11,10 +11,8 @@ The same six op names and public signatures as ``repro.ops``:
   ``streaming_compress(coresets)``       merge-reduce recompress
 
 Each dispatches through the backend registry (numpy oracle / plain torch
-on the CPU / CUDA kernel) by the rules in ``registry.py``.  The port
-registers ``sat_moments``, ``fitting_loss``, ``fitting_loss_batched`` and
-``hist_split``; ``delta_sat`` and ``streaming_compress`` raise
-``BackendError`` naming the write-path slice that brings them.
+on the CPU / CUDA kernel) by the rules in ``registry.py``; every op has all
+three backends.
 """
 from __future__ import annotations
 
@@ -34,6 +32,7 @@ __all__ = [
     "fitting_loss",
     "fitting_loss_batched", "hist_split", "streaming_compress",
     "fitting_loss_size", "fitting_loss_batched_size",
+    "streaming_compress_size",
 ]
 
 
@@ -47,7 +46,15 @@ def sat_moments(y, *, backend: str | None = None, **kw) -> np.ndarray:
 
 
 def delta_sat(carry, tail, *, backend: str | None = None, **kw) -> np.ndarray:
-    """(3, b, m) patched integral-image rows for a replaced/appended band."""
+    """(3, b, m) patched integral-image rows for a replaced/appended band.
+
+    ``carry`` (3, m) is the integral-image row just above the first changed
+    row (zeros when patching from row 0); ``tail`` (b, m) holds the raw
+    signal rows from the first changed row to the (new) end of the signal.
+    Float64 unless ``dtype=np.float32`` asks for the reference TPU kernel's
+    type; in float64 every backend continues the ``sat_moments`` recurrence
+    with numpy's additions, so chained patches are bitwise equal to a
+    from-scratch build."""
     carry = np.asarray(carry)
     tail = np.asarray(tail)
     if tail.ndim != 2 or tail.shape[0] < 1:
@@ -61,12 +68,24 @@ def delta_sat(carry, tail, *, backend: str | None = None, **kw) -> np.ndarray:
 def streaming_compress(coresets, k: int | None = None,
                        eps: float | None = None, *,
                        backend: str | None = None, **kw) -> list:
-    """Merge-reduce "reduce": recompress a list of composed coresets."""
+    """Merge-reduce "reduce": recompress a list of composed coresets.
+
+    One dispatch recompresses every bucket in ``coresets`` (the dirty
+    buckets of a merge-reduce level); the torch and cuda backends integrate
+    all their moment rasters in one ``sat_stack`` call, in float64 bitwise
+    as the numpy oracle does, or with ``dtype=np.float32`` in the reference
+    TPU kernel's type and order."""
     coresets = list(coresets)
     if not coresets:
         return []
     return dispatch("streaming_compress", coresets, k, eps, backend=backend,
                     **kw)
+
+
+def streaming_compress_size(coresets) -> int:
+    """Moment-raster cells a streaming_compress call integrates (three per
+    cell of each bucket's signal)."""
+    return 3 * sum(int(cs.n) * int(cs.m) for cs in coresets)
 
 
 def fitting_loss_size(cs, seg_rects) -> int:

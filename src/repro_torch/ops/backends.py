@@ -52,6 +52,46 @@ def _sat_moments_torch(device):
 register("sat_moments", "torch")(_sat_moments_torch("cpu"))
 register("sat_moments", "cuda")(_sat_moments_torch("cuda"))
 
+# --------------------------------------------------------------- delta_sat
+# patched integral-image rows for a replaced/appended row band: carry (3, m)
+# is the integral row just above the patch, tail (b, m) the raw rows from the
+# first changed row to the (new) end.  Output (3, b, m).  Every backend keeps
+# the numpy oracle's order, so in float64 (the default) chained patches stay
+# bitwise equal to a full build on all three; dtype=np.float32 gives the
+# reference TPU kernel's type.
+
+
+@register("delta_sat", "numpy")
+def _delta_sat_numpy():
+    def delta_sat(carry, tail, dtype=np.float64):
+        t = np.asarray(tail, dtype)
+        stk = np.stack([np.ones_like(t), t, t * t], axis=0)
+        inner = np.cumsum(stk, axis=2)
+        # prepend the carry row and let the sequential cumsum continue it:
+        # row i is row i-1 + inner[i], the float ops a full build performs
+        full = np.concatenate([np.asarray(carry, dtype)[:, None, :], inner],
+                              axis=1)
+        return np.cumsum(full, axis=1)[:, 1:, :]
+    return delta_sat
+
+
+def _delta_sat_torch(device):
+    def factory():
+        import torch
+        _check(device)
+        from repro_torch.kernels.sat2d.ops import delta_sat_moments
+
+        def delta_sat(carry, tail, dtype=np.float64):
+            c = torch.as_tensor(np.asarray(carry, dtype), device=device)
+            t = torch.as_tensor(np.asarray(tail, dtype), device=device)
+            return delta_sat_moments(c, t).cpu().numpy()
+        return delta_sat
+    return factory
+
+
+register("delta_sat", "torch")(_delta_sat_torch("cpu"))
+register("delta_sat", "cuda")(_delta_sat_torch("cuda"))
+
 # ------------------------------------------------------------ fitting_loss
 # scalar Algorithm-5 loss of one segmentation against a SignalCoreset.
 
@@ -144,3 +184,73 @@ def _hist_split_torch(device):
 
 register("hist_split", "torch")(_hist_split_torch("cpu"))
 register("hist_split", "cuda")(_hist_split_torch("cuda"))
+
+# ------------------------------------------------------- streaming_compress
+# the merge-reduce "reduce" step as one dispatch: recompress a list of
+# composed coresets (the dirty buckets of a level) into coresets of
+# coresets.  The backends differ only in how the per-bucket moment rasters
+# become integral images: numpy integrates each bucket with
+# PrefixStats.build_moments (columns first); torch and cuda integrate all of
+# them in one sat_stack call on a padded stack, in float64 in the same order
+# (bitwise numpy's), or with dtype=np.float32 in the reference TPU kernel's
+# type and order.  Rasterizing and the partition/Caratheodory finish are
+# host code shared by all three (core.streaming).
+
+
+def _stack_rasters(preps, dtype=np.float64):
+    """Pad the per-bucket (3, n, m) moment rasters to one (L, 3, nmax, mmax)
+    stack so that one call integrates every bucket."""
+    nmax = max(p.rasters[0].shape[0] for p in preps)
+    mmax = max(p.rasters[0].shape[1] for p in preps)
+    stk = np.zeros((len(preps), 3, nmax, mmax), dtype)
+    for i, p in enumerate(preps):
+        n, m = p.rasters[0].shape
+        for c in range(3):
+            stk[i, c, :n, :m] = p.rasters[c]
+    return stk
+
+
+def _finish_from_sats(coresets, preps, sats, k, eps):
+    from repro_torch.core.stats import PrefixStats
+    from repro_torch.core.streaming import _recompress_finish
+    out = []
+    for cs, p, sat in zip(coresets, preps, sats):
+        n, m = p.rasters[0].shape
+        ps = PrefixStats.from_sat(np.asarray(sat[:, :n, :m], np.float64))
+        out.append(_recompress_finish(cs, p, ps, k, eps))
+    return out
+
+
+@register("streaming_compress", "numpy")
+def _streaming_compress_numpy():
+    def sc(coresets, k=None, eps=None):
+        from repro_torch.core.stats import PrefixStats
+        from repro_torch.core.streaming import (_recompress_finish,
+                                                _recompress_prep)
+        out = []
+        for cs in coresets:
+            p = _recompress_prep(cs)
+            ps = PrefixStats.build_moments(*p.rasters)
+            out.append(_recompress_finish(cs, p, ps, k, eps))
+        return out
+    return sc
+
+
+def _streaming_compress_torch(device):
+    def factory():
+        import torch
+        _check(device)
+        from repro_torch.kernels.sat2d.ops import sat_stack
+
+        def sc(coresets, k=None, eps=None, dtype=np.float64):
+            from repro_torch.core.streaming import _recompress_prep
+            preps = [_recompress_prep(cs) for cs in coresets]
+            stk = torch.as_tensor(_stack_rasters(preps, dtype), device=device)
+            sats = sat_stack(stk).cpu().numpy()
+            return _finish_from_sats(coresets, preps, sats, k, eps)
+        return sc
+    return factory
+
+
+register("streaming_compress", "torch")(_streaming_compress_torch("cpu"))
+register("streaming_compress", "cuda")(_streaming_compress_torch("cuda"))

@@ -42,15 +42,10 @@ OPS = ("sat_moments", "delta_sat", "fitting_loss", "fitting_loss_batched",
 BACKENDS = ("numpy", "torch", "cuda")
 ENV_VAR = "REPRO_TORCH_OPS_BACKEND"
 
-# ops whose backends arrive with a later slice of the port
-_LATER_SLICE = {
-    "delta_sat": "the write-path slice",
-    "streaming_compress": "the write-path slice",
-}
-
 
 class BackendError(KeyError):
-    """Unknown or unported op/backend pair requested from the registry."""
+    """Unknown op or backend name, or an op/backend pair with nothing
+    registered."""
 
 
 _FACTORIES: dict[tuple[str, str], Callable[[], Callable]] = {}
@@ -133,11 +128,9 @@ def resolve(op: str, backend: str | None = None) -> tuple[str, Callable]:
             if fn is None:
                 factory = _FACTORIES.get(key)
                 if factory is None:
-                    later = _LATER_SLICE.get(op)
-                    where = (f"; {op} is ported with {later}" if later else "")
                     raise BackendError(
                         f"no {name!r} backend registered for op {op!r}; "
-                        f"available: {available_backends(op)}{where}")
+                        f"available: {available_backends(op)}")
                 fn = _RESOLVED[key] = factory()
     return name, fn
 

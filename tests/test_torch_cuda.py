@@ -11,7 +11,9 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch import ops  # noqa: E402
-from repro_torch.core import random_tree_segmentation, signal_coreset  # noqa: E402
+from repro_torch.core import (PrefixStats, StreamingBuilder,  # noqa: E402
+                              random_tree_segmentation, sharded_coreset,
+                              signal_coreset)
 from repro_torch.data import piecewise_signal  # noqa: E402
 from repro_torch.kernels.fitting_loss import kernel as fl_kernel  # noqa: E402
 from repro_torch.kernels.fitting_loss import ops as fl_ops  # noqa: E402
@@ -20,6 +22,7 @@ from repro_torch.kernels.histsplit import kernel as hist_kernel  # noqa: E402
 from repro_torch.kernels.histsplit import ops as hist_ops  # noqa: E402
 from repro_torch.kernels.histsplit.ref import partials_ref  # noqa: E402
 from repro_torch.kernels.sat2d import ops as sat_ops  # noqa: E402
+from repro_torch.kernels.sat2d import ref as sat_ref  # noqa: E402
 from repro_torch.trees import RandomForestRegressor  # noqa: E402
 
 pytestmark = pytest.mark.gpu
@@ -225,3 +228,148 @@ def test_forest_on_the_card_equals_numpy(cuda):
     for a, b in zip(got.trees, want.trees):
         assert [vars(n) for n in a.nodes] == [vars(n) for n in b.nodes]
     assert np.array_equal(got.predict(X), want.predict(X))
+
+
+# ------------------------------------------------------------- write path
+# (rows of the signal, first patched row, columns): r0 = 0, a 1-row tail,
+# m % 32 != 0, a tail past the column pass's unroll, a long tail
+DELTA_SHAPES = [(12, 0, 129), (12, 11, 129), (45, 30, 37), (300, 100, 1000),
+                (1000, 0, 70)]
+
+
+def _delta_inputs(n, r0, m, seed=0):
+    y = np.random.default_rng(seed).normal(size=(n, m))
+    carry = np.zeros((3, m)) if r0 == 0 else _numpy_sat(y)[:, r0 - 1, :]
+    return carry, y[r0:]
+
+
+@pytest.mark.parametrize("n,r0,m", DELTA_SHAPES)
+def test_delta_f64_bitwise_equals_numpy_and_plain(cuda, n, r0, m):
+    carry, tail = _delta_inputs(n, r0, m)
+    before = sat_kernel.SAT_DELTA_F64.launches
+    got = sat_ops.delta_sat_moments(torch.as_tensor(carry, device=cuda),
+                                    torch.as_tensor(tail, device=cuda)).cpu()
+    assert sat_kernel.SAT_DELTA_F64.launches == before + 1
+    want = ops.delta_sat(carry, tail, backend="numpy")
+    assert np.array_equal(got.numpy(), want)
+    assert torch.equal(got, sat_ops.delta_sat_moments(torch.as_tensor(carry),
+                                                      torch.as_tensor(tail)))
+    assert np.array_equal(ops.delta_sat(carry, tail, backend="cuda"), want)
+
+
+def test_delta_leading_negative_zero_follows_the_oracle(cuda):
+    # output row 0 is carry + inner[0], an add: at r0 = 0 a -0.0 cell comes
+    # out +0.0, as in the numpy delta oracle (and unlike a full build)
+    carry, tail = np.zeros((3, 3)), np.array([[-0.0, 1.0, -0.0]])
+    got = ops.delta_sat(carry, tail, backend="cuda")
+    want = ops.delta_sat(carry, tail, backend="numpy")
+    assert np.array_equal(np.signbit(got), np.signbit(want))
+    assert not np.signbit(got).any()
+
+
+@pytest.mark.parametrize("n,r0,m", DELTA_SHAPES)
+def test_delta_f32_matches_plain(cuda, n, r0, m):
+    carry, tail = (torch.as_tensor(a, dtype=torch.float32, device=cuda)
+                   for a in _delta_inputs(n, r0, m, seed=1))
+    before = sat_kernel.SAT_DELTA_F32.launches
+    got = sat_ops.delta_sat_moments(carry, tail).double()
+    assert sat_kernel.SAT_DELTA_F32.launches == before + 1
+    want = sat_ref.delta_sat_ref(carry, tail).double()
+    scale = want.abs().amax(dim=(1, 2), keepdim=True)
+    assert ((got - want).abs() <= 5e-4 * scale).all()
+
+
+def test_delta_keeps_sat_moments_bitwise(cuda):
+    # sat_moments and sat_delta share the column pass; a patch from row 0
+    # of a signal without -0.0 equals the full build
+    y = np.random.default_rng(2).normal(size=(257, 300))
+    got = sat_ops.delta_sat_moments(torch.zeros((3, 300), dtype=torch.float64,
+                                                device=cuda),
+                                    torch.as_tensor(y, device=cuda))
+    assert np.array_equal(got.cpu().numpy(), _numpy_sat(y))
+
+
+def _stack(planes, n, m, dtype, seed=0):
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(planes, n, m)) * (rng.random((planes, n, m)) < 0.4)
+    return torch.as_tensor(x, dtype=dtype)
+
+
+# (planes, n, m): one plane, m % 32 != 0, n past the column unroll, a
+# level of four buckets' (3, n, m) rasters
+STACK_SHAPES = [(1, 1, 1), (3, 33, 20), (5, 70, 129), (12, 512, 1024)]
+
+
+@pytest.mark.parametrize("planes,n,m", STACK_SHAPES)
+def test_stack_f64_bitwise_equals_build_moments_and_plain(cuda, planes, n, m):
+    x = _stack(planes, n, m, torch.float64)
+    before = sat_kernel.SAT_STACK_F64.launches
+    got = sat_ops.sat_stack(x.to(cuda)).cpu()
+    assert sat_kernel.SAT_STACK_F64.launches == before + 1
+    assert torch.equal(got, sat_ops.sat_stack(x))       # cols_first on the CPU
+    for c in range(planes):
+        plane = x[c].numpy()
+        want = PrefixStats.build_moments(plane, plane, plane).p0[1:, 1:]
+        assert np.array_equal(got[c].numpy(), want)
+
+
+@pytest.mark.parametrize("planes,n,m", STACK_SHAPES)
+def test_stack_f32_matches_plain(cuda, planes, n, m):
+    x = _stack(planes, n, m, torch.float32, seed=1)
+    before = sat_kernel.SAT_STACK_F32.launches
+    got = sat_ops.sat_stack(x.to(cuda)).cpu()
+    assert sat_kernel.SAT_STACK_F32.launches == before + 1
+    want = sat_ref.sat_stack_ref(x.to(cuda), "rows_first").cpu()
+    scale = want.abs().amax(dim=(1, 2), keepdim=True).clamp(min=1.0)
+    assert ((got - want).abs() <= 5e-4 * scale).all()
+
+
+def test_patch_chain_on_the_card_equals_numpy_build(cuda):
+    rng = np.random.default_rng(3)
+    y = rng.normal(size=(200, 77))
+    with ops.backend_override("cuda"):
+        ps = PrefixStats.build(y)
+        y[50:60] = rng.normal(size=(10, 77))
+        ps = ps.patch_rows(50, y[50:], copy=True)
+        band = rng.normal(size=(33, 77))
+        y = np.vstack([y, band])
+        ps = ps.append_rows(band)
+        y[-33:] = rng.normal(size=(33, 77))
+        ps = ps.patch_rows(200, y[200:])
+    with ops.backend_override("numpy"):
+        want = PrefixStats.build(y)
+    for a, b in zip((ps.p0, ps.p1, ps.p2), (want.p0, want.p1, want.p2)):
+        assert np.array_equal(a, b)
+
+
+def _stream(bands, replace):
+    sb = StreamingBuilder(m=bands[0].shape[1], k=4, eps=0.3)
+    for b in bands:
+        sb.insert_band(b)
+    for i, b in replace.items():
+        sb.replace_band(i, b)
+    return sb.result(), sb.buckets_recompressed_total
+
+
+def test_stream_on_the_card_equals_numpy(cuda):
+    bands = [piecewise_signal(32, 96, 4, noise=0.15, seed=s) for s in range(4)]
+    replace = {1: piecewise_signal(32, 96, 4, noise=0.15, seed=9)}
+    with ops.backend_override("numpy"):
+        want = _stream(bands, replace)
+    before = sat_kernel.SAT_STACK_F64.launches
+    with ops.backend_override("cuda"):
+        got = _stream(bands, replace)
+    assert got[0].fingerprint() == want[0].fingerprint() and got[1] == want[1]
+    assert sat_kernel.SAT_STACK_F64.launches > before
+
+
+def test_sharded_coreset_on_the_card_counts_every_thread(cuda):
+    y = piecewise_signal(256, 96, 6, noise=0.2, seed=4)
+    with ops.backend_override("numpy"):
+        want = sharded_coreset(y, 6, 0.3, 8, recompress_result=True)
+    before = sat_kernel.SAT_MOMENTS_F64.launches
+    with ops.backend_override("cuda"):
+        got = sharded_coreset(y, 6, 0.3, 8, recompress_result=True)
+    assert got.fingerprint() == want.fingerprint()
+    # the shared tolerance's build and one build per band, on eight threads
+    assert sat_kernel.SAT_MOMENTS_F64.launches == before + 9

@@ -1,6 +1,7 @@
 """repro_torch stands alone: it imports neither jax nor the reference
 package, at run time (a fresh interpreter running the CPU slices: a
-build, a loss query and a tune_k sweep) or anywhere in its source and in
+build, a loss query, a tune_k sweep, a row patch, a stream with a band
+replacement and a band-parallel build) or anywhere in its source and in
 chip_smoke.py."""
 import ast
 import json
@@ -21,7 +22,9 @@ import json, sys
 import numpy as np
 import repro_torch
 from repro_torch import ops
-from repro_torch.core import random_tree_segmentation, signal_coreset
+from repro_torch.core import (PrefixStats, StreamingBuilder,
+                              random_tree_segmentation, sharded_coreset,
+                              signal_coreset)
 from repro_torch.data import patch_mask, piecewise_signal, sensor_matrix
 from repro_torch.trees import tune_k
 with ops.backend_override("numpy"):
@@ -32,10 +35,24 @@ y = sensor_matrix(120, 15, seed=0)
 train, test = patch_mask(*y.shape, 0.3, 5, seed=1)
 res = tune_k(y, train, test, ks=[4, 8], coreset_k=8, n_estimators=2,
              hist_backend="numpy")
+with ops.backend_override("numpy"):
+    z = piecewise_signal(48, 16, 3, seed=2)
+    ps = PrefixStats.build(z[:40]).append_rows(z[40:])
+    z[8:16] = 0.0
+    patched = np.array_equal(ps.patch_rows(8, z[8:]).p2, PrefixStats.build(z).p2)
+    sb = StreamingBuilder(m=16, k=3, eps=0.3)
+    for i in range(0, 48, 12):
+        sb.insert_band(z[i:i + 12])
+    sb.replace_band(1, z[12:24] + 1.0)
+    streamed = sb.result().num_blocks
+    sharded = sharded_coreset(z, 3, 0.3, 3, recompress_result=True).num_blocks
+    write_ops = sorted({o for o, _ in ops.dispatch_counts()})
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "repro"))
 print(json.dumps({"loss": loss, "blocks": cs.num_blocks, "bad": bad,
-                  "best_k": res.best_k}))
+                  "best_k": res.best_k, "patched": bool(patched),
+                  "streamed": streamed, "sharded": sharded,
+                  "write_ops": write_ops}))
 """
 
 
@@ -49,6 +66,8 @@ def test_cpu_slice_runs_without_jax_or_reference():
     assert res["bad"] == []
     assert res["blocks"] > 0 and res["loss"] > 0
     assert set(res["best_k"]) == {"full", "coreset", "uniform"}
+    assert res["patched"] and res["streamed"] > 0 and res["sharded"] > 0
+    assert {"delta_sat", "streaming_compress"} <= set(res["write_ops"])
 
 
 def _imported_roots(path):

@@ -1,6 +1,6 @@
-"""repro_torch.ops: the backend selection order, unported ops, the rule
-that the CPU must be asked for, and the kernel builder (with a stand-in
-compiler, since this host has no nvcc)."""
+"""repro_torch.ops: the backend selection order, the registered backends,
+the rule that the CPU must be asked for, and the kernel builder (with a
+stand-in compiler, since this host has no nvcc)."""
 import os
 import stat
 import sys
@@ -23,11 +23,11 @@ def no_card(monkeypatch):
 
 
 def test_registered_backends():
-    for op in ("sat_moments", "fitting_loss", "fitting_loss_batched",
-               "hist_split"):
+    assert ops.OPS == ("sat_moments", "delta_sat", "fitting_loss",
+                       "fitting_loss_batched", "hist_split",
+                       "streaming_compress")
+    for op in ops.OPS:
         assert ops.available_backends(op) == ("numpy", "torch", "cuda")
-    for op in ("delta_sat", "streaming_compress"):
-        assert ops.available_backends(op) == ()
 
 
 def test_selection_order(monkeypatch, no_card):
@@ -64,16 +64,30 @@ def test_pinned_cuda_without_card_raises(no_card):
         ops.sat_moments(np.ones((3, 3)), backend="cuda")
 
 
-@pytest.mark.parametrize("call,slice_name", [
-    (lambda: ops.delta_sat(np.zeros((3, 2)), np.ones((1, 2)), backend="numpy"),
-     "write-path"),
-    (lambda: ops.streaming_compress([object()], backend="torch"), "write-path"),
-    (lambda: ops.delta_sat(np.zeros((3, 2)), np.ones((1, 2)), backend="cuda"),
-     "write-path"),
+@pytest.mark.parametrize("call", [
+    lambda: ops.delta_sat(np.zeros((3, 2)), np.ones((1, 2)), backend="xla"),
+    lambda: ops.streaming_compress([object()], backend="pallas"),
+    lambda: ops.hist_split(np.zeros((1, 1), np.uint8), [1.0], [1.0], [1.0], 2,
+                           backend="jax"),
 ])
-def test_unported_ops_name_their_slice(call, slice_name):
-    with pytest.raises(ops.BackendError, match=slice_name):
+def test_unregistered_backend_names_the_available_ones(call):
+    with pytest.raises(ops.BackendError, match=r"available: \('numpy', "
+                                               r"'torch', 'cuda'\)"):
         call()
+
+
+@pytest.mark.parametrize("call", [
+    lambda: ops.delta_sat(np.zeros((3, 2)), np.ones((1, 2))),
+    lambda: ops.streaming_compress([object()]),
+])
+def test_write_path_ops_raise_without_card_or_pin(no_card, call):
+    before = ops.dispatch_counts()
+    with pytest.raises(RuntimeError, match="pin backend"):
+        call()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        with ops.backend_override("cuda"):
+            call()
+    assert ops.dispatch_counts() == before      # nothing ran on the CPU
 
 
 def test_dispatch_counter_per_op_and_backend():
@@ -148,3 +162,35 @@ def test_registry_rejects_unknown_names():
     with pytest.raises(ops.BackendError):
         with ops.backend_override("pallas"):
             pass
+
+
+def test_cuda_kernel_is_safe_under_threads(monkeypatch):
+    # many threads call one kernel at once (sharded_coreset's band pool): the
+    # symbol is looked up once and no launch goes uncounted
+    import threading
+    import time
+    lookups = []
+
+    class FakeLib:
+        def __getattr__(self, symbol):
+            lookups.append(symbol)
+            time.sleep(0.01)                    # widen the lookup's window
+            return lambda *args: 0
+
+    monkeypatch.setattr(common, "library", lambda name: FakeLib())
+    kern = common.CudaKernel("fake", "fake_launch", [])
+    threads, calls = 16, 2000
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        pool = [threading.Thread(target=lambda: [kern() for _ in range(calls)])
+                for _ in range(threads)]
+        for t in pool:
+            t.start()
+        for t in pool:
+            t.join(timeout=60)
+    finally:
+        sys.setswitchinterval(old)
+    assert not any(t.is_alive() for t in pool)
+    assert lookups == ["fake_launch"]
+    assert kern.launches == threads * calls

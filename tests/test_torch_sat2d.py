@@ -1,16 +1,19 @@
-"""repro_torch sat_moments: the plain versions against the reference's
-numpy oracle and its interpret-mode Pallas kernel (the CUDA kernel is held
-to them in test_torch_cuda.py)."""
+"""repro_torch sat2d: sat_moments, delta_sat and sat_stack, the plain
+versions against the reference's numpy oracle, PrefixStats.build_moments
+and its interpret-mode Pallas kernels (the CUDA kernels are held to them in
+test_torch_cuda.py)."""
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
+import repro.core as ref_core  # noqa: E402
 from repro import ops as ref_ops  # noqa: E402
 from repro.kernels.sat2d import ops as ref_sat  # noqa: E402
 from repro_torch import ops  # noqa: E402
 from repro_torch.kernels.sat2d import kernel as sat_kernel  # noqa: E402
 from repro_torch.kernels.sat2d import ops as sat_ops  # noqa: E402
+from repro_torch.kernels.sat2d import ref as sat_ref  # noqa: E402
 
 # the shapes of the reference's sat2d sweep (tests/test_kernels.py)
 SHAPES = [(8, 8), (130, 70), (256, 256), (1, 300), (257, 5)]
@@ -61,3 +64,116 @@ def test_dispatched_f32_matches_reference_pallas_interpret(backend):
                                           interpret=True))
     assert got.dtype == np.float32
     np.testing.assert_allclose(got, want, rtol=5e-4, atol=5e-3)
+
+
+# ------------------------------------------------------------- delta_sat
+# the reference's own delta shapes (tests/test_ops.py): a 15-row tail from
+# row 30 of a 45 x 37 signal, and a 1-row band from row 0 at m = 129
+def _delta_case(which):
+    rng = np.random.default_rng(21 if which == "tail" else 22)
+    if which == "tail":
+        y = rng.normal(size=(45, 37))
+        carry = ref_ops.sat_moments(y, backend="numpy")[:, 29, :]
+        return carry, y[30:]
+    return np.zeros((3, 129)), rng.normal(size=(1, 129))
+
+
+@pytest.mark.parametrize("which", ["tail", "row0"])
+@pytest.mark.parametrize("backend", ["numpy", "torch"])
+def test_delta_sat_bitwise_equals_reference_numpy(backend, which):
+    carry, tail = _delta_case(which)
+    want = ref_ops.delta_sat(carry, tail, backend="numpy")
+    got = ops.delta_sat(carry, tail, backend=backend)
+    assert got.dtype == np.float64 and got.shape == want.shape
+    assert np.array_equal(got, want)
+
+
+@pytest.mark.parametrize("which", ["tail", "row0"])
+def test_delta_plain_f32_matches_reference_pallas_interpret(which):
+    import jax.numpy as jnp
+    carry, tail = _delta_case(which)
+    want = np.asarray(ref_sat.delta_sat_moments(
+        jnp.asarray(carry, jnp.float32), jnp.asarray(tail, jnp.float32),
+        interpret=True))
+    got = sat_ops.delta_sat_moments(torch.as_tensor(carry, dtype=torch.float32),
+                                    torch.as_tensor(tail, dtype=torch.float32))
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), want, rtol=5e-4, atol=5e-3)
+    np.testing.assert_allclose(
+        ops.delta_sat(carry, tail, backend="torch", dtype=np.float32), want,
+        rtol=5e-4, atol=5e-3)
+
+
+@pytest.mark.parametrize("backend", ["numpy", "torch"])
+def test_chained_delta_sat_bitwise_equals_full_build(backend):
+    # chaining patches is indistinguishable from a from-scratch build
+    y = np.random.default_rng(20).normal(size=(41, 37))
+    full = ops.sat_moments(y, backend=backend)
+    first = ops.delta_sat(np.zeros((3, 37)), y[:17], backend=backend)
+    rest = ops.delta_sat(first[:, -1, :], y[17:], backend=backend)
+    assert np.array_equal(np.concatenate([first, rest], axis=1), full)
+
+
+def test_delta_sat_validates_shapes():
+    with pytest.raises(ValueError):
+        ops.delta_sat(np.zeros((3, 4)), np.zeros((2, 5)), backend="numpy")
+    with pytest.raises(ValueError):
+        ops.delta_sat(np.zeros((3, 4)), np.zeros((0, 4)), backend="torch")
+
+
+# -------------------------------------------------------------- sat_stack
+def _ragged_stack(dtype=np.float64, seed=30):
+    """The streaming_compress padding: ragged (3, n, m) moment rasters in
+    one zero-padded (L, 3, nmax, mmax) stack, as _stack_rasters builds it."""
+    rng = np.random.default_rng(seed)
+    shapes = [(33, 20), (7, 41), (50, 9), (1, 1)]
+    rasters = [rng.normal(size=(3, n, m)) * (rng.random((n, m)) < 0.3)
+               for n, m in shapes]
+    stk = np.zeros((len(shapes), 3, 50, 41), dtype)
+    for i, r in enumerate(rasters):
+        stk[i, :, :r.shape[1], :r.shape[2]] = r
+    return rasters, stk
+
+
+def test_stack_cols_first_bitwise_equals_build_moments_per_bucket():
+    rasters, stk = _ragged_stack()
+    got = sat_ref.sat_stack_ref(torch.as_tensor(stk), "cols_first").numpy()
+    got_ops = sat_ops.sat_stack(torch.as_tensor(stk)).numpy()
+    assert np.array_equal(got, got_ops)          # float64 keeps cols_first
+    for i, r in enumerate(rasters):
+        _, n, m = r.shape
+        want = ref_core.PrefixStats.build_moments(*r)
+        for c, p in enumerate((want.p0, want.p1, want.p2)):
+            assert np.array_equal(got[i, c, :n, :m], p[1:, 1:])
+
+
+def test_stack_rows_first_f32_matches_reference_pallas_interpret():
+    import jax.numpy as jnp
+    _, stk = _ragged_stack(np.float32, seed=31)
+    want = np.asarray(ref_sat.sat_stack(jnp.asarray(stk), interpret=True))
+    got = sat_ops.sat_stack(torch.as_tensor(stk))
+    assert got.dtype == torch.float32
+    assert torch.equal(got, sat_ref.sat_stack_ref(torch.as_tensor(stk),
+                                                  "rows_first"))
+    np.testing.assert_allclose(got.numpy(), want, rtol=5e-4, atol=5e-3)
+
+
+def test_stack_orders_differ_and_are_checked():
+    # the two orders round differently: a test that held the float64 stack
+    # to the rows-first order alone would miss the build_moments order
+    _, stk = _ragged_stack(seed=32)
+    t = torch.as_tensor(stk)
+    a = sat_ref.sat_stack_ref(t, "cols_first")
+    b = sat_ref.sat_stack_ref(t, "rows_first")
+    assert torch.allclose(a, b, rtol=1e-12, atol=1e-12)
+    assert not torch.equal(a, b)
+    with pytest.raises(ValueError):
+        sat_ref.sat_stack_ref(t, "diagonal")
+
+
+def test_new_launchers_refuse_cpu_tensors():
+    x = torch.zeros(2, 4, 4, dtype=torch.float64)
+    with pytest.raises((RuntimeError, ValueError)):
+        sat_kernel.sat_stack_cuda(x)
+    with pytest.raises((RuntimeError, ValueError)):
+        sat_kernel.delta_sat_cuda(x[0, :3], x[0])
