@@ -6,7 +6,9 @@ at one size: slice 1 at a 4096 x 4096 signal, trees of 64 leaves, batches
 of 256; slice 2 (the §5 tuning path) at the Air-Quality shape 9358 x 15 of
 the paper's §5, the signal-tree config's coreset and forests; slice 3 (the
 write path) with row patches of the slice-1 signal and a line-scan stream of
-eight 256 x 1024 frames.
+eight 256 x 1024 frames; slice 4 (LM serving) with qwen2-0.5b at full width
+(24 layers, d_model 896, 14 query and 2 KV heads of 64, vocab 151,936) and
+random weights from a seeded generator.
 
 Phases, one JSON line each:
 
@@ -50,6 +52,18 @@ Phases, one JSON line each:
               flush and run, and the streaming_compress dispatch seconds
   write_counts  the launches of every kernel during write_path + stream,
               then those of the script's own float32 delta and stack calls
+  lm_kernels  the flash-attention kernels against their plain version on the
+              card at the prefill's shape (4 x 14 heads x 2048, bf16),
+              prefill_32k's length (1 x 14 x 32768, bf16) and a ragged
+              float32 shape, with times beside the plain version's,
+              scaled_dot_product_attention's and the bound
+  lm_serve    prefill of 4 x 2048 prompt tokens through the kernel (24
+              launches, one a layer), its logits against attn_impl="torch";
+              the float32 model's prefill logits against teacher-forced
+              decode at every position of a 4 x 64 prompt; greedy generate
+              of 32 tokens after 4 x 64; host seconds, tokens/s, ms a step,
+              and the device's busy time (torch.profiler) in a prefill and
+              a decode step
 
 then the kernel table, nvidia-smi's line, and a last line
 {"ok": true, "device": {...}}.  Any failed check exits non-zero before the
@@ -72,6 +86,7 @@ sys.path.insert(0, str(ROOT / "src"))
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
 FP64_FLOP_PER_S = 34e12
+BF16_FLOP_PER_S = 989e12
 # float32 operations per (tree, block, leaf) in csrc/fitting_loss.cu: two
 # clipped overlaps (4 each), z, Z, Z - z (3), and per point min, max, sub,
 # max, sub, two products and the add (8 x 4)
@@ -95,6 +110,26 @@ PATCH_ROWS = (2048, 256)
 STREAM_M, STREAM_K, STREAM_EPS = 1024, 32, 0.3
 STREAM_BANDS, STREAM_ROWS, STREAM_REPLACE = 8, 256, (1, 6)
 SAT_F32_TOL = 5e-4
+# slice 4: LM serving.  The flash-attention kernel against its plain version
+# (max abs error; bf16: a P entry that rounds the other way and the output's
+# last bit, float32: the order of the sums), at (B, Hq, Hkv, Lq, Lk, D)
+LM_ARCH = "qwen2-0.5b"
+FA_SHAPES = {"prefill": (4, 14, 2, 2048, 2048, 64, "bfloat16"),
+             "prefill_32k": (1, 14, 2, 32768, 32768, 64, "bfloat16"),
+             "f32_path": (4, 14, 2, 64, 64, 64, "float32"),
+             "f32_ragged": (2, 4, 2, 300, 300, 32, "float32")}
+FA_TOL = {"bfloat16": 2e-2, "float32": 1e-5}
+LM_PREFILL = (4, 2048)        # prompts x tokens of the full-width prefill
+LM_XCHECK = (4, 64)           # float32 prefill against teacher-forced decode
+LM_GEN = (4, 64, 32)          # prompts, prompt tokens, new tokens
+# bf16 kernel-path logits against attn_impl="torch" (relative Frobenius);
+# float32 prefill against decode, the reference's own bar
+# (tests/test_models_smoke.py), abs and rel
+LM_LOGITS_TOL = 2e-2
+LM_DECODE_TOL = 2e-3
+# the bf16 kernel path may stand no farther from the float32 model's logits
+# than the bf16 plain path does, times this margin (both read ~1.5e-2)
+LM_F32_MARGIN = 1.1
 
 
 class CheckFailed(Exception):
@@ -823,6 +858,243 @@ def phase_stream(bands, new, kernels):
     return launches
 
 
+def visible_pairs(Lq: int, Lk: int, causal: bool) -> int:
+    """(query, key) pairs attention visits: query i sees keys <= i + Lk - Lq
+    with causal (decode-style alignment), all Lk without."""
+    if not causal:
+        return Lq * Lk
+    off = Lk - Lq
+    return sum(min(Lk, max(i + off + 1, 0)) for i in range(Lq))
+
+
+def check_flash_attention():
+    """Both flash-attention kernels at FA_SHAPES against their plain version
+    on the card, with CUDA-event times beside the plain version's, one
+    scaled_dot_product_attention call's (causal, GQA; timed only, the port
+    never calls it) and the bound.  One table row per kernel, timed at its
+    first shape, every shape's numbers under ``at_shapes``."""
+    import torch
+    from repro_torch.kernels.flash_attention import kernel as fa
+    from repro_torch.kernels.flash_attention.ref import flash_attention_plain
+    rows = {"bfloat16": {"name": "flash_attention_bf16",
+                         "kernel": fa.FLASH_ATTENTION_BF16, "at_shapes": []},
+            "float32": {"name": "flash_attention_f32",
+                        "kernel": fa.FLASH_ATTENTION_F32, "at_shapes": []}}
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for label, (B, Hq, Hkv, Lq, Lk, D, dt) in FA_SHAPES.items():
+        dtype = getattr(torch, dt)
+        q, k, v = (torch.randn(s, generator=gen, device="cuda").to(dtype)
+                   for s in ((B, Hq, Lq, D), (B, Hkv, Lk, D), (B, Hkv, Lk, D)))
+        got = fa.flash_attention_cuda(q, k, v)
+        plain = flash_attention_plain(q, k, v)
+        torch.cuda.synchronize()
+        d = (got.float() - plain.float())
+        err = float(d.abs().max())
+        fro = float(d.norm() / plain.float().norm())
+        check(bool(torch.isfinite(got.float()).all()) and got.shape == q.shape,
+              f"flash attention at {label} not finite or misshapen")
+        check(err <= FA_TOL[dt] and fro <= FA_TOL[dt],
+              f"flash attention at {label} vs plain: max abs {err}, rel fro {fro}")
+        check(torch.equal(fa.flash_attention_cuda(q, k, v), got),
+              f"flash attention at {label} differs from run to run")
+        del d, got, plain
+        reps = 3 if Lq > 8192 else 10
+        at = {"shape": label, "B": B, "Hq": Hq, "Hkv": Hkv, "Lq": Lq, "Lk": Lk,
+              "D": D, "dtype": dt, "max_abs_err": err, "rel_fro_err": fro}
+        at["ms"], at["wall_ms"] = device_ms(lambda: fa.flash_attention_cuda(q, k, v), reps)
+        at["plain_ms"] = device_ms(lambda: flash_attention_plain(q, k, v), 2)[0]
+        at["library_ms"] = device_ms(
+            lambda: torch.nn.functional.scaled_dot_product_attention(
+                q, k, v, is_causal=True, enable_gqa=True), reps)[0]
+        size = q.element_size()
+        flops = 4 * B * Hq * D * visible_pairs(Lq, Lk, True)
+        peak = BF16_FLOP_PER_S if dtype == torch.bfloat16 else FP32_FLOP_PER_S
+        at.update(bound((2 * q.numel() + k.numel() + v.numel()) * size, flops, peak))
+        at["flops"] = flops
+        rows[dt]["at_shapes"].append(at)
+        del q, k, v
+        torch.cuda.empty_cache()
+    return _rows_from_shapes(rows.values())
+
+
+def device_busy(fn) -> tuple[float, list]:
+    """One call of ``fn`` under torch.profiler: the device's busy ms (the
+    sum of its kernels' own times, the profiler's "Self CUDA time total")
+    and the six kernels with the most time, [name, ms] each."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kern = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
+    busy = sum(e.self_device_time_total for e in kern) / 1e3
+    check(busy > 0, "the profiler saw no device time")
+    top = sorted(kern, key=lambda e: -e.self_device_time_total)[:6]
+    return busy, [[e.key[:100], e.self_device_time_total / 1e3] for e in top]
+
+
+def _rel_fro(got, want) -> float:
+    """||got - want|| / ||want|| over the leading axis one slice at a time
+    (the logits are ~2.5 GB in bf16)."""
+    num = den = 0.0
+    for a, b in zip(got, want):
+        a, b = a.float(), b.float()
+        num += float((a - b).double().pow(2).sum())
+        den += float(b.double().pow(2).sum())
+    return (num / den) ** 0.5
+
+
+def phase_lm_serve(kernels, fa_rows):
+    """qwen2-0.5b at full width on the card: the prefill through the kernel
+    with every kernel's count at 0 just before it, against attn_impl="torch"
+    (both against the same weights in float32); the float32 model's prefill
+    against teacher-forced decode; greedy generate; the device's busy time
+    in a prefill and a decode step.  Returns the launches of the bf16
+    prefill and of the float32 cross-check's."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import (cast_params, decode_step, init_cache,
+                                    init_params, prefill)
+    # float32 products in full float32 (the f32 cross-check's premise)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_phase = time.perf_counter()
+    cfg = get_arch(LM_ARCH)
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    rng = np.random.default_rng(0)
+    B, L = LM_PREFILL
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab, size=(B, L)), device="cuda")
+
+    def run(impl=None):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out, _ = prefill(cfg, params, {"tokens": toks}, attn_impl=impl)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    for kern in kernels.values():
+        kern.launches = 0
+    logits, cold_s = run()
+    launches = {name: kern.launches for name, kern in kernels.items()}
+    check(launches["flash_attention_bf16"] == cfg.n_layers
+          and sum(launches.values()) == cfg.n_layers,
+          f"prefill launched {launches}, not the bf16 kernel once a layer")
+    check(logits.shape == (B, L, cfg.vocab) and logits.dtype == torch.bfloat16
+          and bool(torch.isfinite(logits).all()), "prefill logits not finite or misshapen")
+    warm = [run()[1] for _ in range(3)]
+    plain_logits, plain_s = run("torch")
+    fro = _rel_fro(logits, plain_logits)
+    check(fro <= LM_LOGITS_TOL, f"kernel-path logits vs attn_impl='torch': {fro}")
+    plain_warm = run("torch")[1]
+    # both bf16 paths against the same weights run in float32 (through the
+    # f32 kernel): which of the two is nearer the function they round
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    p32 = cast_params(params, torch.float32)
+    exact, _ = prefill(cfg32, p32, {"tokens": toks})
+    fro32 = {"kernel": _rel_fro(logits, exact), "plain": _rel_fro(plain_logits, exact)}
+    check(fro32["kernel"] <= LM_F32_MARGIN * fro32["plain"],
+          f"kernel-path logits farther from the float32 model than the plain path's: {fro32}")
+    del logits, plain_logits, exact
+    torch.cuda.empty_cache()
+    prefill_s = float(np.median(warm))
+    kern_ms = fa_rows["flash_attention_bf16"]["at_shapes"][0]["ms"]
+    # the device's busy time in one prefill, beside the host's
+    prefill_busy_ms, prefill_top = device_busy(
+        lambda: prefill(cfg, params, {"tokens": toks}))
+
+    # float32: the same weights, prefill through the f32 kernel against
+    # teacher-forced decode at every position
+    B2, L2 = LM_XCHECK
+    t32 = torch.as_tensor(rng.integers(0, cfg.vocab, size=(B2, L2)), device="cuda")
+    kernels["flash_attention_f32"].launches = 0
+    full, _ = prefill(cfg32, p32, {"tokens": t32})
+    f32_launches = kernels["flash_attention_f32"].launches
+    check(f32_launches == cfg.n_layers,
+          f"float32 prefill launched the f32 kernel {f32_launches} times")
+    cache = init_cache(cfg32, B2, L2, device="cuda")
+    steps = torch.stack([decode_step(cfg32, p32, cache, {"tokens": t32[:, t:t + 1]})[0][:, 0]
+                         for t in range(L2)], dim=1)
+    diff = (steps - full).abs()
+    dec_abs = float(diff.max())
+    dec_excess = float((diff - LM_DECODE_TOL * full.abs()).max())
+    check(dec_excess <= LM_DECODE_TOL,
+          f"float32 prefill vs decode: max abs {dec_abs}, beyond 2e-3 + 2e-3|x|")
+    del p32, full, steps, diff, cache
+    torch.cuda.empty_cache()
+
+    # greedy generation on the bf16 model: the prompt's decode steps, then
+    # the new tokens'; the decode path launches no kernel
+    Bg, Lp, new = LM_GEN
+    prompts = rng.integers(0, cfg.vocab, size=(Bg, Lp)).astype(np.int32)
+    for kern in kernels.values():
+        kern.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = generate(cfg, params, prompts, new, greedy=True)
+    gen_s = time.perf_counter() - t0
+    check(out.shape == (Bg, Lp + new) and np.array_equal(out[:, :Lp], prompts)
+          and ((out >= 0) & (out < cfg.vocab)).all(), "generate's tokens misshapen")
+    check(sum(k.launches for k in kernels.values()) == 0,
+          "generate launched a kernel (decode attention is plain)")
+    # one decode step's device busy time, at the first new token's position
+    cache = init_cache(cfg, Bg, Lp + new, device="cuda")
+    step_tok = torch.as_tensor(out[:, Lp:Lp + 1], device="cuda")
+
+    def step():
+        decode_step(cfg, params, dict(cache, pos=Lp), {"tokens": step_tok})
+    step()
+    step_busy_ms, step_top = device_busy(step)
+    del cache
+    emit("lm_serve", arch=cfg.name, params=cfg.param_count(),
+         weights_bytes=sum(t.numel() * t.element_size() for t in _leaves(params)),
+         prefill={"batch": B, "tokens": L, "host_s": prefill_s, "cold_host_s": cold_s,
+                  "host_s_runs": warm, "tokens_per_s": B * L / prefill_s,
+                  "plain_attention_host_s": plain_warm,
+                  "plain_attention_cold_host_s": plain_s,
+                  "device_busy_ms": prefill_busy_ms,
+                  "device_idle_share": 1 - prefill_busy_ms / 1e3 / prefill_s,
+                  "device_top_kernels_ms": prefill_top,
+                  "attention_device_ms": cfg.n_layers * kern_ms,
+                  "attention_share_of_busy": cfg.n_layers * kern_ms / prefill_busy_ms,
+                  "logits_rel_fro_vs_plain": fro,
+                  "logits_rel_fro_vs_float32_model": fro32, "launches": launches},
+         float32_check={"batch": B2, "tokens": L2, "max_abs_err": dec_abs,
+                        "max_excess_over_bar": dec_excess,
+                        "f32_launches": f32_launches},
+         generate={"batch": Bg, "prompt": Lp, "new_tokens": new, "host_s": gen_s,
+                   "decode_steps": Lp + new,
+                   "ms_per_step": gen_s * 1e3 / (Lp + new),
+                   "step_device_busy_ms": step_busy_ms,
+                   "step_device_idle_share": 1 - step_busy_ms / (gen_s * 1e3 / (Lp + new)),
+                   "step_top_kernels_ms": step_top,
+                   "new_tokens_per_s": Bg * new / gen_s,
+                   "first_new": out[:, Lp].tolist()},
+         peak_memory_gb=torch.cuda.max_memory_allocated() / 2**30,
+         seconds=time.perf_counter() - t_phase)
+    del params
+    torch.cuda.empty_cache()
+    return {"flash_attention_bf16": launches["flash_attention_bf16"],
+            "flash_attention_f32": f32_launches}
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, list):
+        for v in tree:
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1023,6 +1295,17 @@ def main() -> int:
     counts.update(own3)
     own_counts.update(own3)
 
+    # ------------------------------------------------- slice 4: LM serving
+    t0 = time.perf_counter()
+    fa_rows = check_flash_attention()
+    emit("lm_kernels", checked=[r["name"] for r in fa_rows],
+         at_shapes={r["name"]: r["at_shapes"] for r in fa_rows},
+         seconds=time.perf_counter() - t0)
+    rows += fa_rows
+    kernels = {r["name"]: r["kernel"] for r in rows}
+    lm_counts = phase_lm_serve(kernels, {r["name"]: r for r in fa_rows})
+    counts.update(lm_counts)
+
     replaces = {
         "sat_moments_f64": "src/repro/kernels/sat2d/kernel.py:78",
         "sat_moments_f32": "src/repro/kernels/sat2d/kernel.py:78",
@@ -1036,8 +1319,11 @@ def main() -> int:
         "sat_delta_f32": "src/repro/kernels/sat2d/kernel.py:89",
         "sat_stack_f64": "src/repro/kernels/sat2d/kernel.py:78",
         "sat_stack_f32": "src/repro/kernels/sat2d/kernel.py:78",
+        "flash_attention_bf16": "src/repro/kernels/flash_attention/kernel.py:93",
+        "flash_attention_f32": "src/repro/kernels/flash_attention/kernel.py:93",
     }
-    sources = {"sat": "sat2d", "fit": "fitting_loss", "his": "histsplit"}
+    sources = {"sat": "sat2d", "fit": "fitting_loss", "his": "histsplit",
+               "fla": "flash_attention"}
     table = []
     for r in rows:
         table.append({"name": r["name"], "route": "cuda",
@@ -1050,6 +1336,9 @@ def main() -> int:
                       **({"launched_by": "chip_smoke's own call, outside the "
                                          "main paths"}
                          if r["name"] in own_counts else {}),
+                      **({"launched_by": "prefill of the float32 model (the "
+                                         "cross-check against decode)"}
+                         if r["name"] == "flash_attention_f32" else {}),
                       **({"timed_at": r["at_shapes"][0]["shape"]}
                          if "at_shapes" in r else {})})
     print(json.dumps({"kernels": table}), flush=True)

@@ -373,3 +373,108 @@ def test_sharded_coreset_on_the_card_counts_every_thread(cuda):
     assert got.fingerprint() == want.fingerprint()
     # the shared tolerance's build and one build per band, on eight threads
     assert sat_kernel.SAT_MOMENTS_F64.launches == before + 9
+
+
+# ------------------------------------------------------- flash attention
+# (B, Hq, Hkv, Lq, Lk): the reference's sweep (MHA, GQA, MQA, Lq = 1 decode,
+# ragged 300), then Lq < Lk with a causal offset and Lq > Lk (rows with no
+# visible key)
+FA_SHAPES = [(2, 4, 4, 64, 64), (2, 4, 2, 100, 100), (1, 8, 1, 96, 96),
+             (2, 4, 2, 1, 64), (1, 2, 2, 300, 300), (2, 3, 1, 130, 260),
+             (1, 2, 2, 300, 100)]
+# causal and not; decode (Lq = 1) causal only
+FA_CASES = [(s, c) for s in FA_SHAPES for c in (True, False) if c or s[3] > 1]
+# kernel against plain on the card: float32 differs only in the order of
+# the sums and expf's last bits; bfloat16 also in a P entry that rounds the
+# other way and the output's last bit (2^-8 relative)
+FA_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+
+
+def _qkv(shape, D, dtype, device, seed=0):
+    B, Hq, Hkv, Lq, Lk = shape
+    rng = np.random.default_rng(seed)
+    return [torch.as_tensor(rng.normal(size=s), dtype=torch.float32)
+            .to(device=device, dtype=dtype)
+            for s in ((B, Hq, Lq, D), (B, Hkv, Lk, D), (B, Hkv, Lk, D))]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [32, 64, 128])
+@pytest.mark.parametrize("shape,causal", FA_CASES)
+def test_flash_attention_matches_plain(cuda, shape, causal, D, dtype):
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention.ref import flash_attention_plain
+    q, k, v = _qkv(shape, D, dtype, cuda)
+    kern = fa_kernel.FLASH_ATTENTION_F32 if dtype == torch.float32 \
+        else fa_kernel.FLASH_ATTENTION_BF16
+    before = kern.launches
+    got = fa_ops.flash_attention(q, k, v, causal=causal)
+    assert kern.launches == before + 1
+    want = flash_attention_plain(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == q.shape
+    tol = FA_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+def test_flash_attention_is_the_same_from_run_to_run(cuda):
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    q, k, v = _qkv((2, 14, 2, 700, 700), 64, torch.bfloat16, cuda, seed=3)
+    first = fa_ops.flash_attention(q, k, v)
+    assert torch.equal(fa_ops.flash_attention(q, k, v), first)
+
+
+def test_flash_attention_kernel_rejects_other_head_sizes(cuda):
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    q, k, v = _qkv((1, 2, 2, 8, 8), 16, torch.float32, cuda)
+    with pytest.raises(ValueError, match="head sizes"):
+        fa_ops.flash_attention(q, k, v)
+
+
+def _reduced_lm(dtype):
+    from repro_torch.configs import get_arch, reduced_config
+    return reduced_config(get_arch("qwen2-0.5b"), n_kv_heads=2, dtype=dtype)
+
+
+def test_prefill_on_the_card_launches_the_kernel_once_a_layer(cuda):
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.models import init_params, prefill
+    cfg = _reduced_lm("bfloat16")
+    params = init_params(cfg, torch.Generator(device=cuda).manual_seed(0))
+    toks = torch.as_tensor(np.random.default_rng(0).integers(0, cfg.vocab, (2, 300)),
+                           device=cuda)
+    before = fa_kernel.FLASH_ATTENTION_BF16.launches
+    got, _ = prefill(cfg, params, {"tokens": toks})
+    assert fa_kernel.FLASH_ATTENTION_BF16.launches == before + cfg.n_layers
+    want, _ = prefill(cfg, params, {"tokens": toks}, attn_impl="torch")
+    assert fa_kernel.FLASH_ATTENTION_BF16.launches == before + cfg.n_layers
+    rel = (got.float() - want.float()).norm() / want.float().norm()
+    assert float(rel) < 2e-2
+
+
+def test_float32_prefill_on_the_card_matches_decode_and_the_cpu(cuda):
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import decode_step, init_cache, init_params, prefill
+    cfg = _reduced_lm("float32")
+    params = init_params(cfg, torch.Generator(device=cuda).manual_seed(1))
+    prompts = np.random.default_rng(1).integers(0, cfg.vocab, (2, 10)).astype(np.int32)
+    toks = torch.as_tensor(prompts, device=cuda)
+    before = fa_kernel.FLASH_ATTENTION_F32.launches
+    full, _ = prefill(cfg, params, {"tokens": toks})
+    assert fa_kernel.FLASH_ATTENTION_F32.launches == before + cfg.n_layers
+    cache = init_cache(cfg, 2, 10, device=cuda)
+    steps = torch.stack([decode_step(cfg, params, cache, {"tokens": toks[:, t:t + 1]})[0][:, 0]
+                         for t in range(10)], dim=1)
+    torch.testing.assert_close(steps, full, rtol=2e-3, atol=2e-3)
+    assert np.array_equal(generate(cfg, params, prompts, 6, greedy=True),
+                          generate(cfg, _to_cpu(params), prompts, 6, greedy=True))
+
+
+def _to_cpu(tree):
+    if isinstance(tree, dict):
+        return {k: _to_cpu(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to_cpu(v) for v in tree]
+    return tree.cpu()

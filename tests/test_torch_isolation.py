@@ -1,7 +1,8 @@
 """repro_torch stands alone: it imports neither jax nor the reference
 package, at run time (a fresh interpreter running the CPU slices: a
 build, a loss query, a tune_k sweep, a row patch, a stream with a band
-replacement and a band-parallel build) or anywhere in its source and in
+replacement, a band-parallel build, and a reduced qwen2 prefill and greedy
+generation pinned to the plain attention) or anywhere in its source and in
 chip_smoke.py."""
 import ast
 import json
@@ -47,12 +48,25 @@ with ops.backend_override("numpy"):
     streamed = sb.result().num_blocks
     sharded = sharded_coreset(z, 3, 0.3, 3, recompress_result=True).num_blocks
     write_ops = sorted({o for o, _ in ops.dispatch_counts()})
+import torch
+from repro_torch.configs import get_arch, reduced_config
+from repro_torch.launch.serve import generate
+from repro_torch.models import init_params, prefill
+lm = reduced_config(get_arch("qwen2-0.5b"))
+lm_params = init_params(lm, torch.Generator().manual_seed(0))
+prompts = np.random.default_rng(3).integers(0, lm.vocab, size=(2, 5)).astype(np.int32)
+logits, _ = prefill(lm, lm_params, {"tokens": torch.as_tensor(prompts)},
+                    attn_impl="torch")
+tokens = generate(lm, lm_params, prompts, 3, greedy=True)
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "repro"))
 print(json.dumps({"loss": loss, "blocks": cs.num_blocks, "bad": bad,
                   "best_k": res.best_k, "patched": bool(patched),
                   "streamed": streamed, "sharded": sharded,
-                  "write_ops": write_ops}))
+                  "write_ops": write_ops,
+                  "logits": list(logits.shape),
+                  "finite": bool(torch.isfinite(logits.float()).all()),
+                  "tokens": list(tokens.shape)}))
 """
 
 
@@ -68,6 +82,8 @@ def test_cpu_slice_runs_without_jax_or_reference():
     assert set(res["best_k"]) == {"full", "coreset", "uniform"}
     assert res["patched"] and res["streamed"] > 0 and res["sharded"] > 0
     assert {"delta_sat", "streaming_compress"} <= set(res["write_ops"])
+    assert res["logits"] == [2, 5, 512] and res["finite"]
+    assert res["tokens"] == [2, 8]
 
 
 def _imported_roots(path):

@@ -122,7 +122,7 @@ def test_build_writes_hash_named_libraries_atomically(tmp_path, monkeypatch):
     nvcc = _fake_nvcc(tmp_path, "open(args[args.index('-o') + 1], 'w').write('lib')")
     monkeypatch.setattr(common, "_nvcc", lambda: nvcc)
     built = common.build()
-    assert sorted(built) == ["fitting_loss", "histsplit", "sat2d"]
+    assert sorted(built) == ["fitting_loss", "flash_attention", "histsplit", "sat2d"]
     for name in built:
         path = common.library_path(name)
         assert path.parent == tmp_path / "kernels" and path.read_text() == "lib"
