@@ -27,16 +27,25 @@ Phases, one JSON line each:
               main path: the build uses float64)
   build_stages  host seconds of each numpy stage of the build, one by one
   hist_kernels  each histsplit kernel against its plain version on the card
-              (the float64 one against numpy, bitwise) at three shapes: the
-              full training set's root node, the coreset's root node and
-              the 2^24 points of the 4096 x 4096 raster, with times
+              at three shapes: the full training set's root node, the
+              coreset's root node and the 2^24 points of the 4096 x 4096
+              raster, with times.  The float64 kernel runs at each with all
+              rows and with a node's rows (a stable random half), and at a
+              skewed 2^20-point node with every code in one bin: bitwise
+              numpy's bincount, within 1e-12 of its plain version on the
+              card, the same from run to run; device ms, host ms a call
+              through the resident path (ResidentHist, the trees' path),
+              bincount x6 ms and the bytes bound
   tuning      tune_k over k in KS with methods full, coreset and uniform,
               once on the auto backend (the card) and once on numpy: equal
               results bitwise, the coreset within 2x of the full data's SSE;
-              the launches of every kernel during the auto run, the
+              the launches of every kernel during the auto run (one
+              hist_f64_node launch a hist_split/cuda dispatch), the
               hist_split dispatches and their host seconds on both runs
-  variants    the float32 histsplit variants through ops.hist_split, the
-              script's own calls off the main path (which uses float64)
+  variants    the histsplit op surface, ops.hist_split on the card in every
+              variant (float64 bitwise numpy's, the float32 ones within
+              their bars), the script's own calls off the main path (the
+              trees go through ResidentHist)
   write_kernels  the delta and stack kernels against their plain versions at
               the write path's shapes: float64 bitwise equal to numpy and to
               the plain version run on the CPU (where torch's scans keep the
@@ -95,6 +104,11 @@ FL_OPS_PER_TRIPLE = 43
 KS = [8, 16, 32, 64, 128, 256]
 HIST_BINS = 256
 HIST_TILE = 2048
+# the float64 histogram's extra nodes: a node's rows are a stable random half
+# of its root's (rng seed HIST_ROWS_SEED); the skewed node has HIST_SKEWED
+# points, every code the same bin
+HIST_ROWS_SEED = 7
+HIST_SKEWED = 1 << 20
 # bars of the float32 histsplit variants against their plain versions and
 # the float64 oracle, in the reference's scaled measure (scaled_err): its
 # float32 kernel tolerance (tests/test_ops.py) and the compensated path's
@@ -398,23 +412,135 @@ def _rows_from_shapes(rows):
     return rows
 
 
-def check_histsplit(shapes):
-    """Each histsplit kernel at each of ``shapes`` against its plain version
-    on the card, the float64 one also against numpy bitwise and the fused
-    one against itself over two runs, with CUDA-event times beside the plain
-    version's, the library call's (torch.bincount per feature and channel)
-    and the bound; for the float64 one also the host ms of one whole
-    ops.hist_split call on the card and on numpy.  Returns one table row
-    per kernel; its times are those at the first shape, every shape's are
-    under ``at_shapes``."""
+def skewed_node():
+    """A node of HIST_SKEWED points whose codes all name one bin: hist_f64's
+    worst case, one chain as long as the node."""
+    import numpy as np
+    rng = np.random.default_rng(3)
+    codes = np.full((HIST_SKEWED, 2), 7, np.uint8)
+    w = rng.uniform(0.1, 2, HIST_SKEWED)
+    y = rng.normal(size=HIST_SKEWED)
+    return codes, w, w * y, w * y * y
+
+
+def check_hist_f64(shapes):
+    """hist_f64 at each of ``shapes`` with all rows and with a node's rows
+    (a stable random half), and at the skewed node: bitwise numpy's
+    bincount over the rows, within 1e-12 of its plain version (the four
+    passes in PyTorch) on the card, the same over two runs; CUDA-event
+    times beside the plain version's, the library call's (torch.bincount
+    per feature and channel over the rows' codes) and the bytes bound; the
+    host ms of one call through the resident path the trees take and of
+    numpy's per-node call, and with all rows the op surface's call on the
+    card and on numpy.  Returns the table rows of hist_f64 (times at the
+    first shape) and hist_f64_node (times at the coreset root's rows)."""
     import numpy as np
     import torch
     from repro_torch import ops
     from repro_torch.kernels.histsplit import kernel as hk
+    from repro_torch.kernels.histsplit.ops import ResidentHist, pack_values
+    from repro_torch.kernels.histsplit.ref import hist_rows_ref
+    B = HIST_BINS
+    cases = {}
+    for label, inputs in shapes.items():
+        P = inputs[0].shape[0]
+        rng = np.random.default_rng(HIST_ROWS_SEED)
+        cases[label] = (inputs, None)
+        cases[f"{label}/rows"] = (inputs, np.sort(rng.choice(P, P // 2,
+                                                             replace=False)))
+    cases["skewed_2^20"] = (skewed_node(), None)
+    at_shapes = []
+    for label, ((codes, w, wy, wy2), idx) in cases.items():
+        P, F = codes.shape
+        n = P if idx is None else len(idx)
+        sel = slice(None) if idx is None else idx
+        reps = 3 if n > 1 << 20 else (5 if n == 1 << 20 else 20)
+        oracle = ops.hist_split(codes[sel], w[sel], wy[sel], wy2[sel], B,
+                                backend="numpy")
+        c = torch.as_tensor(codes, device="cuda")
+        vals = pack_values(*(torch.as_tensor(a, device="cuda")
+                             for a in (w, wy, wy2)))
+        r = None if idx is None else torch.as_tensor(idx, dtype=torch.int32,
+                                                     device="cuda")
+        rl = None if r is None else r.long()
+        scratch = torch.empty(hk.f64_scratch_bytes(n, F, B), dtype=torch.uint8,
+                              device="cuda")
+
+        def kern(c=c, vals=vals, r=r, scratch=scratch):
+            return hk.hist_rows_cuda(c, vals, r, B, scratch)
+
+        def plain(c=c, vals=vals, rl=rl):
+            return hist_rows_ref(c, vals, rl, B)
+
+        def library(c=c, vals=vals, rl=rl, F=F):
+            sub = c if rl is None else c[rl]
+            v = vals if rl is None else vals[rl]
+            return [torch.bincount(sub[:, f], weights=v[:, s], minlength=B)
+                    for f in range(F) for s in range(3)]
+        got, want = kern(), plain()
+        torch.cuda.synchronize()
+        got_host = got.cpu().numpy()
+        check(np.array_equal(got_host, oracle),
+              f"hist f64 at {label} differs from numpy")
+        check(torch.equal(kern(), got), f"hist f64 at {label} differs from "
+              "run to run")
+        at = {"shape": label, "P": P, "n": n,
+              "max_abs_err": float((got - want).abs().max()),
+              "scaled_err": scaled_err(got_host, want.cpu()),
+              "plain_bitwise": bool(torch.equal(got, want))}
+        check(at["scaled_err"] <= 1e-12,
+              f"hist f64 at {label} vs plain: {at['scaled_err']}")
+        res = ResidentHist(codes, w, wy, wy2, B, device="cuda")
+        rows = np.arange(P) if idx is None else idx
+        check(np.array_equal(res(rows), oracle),
+              f"resident hist f64 at {label} differs from numpy")
+        at["resident_call_ms"] = host_ms(lambda res=res, rows=rows: res(rows),
+                                         reps)
+        node_np = ops.bind("hist_split", codes, w, wy, wy2, B, backend="numpy")
+        at["numpy_node_call_ms"] = host_ms(
+            lambda node_np=node_np, rows=rows: node_np(rows), reps)
+        if idx is None:
+            # the op surface: pack, one upload, the launch, the copy back
+            for backend in ("cuda", "numpy"):
+                at[f"{backend}_op_call_ms"] = host_ms(
+                    lambda backend=backend: ops.hist_split(
+                        codes, w, wy, wy2, B, backend=backend), reps)
+        del res
+        at["ms"], at["wall_ms"] = device_ms(kern, reps)
+        at["plain_ms"] = device_ms(plain, reps)[0]
+        at["library_ms"] = device_ms(library, reps)[0]
+        out_bytes = F * B * 24
+        in_bytes = P * F + P * 24 if idx is None else (4 + F + 24) * n
+        at.update(bound(in_bytes + out_bytes, 3 * n * F, FP64_FLOP_PER_S))
+        at_shapes.append(at)
+        del c, vals, r, rl, scratch, got, want
+        torch.cuda.empty_cache()
+    keys = ("ms", "wall_ms", "plain_ms", "library_ms", "bound_ms", "bound_by")
+    err = max(a["max_abs_err"] for a in at_shapes)
+    first = at_shapes[0]
+    node = next(a for a in at_shapes if a["shape"] == "coreset_root/rows")
+    return [{"name": "hist_f64", "kernel": hk.HIST_F64, "at_shapes": at_shapes,
+             "max_abs_err": err, **{k: first[k] for k in keys}},
+            {"name": "hist_f64_node", "kernel": hk.HIST_F64_NODE,
+             "max_abs_err": err, "timed_at": node["shape"],
+             "round_trip_host_ms": node["resident_call_ms"],
+             **{k: node[k] for k in keys}}]
+
+
+def check_histsplit(shapes):
+    """Each float32 histsplit kernel at each of ``shapes`` against its plain
+    version on the card, the fused one also against itself over two runs,
+    with CUDA-event times beside the plain version's, the library call's
+    (torch.bincount per feature and channel) and the bound.  Returns one
+    table row per kernel; its times are those at the first shape, every
+    shape's are under ``at_shapes``."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.histsplit import kernel as hk
+    from repro_torch import ops
     from repro_torch.kernels.histsplit.ops import pack_values
     from repro_torch.kernels.histsplit.ref import histograms_ref, partials_ref
-    kernels = {"f64": ("hist_f64", hk.HIST_F64),
-               "fused": ("hist_fused_f32", hk.HIST_FUSED),
+    kernels = {"fused": ("hist_fused_f32", hk.HIST_FUSED),
                "partials": ("hist_partials_f32", hk.HIST_PARTIALS),
                "legacy": ("hist_legacy_f32", hk.HIST_LEGACY)}
     rows = {v: {"name": name, "kernel": kern, "at_shapes": []}
@@ -455,22 +581,9 @@ def check_histsplit(shapes):
             torch.cuda.synchronize()
             err = float((got.double() - want.double()).abs().max())
             at = {"shape": label, "P": P, "max_abs_err": err}
-            if variant == "f64":
-                check(np.array_equal(got.cpu().numpy(), oracle),
-                      f"hist f64 at {label} differs from numpy")
-                # what one node's op call costs end to end: pack, one
-                # upload, the launch, the copy back; beside numpy's
-                for backend in ("cuda", "numpy"):
-                    at[f"{backend}_op_call_ms"] = host_ms(
-                        lambda backend=backend: ops.hist_split(
-                            codes, w, wy, wy2, B, backend=backend), reps)
-                at["scaled_err"] = scaled_err(got.cpu(), want.cpu())
-                check(at["scaled_err"] <= 1e-12,
-                      f"hist f64 at {label} vs plain: {at['scaled_err']}")
-            else:
-                at["scaled_err"] = scaled_err(got.cpu(), want.cpu())
-                check(at["scaled_err"] <= HIST_F32_TOL,
-                      f"hist {variant} at {label} vs plain: {at['scaled_err']}")
+            at["scaled_err"] = scaled_err(got.cpu(), want.cpu())
+            check(at["scaled_err"] <= HIST_F32_TOL,
+                  f"hist {variant} at {label} vs plain: {at['scaled_err']}")
             if variant == "partials":
                 p = got.cpu().numpy().astype(np.float64)
                 at["certificate"] = scaled_err(
@@ -484,8 +597,8 @@ def check_histsplit(shapes):
             at["plain_ms"] = device_ms(plain, reps)[0]
             at["library_ms"] = device_ms(library, reps)[0]
             out_bytes = (C if variant == "partials" else 1) * F * B * S * size
-            peak = FP64_FLOP_PER_S if variant == "f64" else FP32_FLOP_PER_S
-            at.update(bound(P * F + P * S * size + out_bytes, S * P * F, peak))
+            at.update(bound(P * F + P * S * size + out_bytes, S * P * F,
+                            FP32_FLOP_PER_S))
             row["at_shapes"].append(at)
     return _rows_from_shapes(rows.values())
 
@@ -519,8 +632,9 @@ def phase_tuning(y, train, test, kernels):
     calls = runs["auto"]["dispatches"].get("hist_split/cuda", 0)
     check(calls > 0 and set(runs["auto"]["dispatches"]) == {"hist_split/cuda"},
           f"tune_k on auto dispatched {runs['auto']['dispatches']}")
-    check(launches["hist_f64"] == calls,
-          f"{launches['hist_f64']} float64 histsplit launches for {calls} dispatches")
+    check(launches["hist_f64_node"] == calls,
+          f"{launches['hist_f64_node']} float64 node launches for {calls} "
+          "hist_split/cuda dispatches")
     check(all(np.isfinite(v).all() for v in res.losses.values()),
           "held-out SSE not finite")
     check(res.losses == res_np.losses, "cuda and numpy tune_k losses differ")
@@ -548,13 +662,15 @@ def phase_tuning(y, train, test, kernels):
 
 
 def phase_variants(inputs, kernels):
-    """The float32 histsplit variants through ops.hist_split on the card:
-    the script's own calls, off the main path, counted apart and held to
-    the numpy oracle.  Returns their launches."""
+    """Every histsplit variant through ops.hist_split on the card: the
+    script's own calls, off the main path (the trees bind their data and
+    launch hist_f64_node), counted apart and held to the numpy oracle, the
+    float64 one bitwise.  Returns their launches."""
     from repro_torch import ops
     oracle = ops.hist_split(*inputs, HIST_BINS, backend="numpy")
     own, errs = {}, {}
-    for variant, name, tol in (("fused", "hist_fused_f32", HIST_F32_TOL),
+    for variant, name, tol in (("f64", "hist_f64", 0.0),
+                               ("fused", "hist_fused_f32", HIST_F32_TOL),
                                ("legacy", "hist_legacy_f32", HIST_F32_TOL),
                                ("partials", "hist_partials_f32", HIST_PARTIALS_TOL)):
         kernels[name].launches = 0
@@ -1225,9 +1341,13 @@ def main() -> int:
     X_r, y_r = signal_to_points(y)
     roots["raster_2^24"] = hist_inputs(X_r, y_r, np.ones(len(y_r)))
     del X_r, y_r
-    hist_rows = check_histsplit(roots)
+    t0 = time.perf_counter()
+    hist_rows = check_hist_f64(roots) + check_histsplit(roots)
     emit("hist_kernels", checked=[r["name"] for r in hist_rows],
-         at_shapes={r["name"]: r["at_shapes"] for r in hist_rows})
+         at_shapes={r["name"]: r["at_shapes"] for r in hist_rows
+                    if "at_shapes" in r},
+         node_kernel={k: v for k, v in hist_rows[1].items() if k != "kernel"},
+         seconds=time.perf_counter() - t0)
     del roots["raster_2^24"]
     rows += hist_rows
 
@@ -1312,6 +1432,7 @@ def main() -> int:
         "fitting_loss": "src/repro/kernels/fitting_loss/kernel.py:100",
         "fitting_loss_batched": "src/repro/kernels/fitting_loss/kernel.py:163",
         "hist_f64": "src/repro/kernels/histsplit/kernel.py:151",
+        "hist_f64_node": "src/repro/kernels/histsplit/kernel.py:151",
         "hist_fused_f32": "src/repro/kernels/histsplit/kernel.py:151",
         "hist_partials_f32": "src/repro/kernels/histsplit/kernel.py:137",
         "hist_legacy_f32": "src/repro/kernels/histsplit/kernel.py:124",
@@ -1340,7 +1461,10 @@ def main() -> int:
                                          "cross-check against decode)"}
                          if r["name"] == "flash_attention_f32" else {}),
                       **({"timed_at": r["at_shapes"][0]["shape"]}
-                         if "at_shapes" in r else {})})
+                         if "at_shapes" in r else {}),
+                      **({key: r[key] for key in ("timed_at",
+                                                  "round_trip_host_ms")}
+                         if "round_trip_host_ms" in r else {})})
     print(json.dumps({"kernels": table}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

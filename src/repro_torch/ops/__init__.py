@@ -20,14 +20,15 @@ import numpy as np
 
 from . import backends as _backends  # noqa: F401  (registers implementations)
 from .registry import (BACKENDS, ENV_VAR, OPS, BackendError,
-                       available_backends, backend_override, dispatch,
+                       available_backends, backend_override, bind, dispatch,
                        dispatch_counts, dispatch_seconds, register,
                        reset_dispatch_counts, resolve, select_backend)
 
 __all__ = [
     "OPS", "BACKENDS", "ENV_VAR", "BackendError",
-    "available_backends", "backend_override", "dispatch", "dispatch_counts",
-    "dispatch_seconds", "register", "reset_dispatch_counts", "resolve",
+    "available_backends", "backend_override", "bind", "dispatch",
+    "dispatch_counts", "dispatch_seconds", "register",
+    "reset_dispatch_counts", "resolve",
     "select_backend", "selected_backend", "sat_moments", "delta_sat",
     "fitting_loss",
     "fitting_loss_batched", "hist_split", "streaming_compress",

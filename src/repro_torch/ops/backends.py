@@ -153,7 +153,10 @@ register("fitting_loss_batched", "cuda")(_fitting_loss_batched_torch("cuda"))
 # backends' default variant "f64" equals it bitwise, so trees grown on any
 # backend are the same trees.  variant= selects the float32 kernels
 # ("fused", "legacy") or the compensated "partials", as the reference's
-# config={"variant": ...} does.
+# config={"variant": ...} does.  Each backend's ``bind(codes, w, wy, wy2,
+# n_bins)`` (through ``registry.bind``) returns the per-node form a tree
+# calls with its node's rows: numpy indexes the host arrays, torch and cuda
+# hold them on the device (``ResidentHist``).
 
 
 @register("hist_split", "numpy")
@@ -167,17 +170,27 @@ def _hist_split_numpy():
             out[f, :, 1] = np.bincount(c, weights=wy, minlength=n_bins)
             out[f, :, 2] = np.bincount(c, weights=wy2, minlength=n_bins)
         return out
+
+    def bind(codes, w, wy, wy2, n_bins):
+        def node(rows):
+            return hist(codes[rows], w[rows], wy[rows], wy2[rows], n_bins)
+        return node
+    hist.bind = bind
     return hist
 
 
 def _hist_split_torch(device):
     def factory():
-        from repro_torch.kernels.histsplit.ops import hist_split
+        from repro_torch.kernels.histsplit.ops import ResidentHist, hist_split
         _check(device)
 
         def hist(codes, w, wy, wy2, n_bins, variant="f64", tile_p=2048):
             return hist_split(codes, w, wy, wy2, n_bins, variant=variant,
                               tile_p=tile_p, device=device)
+
+        def bind(codes, w, wy, wy2, n_bins):
+            return ResidentHist(codes, w, wy, wy2, n_bins, device=device)
+        hist.bind = bind
         return hist
     return factory
 

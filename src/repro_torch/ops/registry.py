@@ -32,7 +32,7 @@ from typing import Callable
 
 __all__ = [
     "OPS", "BACKENDS", "ENV_VAR", "BackendError", "register",
-    "available_backends", "select_backend", "resolve", "dispatch",
+    "available_backends", "select_backend", "resolve", "dispatch", "bind",
     "backend_override", "dispatch_counts", "dispatch_seconds",
     "reset_dispatch_counts",
 ]
@@ -135,10 +135,9 @@ def resolve(op: str, backend: str | None = None) -> tuple[str, Callable]:
     return name, fn
 
 
-def dispatch(op: str, *args, backend: str | None = None, **kw):
-    name, fn = resolve(op, backend)
+def _counted(op: str, name: str, fn: Callable, args, kw, count: int = 1):
     with _LOCK:
-        _DISPATCHES[(op, name)] += 1
+        _DISPATCHES[(op, name)] += count
     t0 = time.perf_counter()
     try:
         return fn(*args, **kw)
@@ -146,6 +145,24 @@ def dispatch(op: str, *args, backend: str | None = None, **kw):
         dt = time.perf_counter() - t0
         with _LOCK:
             _SECONDS[(op, name)] += dt
+
+
+def dispatch(op: str, *args, backend: str | None = None, **kw):
+    name, fn = resolve(op, backend)
+    return _counted(op, name, fn, args, kw)
+
+
+def bind(op: str, *args, backend: str | None = None, **kw) -> Callable:
+    """Resolve ``op``'s backend once and bind its leading arguments there
+    (the backend's ``fn.bind``: ``hist_split`` keeps a tree's data on the
+    device).  Each call of the result counts as one dispatch of ``op``; the
+    binding's host seconds (its upload) count toward ``op``'s seconds."""
+    name, fn = resolve(op, backend)
+    bound = _counted(op, name, fn.bind, args, kw, count=0)
+
+    def call(*a, **k):
+        return _counted(op, name, bound, a, k)
+    return call
 
 
 def dispatch_counts() -> dict[tuple[str, str], int]:

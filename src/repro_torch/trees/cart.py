@@ -12,11 +12,13 @@ follows LightGBM's histogram algorithm:
     paper's k-tree notion), like LightGBM's leaf-wise growth.
 
 Sample weights are first-class throughout (coreset points are weighted).
-The histogram build is the training hot spot; it dispatches through
-``repro_torch.ops.hist_split`` once per node: the numpy bincount oracle,
-its plain PyTorch version on the CPU, or the float64 CUDA kernel in
-``repro_torch.kernels.histsplit``, all three bitwise equal, so a tree does
-not depend on where its histograms were summed.  ``hist_backend`` selects:
+The histogram build is the training hot spot; it dispatches ``hist_split``
+once per node, bound to the tree's data (``repro_torch.ops.bind``): the
+numpy bincount oracle on the node's rows, or the tree's codes and channels
+held on the device once and each node's rows sent to the float64 CUDA
+kernel in ``repro_torch.kernels.histsplit`` (or its plain PyTorch version
+on the CPU), all bitwise equal, so a tree does not depend on where its
+histograms were summed.  ``hist_backend`` selects:
 "auto" (the dispatcher's rules: a pin from ``ops.backend_override`` or
 REPRO_TORCH_OPS_BACKEND, else the card, else raise), "numpy", "torch" or
 "cuda".
@@ -102,9 +104,16 @@ class DecisionTreeRegressor:
                 f"unknown hist_backend {self.hist_backend!r}; "
                 f"valid: {sorted(_HIST_BACKENDS)}") from None
 
-        def hist_fn(codes, w_, wy_, wy2_, n_bins_):
-            return np.asarray(ops.hist_split(codes, w_, wy_, wy2_, n_bins_,
-                                             backend=hist_backend))
+        node_hist = None
+
+        def hist_fn(idx):
+            # one hist_split dispatch a node; the first binds the tree's
+            # codes and channels to the backend (on the card: one upload)
+            nonlocal node_hist
+            if node_hist is None:
+                node_hist = ops.bind("hist_split", codes, w, wy, wy2, n_bins,
+                                     backend=hist_backend)
+            return np.asarray(node_hist(idx))
 
         self.nodes = [_Node()]
         # heap entries: (-gain, counter, node_id, row_idx, depth, split_info)
@@ -120,7 +129,7 @@ class DecisionTreeRegressor:
             self.nodes[node_id].value = s1 / max(s0, 1e-300)
             if depth >= self.max_depth or s0 <= 2 * self.min_weight_leaf or len(idx) < 2:
                 return
-            H = hist_fn(codes[idx], w[idx], wy[idx], wy2[idx], n_bins)
+            H = hist_fn(idx)
             c0 = np.cumsum(H[:, :, 0], axis=1)
             c1 = np.cumsum(H[:, :, 1], axis=1)
             l0, l1 = c0[:, :-1], c1[:, :-1]

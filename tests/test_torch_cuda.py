@@ -20,7 +20,8 @@ from repro_torch.kernels.fitting_loss import ops as fl_ops  # noqa: E402
 from repro_torch.kernels.sat2d import kernel as sat_kernel  # noqa: E402
 from repro_torch.kernels.histsplit import kernel as hist_kernel  # noqa: E402
 from repro_torch.kernels.histsplit import ops as hist_ops  # noqa: E402
-from repro_torch.kernels.histsplit.ref import partials_ref  # noqa: E402
+from repro_torch.kernels.histsplit.ref import (hist_rows_ref,  # noqa: E402
+                                               partials_ref)
 from repro_torch.kernels.sat2d import ops as sat_ops  # noqa: E402
 from repro_torch.kernels.sat2d import ref as sat_ref  # noqa: E402
 from repro_torch.trees import RandomForestRegressor  # noqa: E402
@@ -215,6 +216,64 @@ def test_hist_launcher_rejects_bins_past_one_cta(cuda):
         hist_kernel.histograms_cuda(codes, vals, hist_kernel.MAX_BINS + 1)
 
 
+# hist_f64 over a node's rows: every HIST_SHAPES shape with all rows and a
+# strict ascending random half, both sides of the one-CTA path's limit
+# (4096 rows), a skewed node (every point in one bin), one row and none
+HIST_ROWS_CASES = ([(P, F, B, r, "random") for P, F, B in HIST_SHAPES
+                    for r in ("all", "half")]
+                   + [(4096, 2, 256, "all", "random"),
+                      (4097, 2, 256, "all", "random"),
+                      (9000, 3, 1024, "half", "random"),
+                      (1 << 20, 2, 256, "all", "one_bin"),
+                      (5000, 1, 2, "half", "one_bin"),
+                      (64, 2, 256, "one", "random"),
+                      (64, 3, 16, "none", "random")])
+
+
+def _rows_case(P, F, B, rows, codes, seed=0):
+    c, w, wy, wy2 = _hist_inputs(P, F, B, seed)
+    if codes == "one_bin":
+        c[:] = B - 1
+    rng = np.random.default_rng(seed + 100)
+    idx = {"all": np.arange(P), "one": np.array([P // 2]),
+           "none": np.zeros(0, np.int64),
+           "half": np.sort(rng.choice(P, size=P // 2, replace=False))}[rows]
+    want = ops.hist_split(c[idx], w[idx], wy[idx], wy2[idx], B,
+                          backend="numpy")
+    return (c, w, wy, wy2), idx, want
+
+
+@pytest.mark.parametrize("P,F,B,rows,codes", HIST_ROWS_CASES)
+def test_hist_f64_rows_bitwise_numpy_and_run_to_run(cuda, P, F, B, rows,
+                                                    codes):
+    args, idx, want = _rows_case(P, F, B, rows, codes)
+    c, w, wy, wy2 = _on(cuda, *args)
+    vals = hist_ops.pack_values(w, wy, wy2)
+    r = torch.as_tensor(idx, dtype=torch.int32, device=cuda)
+    before = hist_kernel.HIST_F64.launches
+    got = hist_kernel.hist_rows_cuda(c, vals, r, B)
+    assert hist_kernel.HIST_F64.launches == before + 1
+    assert np.array_equal(got.cpu().numpy(), want)
+    for _ in range(2):
+        assert torch.equal(hist_kernel.hist_rows_cuda(c, vals, r, B), got)
+    # the plain version on the card: the same four passes, CUDA's cumsum
+    plain = hist_rows_ref(c, vals, r.long(), B).cpu().numpy()
+    assert np.abs(plain - want).max() <= 1e-12 * max(np.abs(want).max(), 1.0)
+
+
+@pytest.mark.parametrize("P,F,B,rows,codes", HIST_ROWS_CASES[-7:])
+def test_resident_hist_on_the_card_one_launch_a_node(cuda, P, F, B, rows,
+                                                     codes):
+    args, idx, want = _rows_case(P, F, B, rows, codes, seed=1)
+    res = hist_ops.ResidentHist(*args, B, device=cuda)
+    before = hist_kernel.HIST_F64_NODE.launches
+    assert np.array_equal(res(idx), want)
+    assert np.array_equal(res(np.arange(P)), ops.hist_split(*args, B,
+                                                            backend="numpy"))
+    assert np.array_equal(res(idx), want)
+    assert hist_kernel.HIST_F64_NODE.launches == before + 3
+
+
 def test_forest_on_the_card_equals_numpy(cuda):
     rng = np.random.default_rng(4)
     X = rng.uniform(0, 10, size=(3000, 2))
@@ -222,9 +281,11 @@ def test_forest_on_the_card_equals_numpy(cuda):
     w = rng.uniform(0.2, 3.0, size=3000)
     kw = dict(n_estimators=3, max_leaves=64, random_state=5)
     want = RandomForestRegressor(hist_backend="numpy", **kw).fit(X, y, w)
-    before = hist_kernel.HIST_F64.launches
+    before = hist_kernel.HIST_F64_NODE.launches
+    ops.reset_dispatch_counts()
     got = RandomForestRegressor(hist_backend="cuda", **kw).fit(X, y, w)
-    assert hist_kernel.HIST_F64.launches > before
+    calls = ops.dispatch_counts()[("hist_split", "cuda")]
+    assert hist_kernel.HIST_F64_NODE.launches == before + calls > before
     for a, b in zip(got.trees, want.trees):
         assert [vars(n) for n in a.nodes] == [vars(n) for n in b.nodes]
     assert np.array_equal(got.predict(X), want.predict(X))
