@@ -13,7 +13,9 @@ random weights from a seeded generator.
 Phases, one JSON line each:
 
   device      the card's name and count, and nvidia-smi's name and power limit
-  build       nvcc of every source in src/repro_torch/csrc, all at once
+  build       nvcc of every source in src/repro_torch/csrc, all at once, with
+              each entry's registers and spills (ptxas); the three fa_bf16
+              instantiations must not spill
   kernels     each kernel against its plain PyTorch version on the card (and
               the float64 scan against numpy, bitwise), with CUDA-event times
               beside the plain version's, a library call's and the bound
@@ -63,8 +65,10 @@ Phases, one JSON line each:
               then those of the script's own float32 delta and stack calls
   lm_kernels  the flash-attention kernels against their plain version on the
               card at the prefill's shape (4 x 14 heads x 2048, bf16),
-              prefill_32k's length (1 x 14 x 32768, bf16) and a ragged
-              float32 shape, with times beside the plain version's,
+              prefill_32k's length (1 x 14 x 32768, bf16), yi-9b's heads
+              of 128 (prefill_d128: 1 x 32 query and 4 KV heads x 4096,
+              bf16) and the float32 path's and a ragged float32 shape, with
+              times beside the plain version's,
               scaled_dot_product_attention's and the bound
   lm_serve    prefill of 4 x 2048 prompt tokens through the kernel (24
               launches, one a layer), its logits against attn_impl="torch";
@@ -130,6 +134,7 @@ SAT_F32_TOL = 5e-4
 LM_ARCH = "qwen2-0.5b"
 FA_SHAPES = {"prefill": (4, 14, 2, 2048, 2048, 64, "bfloat16"),
              "prefill_32k": (1, 14, 2, 32768, 32768, 64, "bfloat16"),
+             "prefill_d128": (1, 32, 4, 4096, 4096, 128, "bfloat16"),
              "f32_path": (4, 14, 2, 64, 64, 64, "float32"),
              "f32_ragged": (2, 4, 2, 300, 300, 32, "float32")}
 FA_TOL = {"bfloat16": 2e-2, "float32": 1e-5}
@@ -241,14 +246,42 @@ def phase_device():
     return smi
 
 
+def ptxas_entries(log: str) -> dict:
+    """{entry function: {registers, spill_stores, spill_loads}} from nvcc's
+    ``-Xptxas -v`` output."""
+    import re
+    entries, cur = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", ln)
+        if m:
+            cur = entries.setdefault(m.group(1), {})
+        elif cur is not None:
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+            if m:
+                cur["spill_stores"], cur["spill_loads"] = int(m.group(1)), int(m.group(2))
+            m = re.search(r"Used (\d+) registers", ln)
+            if m:
+                cur["registers"] = int(m.group(1))
+    return entries
+
+
 def phase_build():
     from repro_torch.kernels import common
     t0 = time.perf_counter()
     built = common.build()
     regs = {name: [ln.strip() for ln in r["log"].splitlines() if "registers" in ln]
             for name, r in built.items()}
+    entries = {name: ptxas_entries(r["log"]) for name, r in built.items()}
     emit("build", seconds=time.perf_counter() - t0,
-         per_source={k: v["seconds"] for k, v in built.items()}, ptxas=regs)
+         per_source={k: v["seconds"] for k, v in built.items()}, ptxas=regs,
+         ptxas_entries=entries,
+         warnings=[ln.strip() for r in built.values() for ln in r["log"].splitlines()
+                   if "warning" in ln.lower()])
+    if "flash_attention" in built:
+        bf16 = {f: e for f, e in entries["flash_attention"].items() if "fa_bf16" in f}
+        check(len(bf16) == 3 and all(e.get("spill_stores") == 0 and e.get("spill_loads") == 0
+                                     for e in bf16.values()),
+              f"the fa_bf16 instantiations spill or are missing: {bf16}")
 
 
 def check_sat(y_host, dtype, kern, plain_tol):

@@ -4,9 +4,24 @@
 // kernel_error_string.
 #pragma once
 #include <cuda_runtime.h>
+#include <stdio.h>
+
+// Failures that are not a cudaError_t (a driver entry point not found, a
+// CUresult of the driver API) come back as negative codes, which no
+// cudaError_t takes.
+constexpr int KERNEL_ERR_NO_ENTRY_POINT = -1;
+constexpr int KERNEL_ERR_TENSOR_MAP = -1000;   // minus the CUresult
+
+inline int tensor_map_error(int curesult) { return KERNEL_ERR_TENSOR_MAP - curesult; }
 
 extern "C" const char* kernel_error_string(int code) {
-  return cudaGetErrorString(static_cast<cudaError_t>(code));
+  if (code >= 0) return cudaGetErrorString(static_cast<cudaError_t>(code));
+  if (code == KERNEL_ERR_NO_ENTRY_POINT)
+    return "cuTensorMapEncodeTiled was not found through cudaGetDriverEntryPoint";
+  static thread_local char msg[80];
+  snprintf(msg, sizeof msg, "cuTensorMapEncodeTiled refused the tensor map: CUresult %d",
+           KERNEL_ERR_TENSOR_MAP - code);
+  return msg;
 }
 
 // Additions and products rounded once each, never contracted into an FMA:

@@ -2,10 +2,15 @@
 and bound).
 
 Replaces ``src/repro/kernels/flash_attention/kernel.py::flash_attention_call``:
-``FLASH_ATTENTION_BF16`` (tensor-core ``mma.sync``) for bfloat16 inputs and
-``FLASH_ATTENTION_F32`` (scalar fused multiply-adds) for float32 ones, each
-with its own launch count.  Ragged Lq and Lk are masked in the kernel, not
-padded.
+``FLASH_ATTENTION_BF16`` for bfloat16 inputs and ``FLASH_ATTENTION_F32``
+(scalar fused multiply-adds) for float32 ones, each with its own launch
+count.  The bfloat16 kernel is written for Hopper: a producer warp feeds Q
+and a ring of K/V tiles into shared memory by TMA, and two consumer
+warpgroups of 64 query rows each run ``wgmma`` on them (Q·Kᵀ from shared
+memory, P·V with P from registers), the online softmax in between in
+registers; the bf16 tensor-core peak bounds it at the model's shapes.  The
+C launcher builds the three TMA tensor maps on each call.  Ragged Lq and
+Lk are masked in the kernel, not padded.
 """
 from __future__ import annotations
 
@@ -32,7 +37,12 @@ HEAD_DIMS = (32, 64, 128)
 
 def check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     """Raise on what the kernels do not take: ranks, head counts, dtypes, a
-    head size outside ``HEAD_DIMS`` or a value head size unlike the key's."""
+    head size outside ``HEAD_DIMS`` or a value head size unlike the key's.
+
+    The bfloat16 kernel reads q, k and v by TMA, which needs each stride a
+    multiple of 16 bytes: a row is ``2 * D`` bytes and a head ``2 * L * D``,
+    so every D in ``HEAD_DIMS`` meets it once the launcher has made the
+    tensors contiguous and 16-byte aligned (``_aligned``)."""
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("flash_attention takes q (B, Hq, Lq, D) and k, v "
                          "(B, Hkv, Lk, D)")

@@ -439,10 +439,14 @@ def test_sharded_coreset_on_the_card_counts_every_thread(cuda):
 # ------------------------------------------------------- flash attention
 # (B, Hq, Hkv, Lq, Lk): the reference's sweep (MHA, GQA, MQA, Lq = 1 decode,
 # ragged 300), then Lq < Lk with a causal offset and Lq > Lk (rows with no
-# visible key)
+# visible key); then the bf16 kernel's tile edges (128 query rows, 128 keys)
+# at qwen2's group of 7 and MQA (granite-20b), and Lq > Lk by more than a
+# tile, so that the rows with no visible key fill whole CTAs
 FA_SHAPES = [(2, 4, 4, 64, 64), (2, 4, 2, 100, 100), (1, 8, 1, 96, 96),
              (2, 4, 2, 1, 64), (1, 2, 2, 300, 300), (2, 3, 1, 130, 260),
-             (1, 2, 2, 300, 100)]
+             (1, 2, 2, 300, 100),
+             (1, 14, 2, 127, 127), (2, 4, 1, 128, 128), (1, 14, 2, 129, 129),
+             (1, 6, 1, 257, 257), (1, 2, 2, 400, 100)]
 # causal and not; decode (Lq = 1) causal only
 FA_CASES = [(s, c) for s in FA_SHAPES for c in (True, False) if c or s[3] > 1]
 # kernel against plain on the card: float32 differs only in the order of
@@ -479,9 +483,10 @@ def test_flash_attention_matches_plain(cuda, shape, causal, D, dtype):
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
 
 
-def test_flash_attention_is_the_same_from_run_to_run(cuda):
+@pytest.mark.parametrize("D", [64, 128])
+def test_flash_attention_is_the_same_from_run_to_run(cuda, D):
     from repro_torch.kernels.flash_attention import ops as fa_ops
-    q, k, v = _qkv((2, 14, 2, 700, 700), 64, torch.bfloat16, cuda, seed=3)
+    q, k, v = _qkv((2, 14, 2, 700, 700), D, torch.bfloat16, cuda, seed=3)
     first = fa_ops.flash_attention(q, k, v)
     assert torch.equal(fa_ops.flash_attention(q, k, v), first)
 

@@ -98,9 +98,21 @@ def _imported_roots(path):
 
 def test_sources_import_neither_jax_nor_reference():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
-    files.append(ROOT / "chip_smoke.py")
+    files += [ROOT / "chip_smoke.py", ROOT / "scripts" / "flash_attention_turns.py"]
     assert len(files) > 10
     bad = [f"{p.relative_to(ROOT)}:{line} imports {mod}"
            for p in files for mod, line in _imported_roots(p)
            if mod in FORBIDDEN]
     assert bad == []
+
+
+def test_flash_attention_turns_refuses_without_a_card():
+    import torch
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the script would time kernels")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "scripts/flash_attention_turns.py"],
+                         env=env, cwd=ROOT, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 2 and out.stdout == ""
+    assert "no CUDA device" in out.stderr
