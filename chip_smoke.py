@@ -15,7 +15,7 @@ Phases, one JSON line each:
   device      the card's name and count, and nvidia-smi's name and power limit
   build       nvcc of every source in src/repro_torch/csrc, all at once, with
               each entry's registers and spills (ptxas); the three fa_bf16
-              instantiations must not spill
+              instantiations and the four sat_delta_ entries must not spill
   kernels     each kernel against its plain PyTorch version on the card (and
               the float64 scan against numpy, bitwise), with CUDA-event times
               beside the plain version's, a library call's and the bound
@@ -52,7 +52,9 @@ Phases, one JSON line each:
               the write path's shapes: float64 bitwise equal to numpy and to
               the plain version run on the CPU (where torch's scans keep the
               kernels' order), float32 within 5e-4 of the plain version on
-              the card; with times, the library call's and the bound
+              the card; with times, the library call's and the bound, and
+              at each tail the delta kernels' launch (each pass's CTAs and
+              ring depth)
   write_path  three chained row patches of the slice-1 signal's prefix stats
               on the card (rows 2048-2303 replaced, a 256-row band appended,
               the last 256 rows replaced), bitwise equal to the numpy build
@@ -277,11 +279,15 @@ def phase_build():
          ptxas_entries=entries,
          warnings=[ln.strip() for r in built.values() for ln in r["log"].splitlines()
                    if "warning" in ln.lower()])
-    if "flash_attention" in built:
-        bf16 = {f: e for f, e in entries["flash_attention"].items() if "fa_bf16" in f}
-        check(len(bf16) == 3 and all(e.get("spill_stores") == 0 and e.get("spill_loads") == 0
-                                     for e in bf16.values()),
-              f"the fa_bf16 instantiations spill or are missing: {bf16}")
+    # the bf16 attention kernel (three head widths) and the delta kernels
+    # (two passes, two types) must not spill
+    for source, name, count in (("flash_attention", "fa_bf16", 3), ("sat2d", "sat_delta_", 4)):
+        if source in built:
+            found = {f: e for f, e in entries[source].items() if name in f}
+            check(len(found) == count and all(e.get("spill_stores") == 0
+                                              and e.get("spill_loads") == 0
+                                              for e in found.values()),
+                  f"the {name} entries spill or are missing: {found}")
 
 
 def check_sat(y_host, dtype, kern, plain_tol):
@@ -748,7 +754,7 @@ def check_delta(cases):
             got = sk.delta_sat_cuda(c, t)
             plain = delta_sat_ref(c, t)
             torch.cuda.synchronize()
-            at = {"shape": label, "b": b, "m": m}
+            at = {"shape": label, "b": b, "m": m, "launch": sk.delta_launch_shape(b, m)}
             err, scaled = _scaled_max_err(got, plain, (1, 2))
             at["max_abs_err_vs_card_plain"] = err
             if dtype == torch.float64:

@@ -30,22 +30,27 @@ sys.path.insert(0, str(ROOT / "src"))
 sys.path.insert(0, str(ROOT))
 
 
-def build_other(name: str, source: pathlib.Path):
-    """ctypes handle of ``flash_attention_bf16`` built from ``source``."""
+def build_library(name: str, source: pathlib.Path) -> ctypes.CDLL:
+    """The library built from ``source``, a ``csrc`` file whose directory
+    also holds the ``common.cuh`` it includes, with this checkout's flags."""
     from repro_torch.kernels import common
     h = hashlib.blake2b(digest_size=8)
     for p in (source, source.with_name("common.cuh")):
         h.update(p.read_bytes())
     h.update(" ".join(common.NVCC_FLAGS).encode())
-    out = common.BUILD_DIR / f"turns-{name}-{h.hexdigest()}.so"
+    out = common.BUILD_DIR / f"turns-{name}-{source.stem}-{h.hexdigest()}.so"
     if not out.exists():
         common.BUILD_DIR.mkdir(parents=True, exist_ok=True)
         r = subprocess.run([common._nvcc(), *common.NVCC_FLAGS, "-o", str(out), str(source)],
                            capture_output=True, text=True)
         if r.returncode != 0:
             raise RuntimeError(f"nvcc failed on {source}:\n{r.stdout}{r.stderr}")
-    lib = ctypes.CDLL(str(out))
-    fn = lib.flash_attention_bf16
+    return ctypes.CDLL(str(out))
+
+
+def build_other(name: str, source: pathlib.Path):
+    """ctypes handle of ``flash_attention_bf16`` built from ``source``."""
+    fn = build_library(name, source).flash_attention_bf16
     from repro_torch.kernels.flash_attention.kernel import _ARGS
     fn.argtypes = _ARGS
     fn.restype = ctypes.c_int

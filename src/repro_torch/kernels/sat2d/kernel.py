@@ -5,7 +5,13 @@ Replaces ``src/repro/kernels/sat2d/kernel.py::scan_rows`` as the reference's
 
 - ``SAT_MOMENTS_F64`` / ``_F32``: ``sat_moments`` (``init=None``), the build;
 - ``SAT_DELTA_F64`` / ``_F32``: ``delta_sat_moments``, the unseeded row pass
-  and the carry-seeded ``init=...`` scan, the write path's row patch;
+  and the carry-seeded ``init=...`` scan, the write path's row patch: two
+  launches, ``sat_delta_rows`` (one warp for 2 tail rows, a lane for each
+  y or y^2 row chain, fed by a cp.async ring of column tiles, so a short
+  tail still spreads over the card) and ``sat_delta_cols`` (one lane for
+  each column of each channel, seeded from the carry, fed by a ring of row
+  stages); channel 0's within-row sums are the exact sums of ones, never
+  scanned (:func:`delta_launch_shape` gives the launch at a tail's shape);
 - ``SAT_STACK_F64`` / ``_F32``: ``sat_stack``, one launch for the moment
   rasters of every bucket of a merge-reduce level.
 
@@ -18,11 +24,12 @@ import ctypes
 
 import torch
 
-from ..common import CudaKernel, ceil_div, require_cuda
+from ..common import CudaKernel, ceil_div, library, require_cuda
 
 __all__ = ["SAT_MOMENTS_F64", "SAT_MOMENTS_F32", "SAT_DELTA_F64",
            "SAT_DELTA_F32", "SAT_STACK_F64", "SAT_STACK_F32",
-           "sat_moments_cuda", "delta_sat_cuda", "sat_stack_cuda"]
+           "sat_moments_cuda", "delta_sat_cuda", "delta_launch_shape",
+           "sat_stack_cuda"]
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 SAT_MOMENTS_F64 = CudaKernel("sat2d", "sat_moments_f64", [_P, _P, _I, _I, _P])
@@ -87,6 +94,19 @@ def delta_sat_cuda(carry: torch.Tensor, tail: torch.Tensor) -> torch.Tensor:
         kern(carry.data_ptr(), tail.data_ptr(), out.data_ptr(), b, m,
              torch.cuda.current_stream().cuda_stream)
     return out
+
+
+def delta_launch_shape(b: int, m: int) -> dict:
+    """The delta kernels' launch at a (b, m) tail, as ``csrc/sat2d.cu``
+    sizes it: each pass's CTAs and ring depth."""
+    shape = (ctypes.c_int * 6)()
+    fn = library("sat2d").sat_delta_shape
+    fn.argtypes = [_I, _I, ctypes.POINTER(ctypes.c_int)]
+    fn.restype = None
+    fn(b, m, shape)
+    return {"rows_ctas": shape[0], "rows_ring_tiles": shape[1],
+            "tile_cols": shape[2], "cols_ctas": shape[3],
+            "cols_ring_stages": shape[4], "stage_rows": shape[5]}
 
 
 def sat_stack_cuda(stk: torch.Tensor) -> torch.Tensor:

@@ -293,15 +293,43 @@ def test_forest_on_the_card_equals_numpy(cuda):
 
 # ------------------------------------------------------------- write path
 # (rows of the signal, first patched row, columns): r0 = 0, a 1-row tail,
-# m % 32 != 0, a tail past the column pass's unroll, a long tail
-DELTA_SHAPES = [(12, 0, 129), (12, 11, 129), (45, 30, 37), (300, 100, 1000),
-                (1000, 0, 70)]
+# m % 32 != 0, a tail past the column pass's unroll, a long tail; then the
+# delta kernels' edges (csrc/sat2d.cu): odd and even tails (a row-pass CTA
+# takes 2 rows) around a column-pass ring stage of 16 rows, around its
+# ring of 8 stages and long past it; widths around a warp's 32 columns (a
+# column pass's strip), a row pass's 64-column tile, two tiles, its ring of
+# 8 tiles, and a ragged 4097; the largest tail of the write path at that
+# width
+DELTA_TAILS = (1, 15, 16, 17, 31, 32, 33, 255, 256, 257, 2048)
+DELTA_WIDTHS = (1, 31, 32, 33, 63, 64, 65, 127, 128, 129, 511, 512, 513, 4097)
+DELTA_SHAPES = ([(12, 0, 129), (12, 11, 129), (45, 30, 37), (300, 100, 1000),
+                 (1000, 0, 70)]
+                + [(b + 1, 1, 129) for b in DELTA_TAILS]
+                + [(17, 0, m) for m in DELTA_WIDTHS]
+                + [(2053, 5, 4097)])
+# (tail rows, columns) under a carry drawn from a seeded generator
+DELTA_SEEDED = [(1, 1), (16, 32), (17, 33), (33, 129), (257, 4097), (2048, 257)]
 
 
 def _delta_inputs(n, r0, m, seed=0):
     y = np.random.default_rng(seed).normal(size=(n, m))
     carry = np.zeros((3, m)) if r0 == 0 else _numpy_sat(y)[:, r0 - 1, :]
     return carry, y[r0:]
+
+
+def _seeded_inputs(b, m, seed):
+    rng = np.random.default_rng(seed)
+    carry = rng.normal(size=(3, m)) * np.array([[1e3], [1e2], [1e3]])
+    return carry, rng.normal(size=(b, m))
+
+
+def _bits(a):
+    a = np.ascontiguousarray(a)
+    return a.view(np.uint64 if a.dtype == np.float64 else np.uint32)
+
+
+def _numpy_delta(carry, tail, dtype):
+    return ops.delta_sat(carry, tail, backend="numpy", dtype=dtype)
 
 
 @pytest.mark.parametrize("n,r0,m", DELTA_SHAPES)
@@ -341,13 +369,65 @@ def test_delta_f32_matches_plain(cuda, n, r0, m):
 
 
 def test_delta_keeps_sat_moments_bitwise(cuda):
-    # sat_moments and sat_delta share the column pass; a patch from row 0
-    # of a signal without -0.0 equals the full build
+    # a patch from row 0 of a signal without -0.0 equals the full build
     y = np.random.default_rng(2).normal(size=(257, 300))
     got = sat_ops.delta_sat_moments(torch.zeros((3, 300), dtype=torch.float64,
                                                 device=cuda),
                                     torch.as_tensor(y, device=cuda))
     assert np.array_equal(got.cpu().numpy(), _numpy_sat(y))
+
+
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+@pytest.mark.parametrize("b,m", DELTA_SEEDED)
+def test_delta_seeded_carry_bitwise_equals_numpy(cuda, b, m, dtype):
+    # both types keep the numpy oracle's order, so each equals it bitwise
+    # in its own type, whatever the carry
+    carry, tail = _seeded_inputs(b, m, seed=b + m)
+    got = sat_ops.delta_sat_moments(
+        torch.as_tensor(carry.astype(dtype), device=cuda),
+        torch.as_tensor(tail.astype(dtype), device=cuda)).cpu().numpy()
+    assert np.array_equal(_bits(got), _bits(_numpy_delta(carry, tail, dtype)))
+
+
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+def test_delta_interior_negative_zero_bitwise_equals_numpy(cuda, dtype):
+    # column 0 is -0.0 in the carry and in tail rows 0-20, so the column
+    # chain stays -0.0 down to interior row 20 (y: -0 + -0) and turns +0.0
+    # in y^2; the within-row scan must start from the -0.0 itself
+    carry, tail = _seeded_inputs(40, 70, seed=3)
+    carry[1:, 0] = -0.0
+    tail[:21, 0] = -0.0
+    got = sat_ops.delta_sat_moments(
+        torch.as_tensor(carry.astype(dtype), device=cuda),
+        torch.as_tensor(tail.astype(dtype), device=cuda)).cpu().numpy()
+    want = _numpy_delta(carry, tail, dtype)
+    assert np.signbit(want[1, 20, 0]) and not np.signbit(want[2, 20, 0])
+    assert np.array_equal(_bits(got), _bits(want))
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_delta_same_from_run_to_run(cuda, dtype):
+    carry, tail = (torch.as_tensor(a, dtype=dtype, device=cuda)
+                   for a in _seeded_inputs(257, 4097, seed=4))
+    first = sat_kernel.delta_sat_cuda(carry, tail)
+    for _ in range(3):
+        assert torch.equal(sat_kernel.delta_sat_cuda(carry, tail).view(torch.uint8),
+                           first.view(torch.uint8))
+
+
+def test_delta_f32_ones_saturate_as_the_sequential_sum(cuda):
+    # channel 0's within-row sums are written, not scanned: in float32 the
+    # sequential sum of ones stops at 2^24 (2^24 + 1 rounds to even), so a
+    # row wider than 2^24 keeps it there, bitwise numpy's float32 oracle
+    m = (1 << 24) + 33
+    carry, tail = _seeded_inputs(2, m, seed=5)
+    got = sat_ops.delta_sat_moments(
+        torch.as_tensor(carry.astype(np.float32), device=cuda),
+        torch.as_tensor(tail.astype(np.float32), device=cuda)).cpu().numpy()
+    want = _numpy_delta(carry, tail, np.float32)
+    ones = np.cumsum(np.ones(m, np.float32))
+    assert ones[-1] == np.float32(1 << 24)
+    assert np.array_equal(_bits(got), _bits(want))
 
 
 def _stack(planes, n, m, dtype, seed=0):

@@ -98,7 +98,8 @@ def _imported_roots(path):
 
 def test_sources_import_neither_jax_nor_reference():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
-    files += [ROOT / "chip_smoke.py", ROOT / "scripts" / "flash_attention_turns.py"]
+    files += [ROOT / "chip_smoke.py", ROOT / "scripts" / "flash_attention_turns.py",
+              ROOT / "scripts" / "sat_delta_turns.py"]
     assert len(files) > 10
     bad = [f"{p.relative_to(ROOT)}:{line} imports {mod}"
            for p in files for mod, line in _imported_roots(p)
@@ -106,13 +107,21 @@ def test_sources_import_neither_jax_nor_reference():
     assert bad == []
 
 
-def test_flash_attention_turns_refuses_without_a_card():
+def _refuses_without_a_card(script):
     import torch
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the script would time kernels")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
-    out = subprocess.run([sys.executable, "scripts/flash_attention_turns.py"],
+    out = subprocess.run([sys.executable, f"scripts/{script}.py"],
                          env=env, cwd=ROOT, capture_output=True, text=True,
                          timeout=120)
     assert out.returncode == 2 and out.stdout == ""
     assert "no CUDA device" in out.stderr
+
+
+def test_flash_attention_turns_refuses_without_a_card():
+    _refuses_without_a_card("flash_attention_turns")
+
+
+def test_sat_delta_turns_refuses_without_a_card():
+    _refuses_without_a_card("sat_delta_turns")
