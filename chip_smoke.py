@@ -15,10 +15,13 @@ Phases, one JSON line each:
   device      the card's name and count, and nvidia-smi's name and power limit
   build       nvcc of every source in src/repro_torch/csrc, all at once, with
               each entry's registers and spills (ptxas); the three fa_bf16
-              instantiations and the four sat_delta_ entries must not spill
+              instantiations and the ten sat2d entries must not spill
   kernels     each kernel against its plain PyTorch version on the card (and
               the float64 scan against numpy, bitwise), with CUDA-event times
-              beside the plain version's, a library call's and the bound
+              beside the plain version's, a library call's and the bound;
+              sat_moments at the 4096 x 4096 signal and at a stream frame
+              (256 x 1024), each with its launch (both passes' CTAs and
+              ring depths)
   build_path  signal_coreset on the cuda backend; its fingerprint must equal
               the numpy backend's
   serve       single-tree loss requests, then batched (loss:batch / tuning
@@ -53,8 +56,7 @@ Phases, one JSON line each:
               the plain version run on the CPU (where torch's scans keep the
               kernels' order), float32 within 5e-4 of the plain version on
               the card; with times, the library call's and the bound, and
-              at each tail the delta kernels' launch (each pass's CTAs and
-              ring depth)
+              at each shape the launch (each pass's CTAs and ring depth)
   write_path  three chained row patches of the slice-1 signal's prefix stats
               on the card (rows 2048-2303 replaced, a 256-row band appended,
               the last 256 rows replaced), bitwise equal to the numpy build
@@ -279,9 +281,10 @@ def phase_build():
          ptxas_entries=entries,
          warnings=[ln.strip() for r in built.values() for ln in r["log"].splitlines()
                    if "warning" in ln.lower()])
-    # the bf16 attention kernel (three head widths) and the delta kernels
-    # (two passes, two types) must not spill
-    for source, name, count in (("flash_attention", "fa_bf16", 3), ("sat2d", "sat_delta_", 4)):
+    # the bf16 attention kernel (three head widths) and every sat2d entry
+    # (row_scan: moments mode at 1 and 4 rows a CTA and plain mode;
+    # col_scan at 1 and 3 warps a CTA; two types) must not spill
+    for source, name, count in (("flash_attention", "fa_bf16", 3), ("sat2d", "", 10)):
         if source in built:
             found = {f: e for f, e in entries[source].items() if name in f}
             check(len(found) == count and all(e.get("spill_stores") == 0
@@ -290,48 +293,57 @@ def phase_build():
                   f"the {name} entries spill or are missing: {found}")
 
 
-def check_sat(y_host, dtype, kern, plain_tol):
-    """The sat_moments kernel in ``dtype`` against its plain version on the
-    card (and, in float64, numpy bitwise).  Returns its table row."""
+def check_sat(shapes, dtype, kern, plain_tol):
+    """The sat_moments kernel in ``dtype`` at each of ``shapes`` ({label: y})
+    against its plain version on the card (and, in float64, numpy
+    bitwise), with times and its launch.  Returns its table row, timed at
+    the first shape."""
     import numpy as np
     import torch
     from repro_torch.kernels.sat2d import kernel as sat_kernel
     from repro_torch.kernels.sat2d.ref import sat_moments_ref
-    y = torch.as_tensor(y_host, dtype=dtype, device="cuda")
-    got = sat_kernel.sat_moments_cuda(y)
-    plain = sat_moments_ref(y)
-    torch.cuda.synchronize()
-    err = []
-    for c in range(3):
-        d = (got[c].double() - plain[c].double()).abs().max().item()
-        scale = plain[c].double().abs().max().item()
-        err.append(d)
-        check(d <= plain_tol * scale,
-              f"sat_moments {dtype} channel {c} vs plain: {d} > {plain_tol} x {scale}")
-    if dtype == torch.float64:
-        stk = np.stack([np.ones_like(y_host), y_host, y_host * y_host])
-        want = np.cumsum(np.cumsum(stk, axis=2), axis=1)
-        check(np.array_equal(got.cpu().numpy(), want),
-              "sat_moments float64 kernel differs from numpy")
-        del stk, want
-    n, m = y_host.shape
-    stk = torch.stack([torch.ones_like(y), y, y * y])
-    size = torch.finfo(dtype).bits // 8
-    ms, wall_ms = device_ms(lambda: sat_kernel.sat_moments_cuda(y), 10)
-    row = {
-        "ms": ms, "wall_ms": wall_ms,
-        "plain_ms": device_ms(lambda: sat_moments_ref(y), 10)[0],
-        "library_ms": device_ms(
-            lambda: torch.cumsum(torch.cumsum(stk, dim=2), dim=1), 10)[0],
-        "max_abs_err": max(err),
-    }
-    bytes_ = 4 * n * m * size                     # read y, write 3 images
-    ops_ = 7 * n * m                              # 3 scans x 2 adds + y*y
-    peak = FP64_FLOP_PER_S if dtype == torch.float64 else FP32_FLOP_PER_S
-    row.update(bound(bytes_, ops_, peak))
-    row.update(name=f"sat_moments_{'f64' if dtype == torch.float64 else 'f32'}",
-               kernel=kern)
-    return row
+    at_shapes = []
+    for label, y_host in shapes.items():
+        y = torch.as_tensor(y_host, dtype=dtype, device="cuda")
+        got = sat_kernel.sat_moments_cuda(y)
+        plain = sat_moments_ref(y)
+        torch.cuda.synchronize()
+        err = []
+        for c in range(3):
+            d = (got[c].double() - plain[c].double()).abs().max().item()
+            scale = plain[c].double().abs().max().item()
+            err.append(d)
+            check(d <= plain_tol * scale, f"sat_moments {dtype} at {label} channel "
+                  f"{c} vs plain: {d} > {plain_tol} x {scale}")
+        if dtype == torch.float64:
+            stk = np.stack([np.ones_like(y_host), y_host, y_host * y_host])
+            want = np.cumsum(np.cumsum(stk, axis=2), axis=1)
+            check(np.array_equal(got.cpu().numpy(), want),
+                  f"sat_moments float64 kernel at {label} differs from numpy")
+            del stk, want
+        del got, plain
+        n, m = y_host.shape
+        stk = torch.stack([torch.ones_like(y), y, y * y])
+        size = torch.finfo(dtype).bits // 8
+        ms, wall_ms = device_ms(lambda: sat_kernel.sat_moments_cuda(y), 10)
+        at = {
+            "shape": label, "n": n, "m": m,
+            "launch": sat_kernel.launch_shape("moments", n, m),
+            "ms": ms, "wall_ms": wall_ms,
+            "plain_ms": device_ms(lambda: sat_moments_ref(y), 10)[0],
+            "library_ms": device_ms(
+                lambda: torch.cumsum(torch.cumsum(stk, dim=2), dim=1), 10)[0],
+            "max_abs_err": max(err),
+        }
+        bytes_ = 4 * n * m * size                     # read y, write 3 images
+        ops_ = 7 * n * m                              # 3 scans x 2 adds + y*y
+        peak = FP64_FLOP_PER_S if dtype == torch.float64 else FP32_FLOP_PER_S
+        at.update(bound(bytes_, ops_, peak))
+        at_shapes.append(at)
+        del y, stk
+    row = {"name": f"sat_moments_{'f64' if dtype == torch.float64 else 'f32'}",
+           "kernel": kern, "at_shapes": at_shapes}
+    return _rows_from_shapes([row])[0]
 
 
 def bound(bytes_, ops_, peak):
@@ -754,7 +766,7 @@ def check_delta(cases):
             got = sk.delta_sat_cuda(c, t)
             plain = delta_sat_ref(c, t)
             torch.cuda.synchronize()
-            at = {"shape": label, "b": b, "m": m, "launch": sk.delta_launch_shape(b, m)}
+            at = {"shape": label, "b": b, "m": m, "launch": sk.launch_shape("delta", b, m)}
             err, scaled = _scaled_max_err(got, plain, (1, 2))
             at["max_abs_err_vs_card_plain"] = err
             if dtype == torch.float64:
@@ -810,7 +822,8 @@ def check_stack(stk_host):
         torch.cuda.synchronize()
         err, scaled = _scaled_max_err(got, plain, (1, 2))
         row = {"name": name, "kernel": kern, "order": order,
-               "shape": [L * 3, n, m], "max_abs_err_vs_card_plain": err}
+               "shape": [L * 3, n, m], "max_abs_err_vs_card_plain": err,
+               "launch": sk.launch_shape("stack", n, m, planes=L * 3)}
         if dtype == torch.float64:
             host = got.cpu()
             check(np.array_equal(host.numpy(), want),
@@ -1290,14 +1303,18 @@ def main() -> int:
                 np.stack([s.labels for s in segs]))
 
     # ---------------------------------------------------------------- kernels
-    rows = [check_sat(y, torch.float64, sat_kernel.SAT_MOMENTS_F64, 1e-12),
-            check_sat(y, torch.float32, sat_kernel.SAT_MOMENTS_F32, SAT_F32_TOL)]
+    # the build's signal, then one of the stream's frames
+    sat_shapes = {f"{n}x{m}": y,
+                  f"band_{STREAM_ROWS}x{STREAM_M}": stream_frames()[0][0]}
+    rows = [check_sat(sat_shapes, torch.float64, sat_kernel.SAT_MOMENTS_F64, 1e-12),
+            check_sat(sat_shapes, torch.float32, sat_kernel.SAT_MOMENTS_F32, SAT_F32_TOL)]
     fl_rows, fl_oracle_err = check_fitting_loss(cs_np, *trees(batch))
     rows += fl_rows
     emit("kernels", checked=[r["name"] for r in rows],
          fitting_loss_vs_oracle_max_rel=fl_oracle_err,
          times_ms={r["name"]: {key: r[key] for key in (
-             "ms", "wall_ms", "plain_ms", "library_ms", "bound_ms")} for r in rows})
+             "ms", "wall_ms", "plain_ms", "library_ms", "bound_ms")} for r in rows},
+         at_shapes={r["name"]: r["at_shapes"] for r in rows if "at_shapes" in r})
 
     # ------------------------------------------------------------- main path
     for r in rows:
@@ -1407,7 +1424,8 @@ def main() -> int:
     level1, stk = level_one_stack(bands, new)
     write_rows = check_delta(delta_cases) + check_stack(stk)
     emit("write_kernels", checked=[r["name"] for r in write_rows],
-         at_shapes={r["name"]: r.get("at_shapes", [{"shape": r.get("shape")}])
+         at_shapes={r["name"]: r.get("at_shapes", [{"shape": r.get("shape"),
+                                                    "launch": r.get("launch")}])
                     for r in write_rows},
          stack_order={r["name"]: r["order"] for r in write_rows if "order" in r})
     rows += write_rows

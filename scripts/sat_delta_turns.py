@@ -7,19 +7,23 @@ other sources, in turns, on one CUDA card.
 
 Each ``--other NAME=PATH`` names a ``sat2d.cu`` whose directory also holds
 the ``common.cuh`` it includes; it is built with this checkout's nvcc flags
-(``flash_attention_turns.build_library``).
+(``flash_attention_turns.build_library``), all of them at once.  An edited
+copy of this checkout's ``sat2d.cu`` (other launch constants) times a
+design variant the same way.
 The delta kernels run at the write path's two tails of the 4096-wide signal
 (``chip_smoke.PATCH_ROWS``): float64 held bitwise to the numpy oracle,
 float32 to ``chip_smoke.SAT_F32_TOL`` of the plain version on the card, each
-beside the library call (carry + ``cumsum∘cumsum``) and the bound, with each
-build's device ms by kernel (torch.profiler), which splits its passes.
-sat_moments (4096 x 4096) and sat_stack (12 planes of 512 x 1024) run
-alongside, every build bitwise equal to this one's, to show whether they
-kept their speed.  Every build is timed by CUDA events in the order
-others, this, this, others reversed, so that a drift of the card's clock
-shows as a difference between a build's two times.  One JSON line a
-(kernel, shape), then nvidia-smi's name and power limit.  Exits non-zero
-without a card or when a check fails.
+beside the library call (carry + ``cumsum∘cumsum``) and the bound.
+sat_moments runs at the build's 4096 x 4096 and at a stream frame's
+256 x 1024, sat_stack at one merge-reduce level's 12 planes of 512 x 1024,
+every build bitwise equal to this one's (and float64 sat_moments to numpy).
+Every (kernel, shape) gives each build's device ms by kernel
+(torch.profiler), which splits its passes, and this checkout's launch.
+Every build is timed by CUDA events in the order others, this, this,
+others reversed, so that a drift of the card's clock shows as a difference
+between a build's two times.  One JSON line a (kernel, shape), then
+nvidia-smi's name and power limit.  Exits non-zero without a card or when a
+check fails.
 """
 from __future__ import annotations
 
@@ -37,7 +41,7 @@ sys.path.insert(0, str(ROOT))
 from flash_attention_turns import build_library  # noqa: E402
 
 M = 4096
-MOMENTS_SHAPE = (4096, 4096)
+MOMENTS_SHAPES = {"4096x4096": (4096, 4096), "band_256x1024": (256, 1024)}
 STACK_SHAPE = (12, 512, 1024)
 
 
@@ -132,10 +136,12 @@ def main() -> int:
     from repro_torch.kernels.sat2d import kernel as sk
     from repro_torch.kernels.sat2d.ref import delta_sat_ref
 
-    builds = {}
-    for spec in args.other:
-        name, _, path = spec.partition("=")
-        builds[name] = callers(build_library(name, pathlib.Path(path).resolve()))
+    from concurrent.futures import ThreadPoolExecutor
+    specs = [spec.partition("=")[::2] for spec in args.other]
+    with ThreadPoolExecutor(max(len(specs), 1)) as pool:
+        libs = list(pool.map(lambda s: build_library(s[0], pathlib.Path(s[1]).resolve()),
+                             specs))
+    builds = {name: callers(lib) for (name, _), lib in zip(specs, libs)}
     builds["this"] = callers(common.library("sat2d"))
     others = [n for n in builds if n != "this"]
     order = others + ["this", "this"] + others[::-1]
@@ -147,7 +153,9 @@ def main() -> int:
             run = builds[name][kernel]
             ms[name].append(cs.device_ms(lambda run=run: run(*inputs), 10)[0])
         print(json.dumps({"kernel": kernel, "shape": label, "order": order, "ms": ms,
-                          "library_ms": cs.device_ms(library, 10)[0], **bound, **extra}),
+                          "library_ms": cs.device_ms(library, 10)[0], **bound,
+                          "pass_ms": {name: pass_ms(fns[kernel], inputs)
+                                      for name, fns in builds.items()}, **extra}),
               flush=True)
 
     rng = np.random.default_rng(0)
@@ -180,15 +188,15 @@ def main() -> int:
                   lambda c=c, stk=stk: c[:, None, :] + torch.cumsum(torch.cumsum(stk, dim=2),
                                                                     dim=1),
                   cs.bound((4 * b * M + 3 * M) * size, 7 * b * M, peak),
-                  {"b": b, "m": M, "launch": sk.delta_launch_shape(b, M),
-                   "pass_ms": {name: pass_ms(fns[kernel], (c, x))
-                               for name, fns in builds.items()},
+                  {"b": b, "m": M, "launch": sk.launch_shape("delta", b, M),
                    ("max_abs_err" if t == "f64" else "scaled_err"): errs})
             del stk, c, x
 
-    y_h = rng.normal(size=MOMENTS_SHAPE)
-    s_h = rng.normal(size=STACK_SHAPE) * (rng.random(STACK_SHAPE) < 0.4)
-    for kind, host in (("moments", y_h), ("stack", s_h)):
+    cases = [("moments", label, rng.normal(size=shape))
+             for label, shape in MOMENTS_SHAPES.items()]
+    cases.append(("stack", "x".join(map(str, STACK_SHAPE)),
+                  rng.normal(size=STACK_SHAPE) * (rng.random(STACK_SHAPE) < 0.4)))
+    for kind, label, host in cases:
         for dtype, t in ((torch.float64, "f64"), (torch.float32, "f32")):
             kernel = f"sat_{kind}_{t}"
             x = torch.as_tensor(host, dtype=dtype, device="cuda")
@@ -196,7 +204,13 @@ def main() -> int:
             same = {name: bool(torch.equal(fns[kernel](x).view(torch.uint8), ref))
                     for name, fns in builds.items()}
             if not all(same.values()):
-                failed.append(f"{kernel} differs between builds: {same}")
+                failed.append(f"{kernel} at {label} differs between builds: {same}")
+            if kernel == "sat_moments_f64":
+                stk = np.stack([np.ones_like(host), host, host * host])
+                if not np.array_equal(ref.view(torch.float64).cpu().numpy(),
+                                      np.cumsum(np.cumsum(stk, axis=2), axis=1)):
+                    failed.append(f"sat_moments_f64 at {label} differs from numpy")
+                del stk
             del ref
             size = torch.finfo(dtype).bits // 8
             peak = cs.FP64_FLOP_PER_S if dtype == torch.float64 else cs.FP32_FLOP_PER_S
@@ -204,11 +218,13 @@ def main() -> int:
                 stk = torch.stack([torch.ones_like(x), x, x * x])
                 lib = (lambda stk=stk: torch.cumsum(torch.cumsum(stk, dim=2), dim=1))
                 bound = cs.bound(4 * x.numel() * size, 7 * x.numel(), peak)
+                launch = sk.launch_shape("moments", *host.shape)
             else:
                 lib = (lambda x=x: torch.cumsum(torch.cumsum(x, dim=-2), dim=-1))
                 bound = cs.bound(2 * x.numel() * size, 2 * x.numel(), peak)
-            turns(kernel, "x".join(map(str, host.shape)), (x,), lib, bound,
-                  {"bitwise_equal_to_this": same})
+                launch = sk.launch_shape("stack", *host.shape[1:], planes=host.shape[0])
+            turns(kernel, label, (x,), lib, bound,
+                  {"launch": launch, "bitwise_equal_to_this": same})
             del x
             torch.cuda.empty_cache()
     smi = subprocess.run(

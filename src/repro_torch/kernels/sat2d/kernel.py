@@ -3,17 +3,21 @@
 Replaces ``src/repro/kernels/sat2d/kernel.py::scan_rows`` as the reference's
 ``sat2d/ops.py`` runs it:
 
-- ``SAT_MOMENTS_F64`` / ``_F32``: ``sat_moments`` (``init=None``), the build;
+- ``SAT_MOMENTS_F64`` / ``_F32``: ``sat_moments`` (``init=None``), the build
+  and the stream's frames;
 - ``SAT_DELTA_F64`` / ``_F32``: ``delta_sat_moments``, the unseeded row pass
-  and the carry-seeded ``init=...`` scan, the write path's row patch: two
-  launches, ``sat_delta_rows`` (one warp for 2 tail rows, a lane for each
-  y or y^2 row chain, fed by a cp.async ring of column tiles, so a short
-  tail still spreads over the card) and ``sat_delta_cols`` (one lane for
-  each column of each channel, seeded from the carry, fed by a ring of row
-  stages); channel 0's within-row sums are the exact sums of ones, never
-  scanned (:func:`delta_launch_shape` gives the launch at a tail's shape);
+  and the carry-seeded ``init=...`` scan, the write path's row patch;
 - ``SAT_STACK_F64`` / ``_F32``: ``sat_stack``, one launch for the moment
   rasters of every bucket of a merge-reduce level.
+
+All three are two launches of the same two kernels: ``row_scan`` (one warp
+for a few rows, a lane for each row chain, fed by a cp.async ring of column
+tiles, so a short tail still spreads over the card) and ``col_scan`` (one
+lane for each column of each plane, seeded from the carry or from -0.0, fed
+by a ring of row stages).  For sat_moments and sat_delta the row pass scans
+each row's y and y^2 and the column pass adds channel 0's exact sums of
+ones, never scanned; sat_stack scans each plane as it is.
+:func:`launch_shape` gives each op's launch at a shape.
 
 The float64 launchers keep numpy's summation order bitwise and are the ones
 the coreset pipeline uses; the float32 ones are the TPU kernel's own type.
@@ -24,11 +28,11 @@ import ctypes
 
 import torch
 
-from ..common import CudaKernel, ceil_div, library, require_cuda
+from ..common import CudaKernel, library, require_cuda
 
 __all__ = ["SAT_MOMENTS_F64", "SAT_MOMENTS_F32", "SAT_DELTA_F64",
            "SAT_DELTA_F32", "SAT_STACK_F64", "SAT_STACK_F32",
-           "sat_moments_cuda", "delta_sat_cuda", "delta_launch_shape",
+           "sat_moments_cuda", "delta_sat_cuda", "launch_shape",
            "sat_stack_cuda"]
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -42,9 +46,9 @@ SAT_STACK_F32 = CudaKernel("sat2d", "sat_stack_f32", _STACK_ARGS)
 _MOMENTS = {torch.float64: SAT_MOMENTS_F64, torch.float32: SAT_MOMENTS_F32}
 _DELTA = {torch.float64: SAT_DELTA_F64, torch.float32: SAT_DELTA_F32}
 _STACK = {torch.float64: SAT_STACK_F64, torch.float32: SAT_STACK_F32}
-# threads per column-pass block and rows per stack row-pass block:
-# COL_THREADS and STACK_WARPS * ROWS in csrc/sat2d.cu
-_COL_THREADS, _STACK_ROWS = 64, 128
+_SHAPE_KEYS = ("rows_ctas", "rows_per_cta", "rows_ring_tiles", "tile_cols",
+               "cols_ctas", "cols_warps_per_cta", "cols_ring_stages",
+               "stage_rows", "strip_cols")
 
 
 def _kernel(table, what, t):
@@ -61,6 +65,21 @@ def _check_2d(what, t):
     if not (1 <= n < 2**31 and 1 <= m < 2**31):
         raise ValueError(f"unsupported {what} shape {(n, m)}")
     return n, m
+
+
+def launch_shape(op: str, n: int, m: int, planes: int = 3) -> dict:
+    """The launch of ``op`` ("moments", "delta" or "stack") at ``planes``
+    (n, m) planes (the stack's; sat_moments and sat_delta have three), as
+    ``csrc/sat2d.cu`` sizes it, in either type: each pass's CTAs, rows or
+    warps a CTA, ring depth and stage size."""
+    if op not in ("moments", "delta", "stack"):
+        raise ValueError(f"unknown sat2d op {op!r}")
+    shape = (ctypes.c_longlong * len(_SHAPE_KEYS))()
+    fn = library("sat2d").sat_launch_shape
+    fn.argtypes = [_I, ctypes.c_longlong, _I, _I, ctypes.POINTER(ctypes.c_longlong)]
+    fn.restype = None
+    fn(op == "stack", planes, n, m, shape)
+    return dict(zip(_SHAPE_KEYS, shape))
 
 
 def sat_moments_cuda(y: torch.Tensor) -> torch.Tensor:
@@ -96,19 +115,6 @@ def delta_sat_cuda(carry: torch.Tensor, tail: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def delta_launch_shape(b: int, m: int) -> dict:
-    """The delta kernels' launch at a (b, m) tail, as ``csrc/sat2d.cu``
-    sizes it: each pass's CTAs and ring depth."""
-    shape = (ctypes.c_int * 6)()
-    fn = library("sat2d").sat_delta_shape
-    fn.argtypes = [_I, _I, ctypes.POINTER(ctypes.c_int)]
-    fn.restype = None
-    fn(b, m, shape)
-    return {"rows_ctas": shape[0], "rows_ring_tiles": shape[1],
-            "tile_cols": shape[2], "cols_ctas": shape[3],
-            "cols_ring_stages": shape[4], "stage_rows": shape[5]}
-
-
 def sat_stack_cuda(stk: torch.Tensor) -> torch.Tensor:
     """Integral images of every (n, m) plane of a CUDA (B, n, m) stack:
     float64 columns first, float32 rows first (``ref.STACK_ORDER``)."""
@@ -117,10 +123,12 @@ def sat_stack_cuda(stk: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"stack must be (B, n, m), got shape {tuple(stk.shape)}")
     B, n, m = stk.shape
     kern = _kernel(_STACK, "sat_stack", stk)
-    if not (B >= 1 and 1 <= n < 2**31 and 1 <= m < 2**31
-            and ceil_div(B * n, _STACK_ROWS) < 2**31
-            and ceil_div(B * m, _COL_THREADS) < 2**31):
+    if not (1 <= B < 2**31 and 1 <= n < 2**31 and 1 <= m < 2**31):
         raise ValueError(f"unsupported stack shape {(B, n, m)}")
+    launch = launch_shape("stack", n, m, planes=B)
+    if max(launch["rows_ctas"], launch["cols_ctas"]) >= 2**31:
+        raise ValueError(f"stack shape {(B, n, m)} needs more CTAs than a "
+                         f"launch takes: {launch}")
     stk = stk.contiguous()
     out = torch.empty_like(stk)
     with torch.cuda.device(stk.device):

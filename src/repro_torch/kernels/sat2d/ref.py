@@ -11,9 +11,10 @@ The same functions as ``csrc/sat2d.cu``:
   either order (``STACK_ORDER`` gives the one each dtype's kernel keeps).
 
 On the CPU, ``torch.cumsum`` sums each row and column in order, so in
-float64 the results equal numpy's bitwise (up to the sign of a zero: it
-starts from 0 + the first element); on a CUDA tensor it is a parallel scan
-that reorders the sums.
+float64 the results equal numpy's bitwise; on a CUDA tensor it is a
+parallel scan that reorders the sums.  On the CPU signed zeros follow
+numpy's too (``_cumsum``): a scan starts from its first element, as the
+kernels' -0.0 seed makes it.
 """
 from __future__ import annotations
 
@@ -27,10 +28,25 @@ __all__ = ["sat_moments_ref", "delta_sat_ref", "sat_stack_ref", "STACK_ORDER"]
 STACK_ORDER = {torch.float64: "cols_first", torch.float32: "rows_first"}
 
 
+def _cumsum(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """``torch.cumsum`` with numpy's signed zeros where the scan is numpy's:
+    torch starts a scan from 0 + the first element, numpy from the element
+    itself, so a prefix of -0.0s sums to -0.0 in numpy and to +0.0 in
+    torch; past the first other element the two agree (-0.0 + x == +0.0 + x
+    unless x is -0.0).  Only on the CPU, where torch sums in numpy's order:
+    on a CUDA tensor the scan reorders the sums, so it is held to numpy by
+    value there, and the fix would only slow the card's plain version."""
+    s = torch.cumsum(x, dim)
+    if x.device.type != "cpu":
+        return s
+    neg0 = (torch.signbit(x) & (x == 0)).to(torch.uint8)
+    return s.masked_fill(torch.cumprod(neg0, dim).bool(), -0.0)
+
+
 def sat_moments_ref(y: torch.Tensor) -> torch.Tensor:
     """(3, n, m) inclusive integral images of (1, y, y^2), in y's dtype."""
     stk = torch.stack([torch.ones_like(y), y, y * y])
-    return torch.cumsum(torch.cumsum(stk, dim=2), dim=1)
+    return _cumsum(_cumsum(stk, dim=2), dim=1)
 
 
 def delta_sat_ref(carry: torch.Tensor, tail: torch.Tensor) -> torch.Tensor:
@@ -42,9 +58,9 @@ def delta_sat_ref(carry: torch.Tensor, tail: torch.Tensor) -> torch.Tensor:
     then a scan down the rows with the carry row prepended, which is dropped
     again; so row i is row i-1 + inner[i], the adds a full build makes."""
     stk = torch.stack([torch.ones_like(tail), tail, tail * tail])
-    inner = torch.cumsum(stk, dim=2)
+    inner = _cumsum(stk, dim=2)
     full = torch.cat([carry.to(tail.dtype)[:, None, :], inner], dim=1)
-    return torch.cumsum(full, dim=1)[:, 1:, :]
+    return _cumsum(full, dim=1)[:, 1:, :]
 
 
 def sat_stack_ref(stk: torch.Tensor, order: str) -> torch.Tensor:
@@ -53,7 +69,7 @@ def sat_stack_ref(stk: torch.Tensor, order: str) -> torch.Tensor:
     order of ``PrefixStats.build_moments``); ``"rows_first"`` the other way
     round (the order of the reference's ``sat_stack``)."""
     if order == "cols_first":
-        return torch.cumsum(torch.cumsum(stk, dim=-2), dim=-1)
+        return _cumsum(_cumsum(stk, dim=-2), dim=-1)
     if order == "rows_first":
-        return torch.cumsum(torch.cumsum(stk, dim=-1), dim=-2)
+        return _cumsum(_cumsum(stk, dim=-1), dim=-2)
     raise ValueError(f"unknown order {order!r}; 'cols_first' or 'rows_first'")

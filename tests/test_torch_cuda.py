@@ -465,6 +465,127 @@ def test_stack_f32_matches_plain(cuda, planes, n, m):
     assert ((got - want).abs() <= 5e-4 * scale).all()
 
 
+# sat_moments and sat_stack on the row and column passes they share with the
+# delta kernels (csrc/sat2d.cu): n or m = 1; widths around a row pass's
+# 64-column tile and its ring of 8 tiles, and not a multiple of either; row
+# counts around a column pass's 16-row stage and below or past its ring of 8
+# stages; the stream's frame; widths around the column pass's switch from
+# one warp a CTA to three (3 x 44 strips fill the 132 SMs, 3 x 45 do not);
+# row counts around the moments row pass's switch from 1 row a CTA to 4
+# (1056), odd or not a multiple of 4; the build's width + 1
+MOMENTS_EDGES = [(1, 1), (1, 4097), (300, 1), (15, 63), (17, 65), (33, 129),
+                 (100, 513), (129, 1000), (256, 1024), (257, 1408), (40, 1409),
+                 (527, 70), (1055, 129), (1056, 64), (1058, 513), (130, 4097)]
+# (planes, n, m) of the stack: one plane past both rings, in place; rows
+# (planes x n) not a multiple of a plain row-pass CTA's 8; two planes of the
+# build's width + 1
+STACK_EDGES = [(1, 300, 1000), (7, 17, 65), (3, 1, 1), (2, 129, 4097)]
+NEG0_PLACES = ("corner", "row0", "col0", "interior")
+
+
+def _with_neg0(shape, places, seed=0):
+    """A signal with -0.0 at the top-left corner, along row 0, down column
+    0 or in the interior (each run long enough to keep a -0.0 prefix)."""
+    y = np.random.default_rng(seed).normal(size=shape)
+    n, m = shape
+    for place in places:
+        if place == "corner":
+            y[0, 0] = -0.0
+        elif place == "row0":
+            y[0, :m // 2] = -0.0
+        elif place == "col0":
+            y[:n // 2, 0] = -0.0
+        else:
+            y[n // 3:, m // 3:m // 3 + 5] = -0.0
+    return y
+
+
+def _numpy_moments(y, dtype):
+    return ops.sat_moments(y, backend="numpy", dtype=dtype)
+
+
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+@pytest.mark.parametrize("n,m", MOMENTS_EDGES)
+def test_sat_moments_bitwise_equals_numpy_at_the_passes_edges(cuda, n, m, dtype):
+    # both types keep numpy's order, so each equals it bitwise in its type
+    y = _with_neg0((n, m), ("corner",), seed=n + m)
+    kern = sat_kernel.SAT_MOMENTS_F64 if dtype == np.float64 else sat_kernel.SAT_MOMENTS_F32
+    before = kern.launches
+    got = sat_ops.sat_moments(torch.as_tensor(y.astype(dtype), device=cuda)).cpu().numpy()
+    assert kern.launches == before + 1
+    assert np.array_equal(_bits(got), _bits(_numpy_moments(y, dtype)))
+
+
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+@pytest.mark.parametrize("place", NEG0_PLACES + ("all",))
+def test_sat_moments_keeps_numpy_signed_zeros(cuda, place, dtype):
+    # every chain starts from -0.0, so a -0.0 prefix stays -0.0 in y and
+    # turns +0.0 in y^2, as in numpy; +0.0 seeds would lose the sign
+    y = _with_neg0((70, 130), NEG0_PLACES if place == "all" else (place,), seed=7)
+    got = sat_ops.sat_moments(torch.as_tensor(y.astype(dtype), device=cuda)).cpu().numpy()
+    want = _numpy_moments(y, dtype)
+    if place != "interior":
+        assert np.signbit(want[1]).any() and not np.signbit(want[2]).any()
+    assert np.array_equal(_bits(got), _bits(want))
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("planes,n,m", STACK_EDGES)
+def test_stack_bitwise_equals_numpy_in_its_order(cuda, planes, n, m, dtype):
+    # the second pass runs in place: float64's row pass (columns first) and
+    # float32's column pass (rows first) read ahead of their own stores
+    x = _stack(planes, n, m, dtype, seed=planes + n + m)
+    x[:, :max(n // 2, 1), 0] = -0.0
+    kern = sat_kernel.SAT_STACK_F64 if dtype == torch.float64 else sat_kernel.SAT_STACK_F32
+    before = kern.launches
+    got = sat_ops.sat_stack(x.to(cuda)).cpu().numpy()
+    assert kern.launches == before + 1
+    first, second = (1, 2) if dtype == torch.float64 else (2, 1)
+    want = np.cumsum(np.cumsum(x.numpy(), axis=first), axis=second)
+    assert np.signbit(want).any()
+    assert np.array_equal(_bits(got), _bits(want))
+
+
+@pytest.mark.parametrize("n,m", [(4100, 4097), (3, (1 << 24) + 33)])
+def test_sat_moments_f32_ones_keep_the_sequential_sum(cuda, n, m):
+    # channel 0 in float32: the within-row sums saturate at 2^24, and down
+    # the columns the sequential sum of them rounds where the product
+    # (i + 1)(j + 1) would not; both bitwise numpy's float32 oracle
+    y = np.random.default_rng(9).normal(size=(n, m)).astype(np.float32)
+    got = sat_ops.sat_moments(torch.as_tensor(y, device=cuda)).cpu().numpy()
+    want = _numpy_moments(y, np.float32)
+    if m > 1 << 24:
+        assert want[0, 0, -1] == np.float32(1 << 24)
+    else:
+        assert want[0, -1, -1] != np.float32(n * m)
+    assert np.array_equal(_bits(got), _bits(want))
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_sat_moments_and_stack_same_from_run_to_run(cuda, dtype):
+    y = torch.as_tensor(np.random.default_rng(10).normal(size=(257, 4097)),
+                        dtype=dtype, device=cuda)
+    x = _stack(12, 100, 1000, dtype, seed=11).to(cuda)
+    first = (sat_kernel.sat_moments_cuda(y), sat_kernel.sat_stack_cuda(x))
+    for _ in range(3):
+        again = (sat_kernel.sat_moments_cuda(y), sat_kernel.sat_stack_cuda(x))
+        for a, b in zip(again, first):
+            assert torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+
+
+def test_launch_shape_covers_every_row_and_column(cuda):
+    for op, planes, n, m in [("moments", 3, 4096, 4096), ("moments", 3, 256, 1024),
+                             ("delta", 3, 257, 4097), ("stack", 12, 512, 1024),
+                             ("stack", 7, 17, 65), ("moments", 3, 1, 1),
+                             ("delta", 3, 1055, 129), ("moments", 3, 1058, 64)]:
+        got = sat_kernel.launch_shape(op, n, m, planes=planes)
+        rows = n if op != "stack" else planes * n
+        assert (got["rows_ctas"] - 1) * got["rows_per_cta"] < rows
+        assert got["rows_ctas"] * got["rows_per_cta"] >= rows
+        warps = planes * -(-m // got["strip_cols"])
+        assert got["cols_ctas"] * got["cols_warps_per_cta"] == warps
+
+
 def test_patch_chain_on_the_card_equals_numpy_build(cuda):
     rng = np.random.default_rng(3)
     y = rng.normal(size=(200, 77))

@@ -177,3 +177,61 @@ def test_new_launchers_refuse_cpu_tensors():
         sat_kernel.sat_stack_cuda(x)
     with pytest.raises((RuntimeError, ValueError)):
         sat_kernel.delta_sat_cuda(x[0, :3], x[0])
+
+
+# -------------------------------------------- sat_moments as a -0.0 delta
+# The CUDA kernels build sat_moments as the delta patch seeded with a carry
+# row of -0.0: under round-to-nearest -0.0 + x == x for every x, -0.0
+# included, so every column's first add yields numpy's first element
+# itself.  -0.0 entries at the top-left corner, along row 0, down column 0,
+# in the interior, and all four; widths and heights of 1 among the shapes.
+NEG0_SHAPES = [(1, 9), (7, 1), (9, 13), (40, 70)]
+NEG0_PLACES = ["corner", "row0", "col0", "interior", "all"]
+
+
+def _with_neg0(shape, place, seed=40):
+    y = np.random.default_rng(seed).normal(size=shape)
+    n, m = shape
+    places = ["corner", "row0", "col0", "interior"] if place == "all" else [place]
+    for p in places:
+        if p == "corner":
+            y[0, 0] = -0.0
+        elif p == "row0":
+            y[0, :max(m // 2, 1)] = -0.0
+        elif p == "col0":
+            y[:max(n // 2, 1), 0] = -0.0
+        else:
+            y[n // 3:, m // 3:m // 3 + 3] = -0.0
+    return y
+
+
+def _bits(a):
+    return np.ascontiguousarray(a).view(np.uint64)
+
+
+@pytest.mark.parametrize("place", NEG0_PLACES)
+@pytest.mark.parametrize("shape", NEG0_SHAPES)
+def test_sat_moments_is_the_delta_from_a_negative_zero_carry(shape, place):
+    y = _with_neg0(shape, place)
+    want = ref_ops.sat_moments(y, backend="numpy")
+    got = sat_ref.delta_sat_ref(torch.full((3, shape[1]), -0.0, dtype=torch.float64),
+                                torch.as_tensor(y)).numpy()
+    if place != "interior":
+        assert np.signbit(want[1]).any()
+    assert np.array_equal(_bits(got), _bits(want))
+
+
+@pytest.mark.parametrize("place", NEG0_PLACES)
+def test_port_numpy_and_plain_sat_moments_keep_numpy_signed_zeros(place):
+    # the port's numpy op and the plain version start each scan from its
+    # first element as well; a +0.0 carry would not
+    y = _with_neg0((40, 70), place, seed=41)
+    want = ref_ops.sat_moments(y, backend="numpy")
+    assert np.array_equal(_bits(ops.sat_moments(y, backend="numpy")), _bits(want))
+    assert np.array_equal(_bits(sat_ref.sat_moments_ref(torch.as_tensor(y)).numpy()),
+                          _bits(want))
+    assert np.array_equal(
+        _bits(ops.delta_sat(np.full((3, 70), -0.0), y, backend="numpy")), _bits(want))
+    if place != "interior":
+        plus = ops.delta_sat(np.zeros((3, 70)), y, backend="numpy")
+        assert not np.array_equal(_bits(plus), _bits(want))
