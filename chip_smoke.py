@@ -104,10 +104,15 @@ HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
 FP64_FLOP_PER_S = 34e12
 BF16_FLOP_PER_S = 989e12
-# float32 operations per (tree, block, leaf) in csrc/fitting_loss.cu: two
-# clipped overlaps (4 each), z, Z, Z - z (3), and per point min, max, sub,
-# max, sub, two products and the add (8 x 4)
-FL_OPS_PER_TRIPLE = 43
+# the loss kernel's work, as its inputs need it: the overlap z of every
+# (tree, block, leaf) triple (two clipped overlaps of 4 operations, the
+# product and the running sum Z), and for the triples with z > 0 the body:
+# Z - z, and per point min, max, sub, max, sub, two products and the add
+# (1 + 8 x 4).  Adds, multiplies, mins and maxes issue at half the FMA-counted
+# float32 peak
+FL_OVERLAP_OPS = 10
+FL_BODY_OPS = 33
+FP32_OPS_PER_S = FP32_FLOP_PER_S / 2
 # the tuning sweep of slice 2 and cart's histogram width (max_bins + 1)
 KS = [8, 16, 32, 64, 128, 256]
 HIST_BINS = 256
@@ -281,10 +286,13 @@ def phase_build():
          ptxas_entries=entries,
          warnings=[ln.strip() for r in built.values() for ln in r["log"].splitlines()
                    if "warning" in ln.lower()])
-    # the bf16 attention kernel (three head widths) and every sat2d entry
+    # the attention kernels (three head widths each), every sat2d entry
     # (row_scan: moments mode at 1 and 4 rows a CTA and plain mode;
-    # col_scan at 1 and 3 warps a CTA; two types) must not spill
-    for source, name, count in (("flash_attention", "fa_bf16", 3), ("sat2d", "", 10)):
+    # col_scan at 1 and 3 warps a CTA; two types) and the fitting_loss
+    # entry must not spill
+    for source, name, count in (("flash_attention", "fa_bf16", 3),
+                                ("flash_attention", "fa_f32", 3), ("sat2d", "", 10),
+                                ("fitting_loss", "fl_score", 1)):
         if source in built:
             found = {f: e for f, e in entries[source].items() if name in f}
             check(len(found) == count and all(e.get("spill_stores") == 0
@@ -355,13 +363,17 @@ def bound(bytes_, ops_, peak):
 
 def check_fitting_loss(cs, rects, labels):
     """Both loss kernels at the serving shapes against the plain version on
-    the card and the numpy oracle; tree alone equals tree in a batch."""
+    the card and the numpy oracle; tree alone equals tree in a batch, and
+    zero-area leaves, appended or inserted, change nothing.  Each row has
+    its launch, the share of (block, leaf) pairs that overlap and of
+    (32-block chunk, leaf) pairs with any, and a bound that counts the
+    overlap of every triple and the loss body of the overlapping ones."""
     import numpy as np
     import torch
     from repro_torch.core import fitting_loss as oracle
     from repro_torch.kernels.fitting_loss import kernel as fl_kernel
     from repro_torch.kernels.fitting_loss.ref import (fitting_loss_batched_ref,
-                                                      fitting_loss_ref)
+                                                      fitting_loss_ref, overlaps)
 
     def dev(a):
         return torch.as_tensor(np.asarray(a, np.float32), device="cuda")
@@ -384,13 +396,25 @@ def check_fitting_loss(cs, rects, labels):
     check(np.array_equal(alone, got), "tree alone differs from tree in batch")
     # the coalescer pads strangers' trees with zero-area leaves
     T, K = labels.shape
-    padded = torch.cat([seg, torch.zeros((T, 9, 8), device="cuda")], dim=1)
-    check(np.array_equal(fl_kernel.fitting_loss_batched_cuda(blk, padded)
-                         .cpu().numpy(), got),
-          "zero-area padding leaves changed a loss")
+    zeros = torch.zeros((T, 9, 8), device="cuda")
+    padded = torch.cat([seg, zeros], dim=1)
+    inserted = torch.cat([seg[:, :K // 2], zeros, seg[:, K // 2:]], dim=1)
+    for what, trees_ in (("appended", padded), ("inserted", inserted)):
+        check(np.array_equal(fl_kernel.fitting_loss_batched_cuda(blk, trees_)
+                             .cpu().numpy(), got),
+              f"zero-area leaves {what} changed a loss")
     single_plain = fitting_loss_ref(cr, cl, cw, sr[0], sl[0]).item()
     B = cs.num_blocks
     in_bytes = B * 16 * 4
+    # the triples with z > 0, by the plain version's z, for each tree, and
+    # the (tree, 32-block chunk, leaf) triples with any
+    hit = overlaps(cr, sr) > 0                         # (T, B, K)
+    live_pairs = hit.sum(dim=(1, 2)).cpu().numpy()
+    chunk = fl_kernel.CHUNK
+    pad = torch.zeros((T, -B % chunk, K), dtype=torch.bool, device="cuda")
+    warp_hit = torch.cat([hit, pad], dim=1).view(T, -1, chunk, K).any(dim=2)
+    share = {"pairs": float(hit.float().mean()), "warps": float(warp_hit.float().mean())}
+    del hit, pad, warp_hit
     rows = []
     for name, T_, fn, pfn, err in (
             ("fitting_loss", 1, lambda: fl_kernel.fitting_loss_cuda(blk, seg[0]),
@@ -406,8 +430,10 @@ def check_fitting_loss(cs, rects, labels):
                "library_ms": None, "max_abs_err": err,
                "kernel": (fl_kernel.FITTING_LOSS if T_ == 1
                           else fl_kernel.FITTING_LOSS_BATCHED)}
-        row.update(bound(in_bytes + T_ * K * 8 * 4 + T_ * 4,
-                         FL_OPS_PER_TRIPLE * T_ * B * K, FP32_FLOP_PER_S))
+        ops_ = FL_OVERLAP_OPS * T_ * B * K + FL_BODY_OPS * int(live_pairs[:T_].sum())
+        row.update(bound(in_bytes + T_ * K * 8 * 4 + T_ * 4, ops_, FP32_OPS_PER_S))
+        row.update(launch=fl_kernel.launch_shape(B, T_), overlap_share=(
+            {"pairs": float(live_pairs[0] / (B * K))} if T_ == 1 else share))
         rows.append(row)
     return rows, float(rel_err(got, want).max())
 
@@ -1521,7 +1547,9 @@ def main() -> int:
                          if "at_shapes" in r else {}),
                       **({key: r[key] for key in ("timed_at",
                                                   "round_trip_host_ms")}
-                         if "round_trip_host_ms" in r else {})})
+                         if "round_trip_host_ms" in r else {}),
+                      **({key: r[key] for key in ("launch", "overlap_share")}
+                         if "overlap_share" in r else {})})
     print(json.dumps({"kernels": table}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

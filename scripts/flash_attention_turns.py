@@ -1,5 +1,5 @@
-"""Time the bfloat16 flash-attention kernel of this checkout against the same
-kernel built from other sources, in turns, on one CUDA card.
+"""Time the flash-attention kernels of this checkout against the same
+kernels built from other sources, in turns, on one CUDA card.
 
     git archive <commit> src/repro_torch/csrc | tar -x -C build/parent
     python3 scripts/flash_attention_turns.py \\
@@ -7,7 +7,8 @@ kernel built from other sources, in turns, on one CUDA card.
 
 Each ``--other NAME=PATH`` names a ``flash_attention.cu`` whose directory
 also holds the ``common.cuh`` it includes; it is built with this checkout's
-nvcc flags.  At every bfloat16 shape of ``chip_smoke.FA_SHAPES`` each build
+nvcc flags.  At every shape of ``chip_smoke.FA_SHAPES`` (``--dtype`` keeps
+the bfloat16 or the float32 ones) each build's kernel of the shape's dtype
 is held to ``flash_attention_plain`` (max abs and relative Frobenius error
 within ``chip_smoke.FA_TOL``), then timed by CUDA events in the order
 others, this, this, others reversed, so that a drift of the card's clock
@@ -48,16 +49,24 @@ def build_library(name: str, source: pathlib.Path) -> ctypes.CDLL:
     return ctypes.CDLL(str(out))
 
 
-def build_other(name: str, source: pathlib.Path):
-    """ctypes handle of ``flash_attention_bf16`` built from ``source``."""
-    fn = build_library(name, source).flash_attention_bf16
+SYMBOLS = {"bfloat16": "flash_attention_bf16", "float32": "flash_attention_f32"}
+
+
+def build_other(name: str, source: pathlib.Path) -> dict:
+    """{dtype: function of (q, k, v)} launching the kernels built from
+    ``source``."""
+    lib = build_library(name, source)
     from repro_torch.kernels.flash_attention.kernel import _ARGS
-    fn.argtypes = _ARGS
-    fn.restype = ctypes.c_int
-    return fn
+    runs = {}
+    for dt, symbol in SYMBOLS.items():
+        fn = getattr(lib, symbol)
+        fn.argtypes = _ARGS
+        fn.restype = ctypes.c_int
+        runs[dt] = caller(fn, symbol)
+    return runs
 
 
-def caller(fn):
+def caller(fn, symbol: str):
     """A function of (q, k, v) that launches ``fn`` as the port's launcher
     does, causal."""
     import torch
@@ -71,7 +80,7 @@ def caller(fn):
                 D, 1, 1.0 / float(D) ** 0.5, empty_row_divisor(Lk),
                 torch.cuda.current_stream().cuda_stream)
         if rc != 0:
-            raise RuntimeError(f"flash_attention_bf16 returned {rc}")
+            raise RuntimeError(f"{symbol} returned {rc}")
         return out
     return run
 
@@ -81,6 +90,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--other", action="append", default=[], metavar="NAME=PATH",
                     help="another flash_attention.cu to time beside this checkout's")
+    ap.add_argument("--dtype", choices=sorted(SYMBOLS), action="append",
+                    help="time the shapes of this dtype only (default: all)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("flash_attention_turns: no CUDA device; nothing was run", file=sys.stderr)
@@ -92,22 +103,24 @@ def main() -> int:
     builds = {}
     for spec in args.other:
         name, _, path = spec.partition("=")
-        builds[name] = caller(build_other(name, pathlib.Path(path).resolve()))
-    builds["this"] = lambda q, k, v: fa.flash_attention_cuda(q, k, v)
+        builds[name] = build_other(name, pathlib.Path(path).resolve())
+    builds["this"] = {dt: (lambda q, k, v: fa.flash_attention_cuda(q, k, v))
+                      for dt in SYMBOLS}
     others = [n for n in builds if n != "this"]
     order = others + ["this", "this"] + others[::-1]
 
-    labels = [lb for lb, s in cs.FA_SHAPES.items() if s[-1] == "bfloat16"]
+    labels = [lb for lb, s in cs.FA_SHAPES.items() if s[-1] in (args.dtype or SYMBOLS)]
     gen = torch.Generator(device="cuda").manual_seed(0)
     failed = False
     for label in labels:
         B, Hq, Hkv, Lq, Lk, D, dt = cs.FA_SHAPES[label]
-        q, k, v = (torch.randn(s, generator=gen, device="cuda").to(torch.bfloat16)
+        dtype = getattr(torch, dt)
+        q, k, v = (torch.randn(s, generator=gen, device="cuda").to(dtype)
                    for s in ((B, Hq, Lq, D), (B, Hkv, Lk, D), (B, Hkv, Lk, D)))
         plain = flash_attention_plain(q, k, v).float()
         errs = {}
-        for name, run in builds.items():
-            d = run(q, k, v).float() - plain
+        for name, runs in builds.items():
+            d = runs[dt](q, k, v).float() - plain
             errs[name] = {"max_abs_err": float(d.abs().max()),
                           "rel_fro_err": float(d.norm() / plain.norm())}
             failed |= max(errs[name].values()) > cs.FA_TOL[dt]
@@ -116,17 +129,18 @@ def main() -> int:
         reps = 3 if Lq > 8192 else 20
         ms = {name: [] for name in builds}
         for name in order:
-            ms[name].append(cs.device_ms(lambda run=builds[name]: run(q, k, v), reps)[0])
+            ms[name].append(cs.device_ms(lambda run=builds[name][dt]: run(q, k, v), reps)[0])
         library_ms = cs.device_ms(
             lambda: torch.nn.functional.scaled_dot_product_attention(
                 q, k, v, is_causal=True, enable_gqa=True), reps)[0]
         flops = 4 * B * Hq * D * cs.visible_pairs(Lq, Lk, True)
+        peak = cs.BF16_FLOP_PER_S if dt == "bfloat16" else cs.FP32_FLOP_PER_S
         print(json.dumps({
             "shape": label, "B": B, "Hq": Hq, "Hkv": Hkv, "Lq": Lq, "Lk": Lk, "D": D,
-            "order": order, "ms": ms, "library_ms": library_ms, "flops": flops,
+            "dtype": dt, "order": order, "ms": ms, "library_ms": library_ms, "flops": flops,
             "tflop_per_s": {n: flops / (sum(t) / len(t)) / 1e9 for n, t in ms.items()},
-            **cs.bound((2 * q.numel() + k.numel() + v.numel()) * 2, flops,
-                       cs.BF16_FLOP_PER_S),
+            **cs.bound((2 * q.numel() + k.numel() + v.numel()) * q.element_size(), flops,
+                       peak),
             "errors": errs}), flush=True)
         del q, k, v
         torch.cuda.empty_cache()

@@ -60,10 +60,29 @@
 //     below Lq stored with plain stores.
 // Query tiles are launched longest key loop first.
 //
-// float32: scalar fused multiply-adds (no TF32, which would keep only ten
-// mantissa bits of q and k).  256 threads over a 64 x 64 tile, each owning
-// a 4 x 4 block of S and a 4 x D/16 block of acc; Q, K, V, S in shared
-// memory.
+// float32, for Hopper (sm_90a).  A CTA owns 16 query rows and has four
+// warps; each warp takes a quarter of every key tile (16 keys, 8 at
+// D = 128) with its own online softmax, and the four (m, l, acc) are merged
+// in a fixed order at the end.  So the float32 cross-check's 4 x 14 heads
+// of 64 rows make 224 CTAs, and a warp's chain of products is a quarter of
+// the tile's.
+//   - Products on the tensor cores at float32 accuracy: 3xTF32 on
+//     mma.sync.m16n8k8.  Each operand x is split into hi = tf32(x) and
+//     lo = tf32(x - hi) (x - hi is exact), and a.b is summed as
+//     lo_a.hi_b + hi_a.lo_b + hi_a.hi_b in float32; the dropped lo.lo term
+//     is below float32's last bit.  Plain TF32 would keep ten mantissa bits.
+//   - Loads: K and V tiles of 64 keys (32 at D = 128) by 16-byte cp.async
+//     into a two-stage ring, the next tile in flight while this one is
+//     used; rows padded by 4 floats, so every fragment load hits 32 banks.
+//     Keys past Lk are zero-filled.  The CTA's Q rows come the same way,
+//     once, and each product reads its A fragments from there.
+//   - S's accumulators have the bf16 kernel's layout, so the same online
+//     softmax runs on them (exp2, log2(e) folded into the scale); P is
+//     split in registers as the A fragment of P V, its columns taken in the
+//     order (2t, 2t + 1) and V's rows in the same order.
+//   - The merge: a slice that saw no key of a row weighs exactly 0 once
+//     another slice did; a row that no slice saw keeps the sum of V over
+//     every slot and divides by empty_den, as the single softmax would.
 //
 // Bound.  Work: 4 x B x Hq x D flops per visible (query, key) pair, about
 // half of Lq x Lk with causal; bytes: q, k, v read and o written once.
@@ -74,7 +93,12 @@
 // them the softmax, which it overlaps with the products.  At D = 64 the
 // exp2 units take about as long as the products.  What it does not do yet:
 // a persistent grid, so each CTA's prologue (barriers, the first Q and K/V
-// loads) and epilogue are exposed once per 128 query rows.
+// loads) and epilogue are exposed once per 128 query rows.  In float32, at
+// the cross-check's 4 x 14 x 64 x 64, the work is 30 MFLOP (x3 for the
+// split) on 2 MB: both bounds are below a microsecond and the time is
+// latency, so the design fills the card with small CTAs, splits each tile's
+// products over four warps and overlaps each tile's load with the previous
+// tile's products.
 #include "common.cuh"
 
 #include <cuda.h>
@@ -306,14 +330,15 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4],
 }
 
 
-// The online softmax over one S tile held as wgmma accumulators: this
-// thread's rows r0 and r0 + 8, keys k0 + 8n + 2t (+1) in s[4n..4n+3].  On
+// The online softmax over one S tile of N / 4 blocks of 8 keys held as
+// wgmma or mma.sync accumulators (the same layout): this thread's rows r0
+// and r0 + 8, keys k0 + 8n + 2t (+1) in s[4n..4n+3].  On
 // return s holds P (float32), (m, l) are updated and c0, c1 are the rows'
 // corrections.  MASK: the tile crosses the causal diagonal or the Lk edge.
 // Each row's maximum and sum run as CH independent chains, so that their
 // latencies overlap.
-template <bool MASK>
-__device__ __forceinline__ void online_softmax(float (&s)[BK / 2], float& m0, float& m1,
+template <bool MASK, int N>
+__device__ __forceinline__ void online_softmax(float (&s)[N], float& m0, float& m1,
                                                float& l0, float& l1, float& c0, float& c1,
                                                float scale_log2, int k0, int r0, int t, int Lk,
                                                int off, int causal) {
@@ -322,7 +347,7 @@ __device__ __forceinline__ void online_softmax(float (&s)[BK / 2], float& m0, fl
 #pragma unroll
   for (int i = 0; i < CH; ++i) mx0[i] = mx1[i] = NEG;
 #pragma unroll
-  for (int n = 0; n < BK / 8; ++n) {
+  for (int n = 0; n < N / 4; ++n) {
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       float x = s[4 * n + e];
@@ -356,7 +381,7 @@ __device__ __forceinline__ void online_softmax(float (&s)[BK / 2], float& m0, fl
 #pragma unroll
   for (int i = 0; i < CH; ++i) ps0[i] = ps1[i] = 0.f;
 #pragma unroll
-  for (int n = 0; n < BK / 8; ++n) {
+  for (int n = 0; n < N / 4; ++n) {
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const float mn = e < 2 ? mn0 : mn1;
@@ -559,152 +584,213 @@ fa_bf16(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensor
 }
 
 // --------------------------------------------------------------- float32
-constexpr int S_BQ = 64;        // query rows per CTA
-constexpr int S_BK = 64;        // keys per staged tile
-constexpr int S_THREADS = 256;  // 16 x 16: thread (ty, tx) owns rows ty + 16 i
+constexpr int F_ROWS = 16;      // query rows a CTA
+constexpr int F_SLICES = 4;     // warps a CTA: each takes a quarter of every key tile
 
 template <int D>
-constexpr int f32_smem_floats() {
-  return 2 * S_BQ * (D + 1) + S_BK * D + S_BQ * (S_BK + 1) + 3 * S_BQ;
+struct F32Tiles {
+  static constexpr int BK = D == 128 ? 32 : 64;   // keys a K/V tile
+  static constexpr int SK = BK / F_SLICES;         // keys a warp's slice of it
+  static constexpr int LD = D + 4;                 // padded row: fragment loads hit 32 banks
+  static constexpr int STAGE = 2 * BK * LD;        // floats: K tile, then V tile
+  // two stages, then the CTA's query rows; the stages hold the slices'
+  // (m, l, acc) for the merge at the end
+  static constexpr int SMEM = (2 * STAGE + F_ROWS * LD) * static_cast<int>(sizeof(float));
+  static_assert(F_SLICES * F_ROWS * (2 + LD) <= 2 * STAGE, "merge buffer");
+};
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// x as a pair of tf32 values, hi + lo; x - hi is exact
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(hi) : "f"(x));
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(lo) : "f"(x - __uint_as_float(hi)));
+}
+
+__device__ __forceinline__ void mma_tf32(float* d, const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// d += a.b in 3xTF32, the small terms first; a and b as (hi, lo) halves
+__device__ __forceinline__ void mma_3xtf32(float* d, const uint32_t (&ah)[4],
+                                           const uint32_t (&al)[4], const uint32_t (&bh)[2],
+                                           const uint32_t (&bl)[2]) {
+  mma_tf32(d, al, bh);
+  mma_tf32(d, ah, bl);
+  mma_tf32(d, ah, bh);
+}
+
+// rows r0 .. r0 + n - 1 of a head's (L, D) matrix x into padded rows of dst
+// (and of y into dst + n LD), by 16-byte copies; rows past L are zero-filled
+template <int D>
+__device__ __forceinline__ void load_rows(float* dst, const float* x, const float* y,
+                                          long long base, int r0, int n, int L) {
+  constexpr int CH = D / 4, LD = F32Tiles<D>::LD;   // 16-byte chunks a row
+  for (int e = threadIdx.x; e < n * CH; e += blockDim.x) {
+    const int r = e / CH, c = e % CH;
+    const bool in = r0 + r < L;
+    const long long at = base + static_cast<long long>(in ? r0 + r : 0) * D + 4 * c;
+    cp_async16(dst + r * LD + 4 * c, x + at, in);
+    if (y != nullptr) cp_async16(dst + n * LD + r * LD + 4 * c, y + at, in);
+  }
 }
 
 template <int D>
-__global__ void __launch_bounds__(S_THREADS)
+__global__ void __launch_bounds__(F_SLICES * 32)
 fa_f32(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
-       float* __restrict__ o, int Hq, int Hkv, int Lq, int Lk, int causal, float scale,
+       float* __restrict__ o, int Hq, int Hkv, int Lq, int Lk, int causal, float scale_log2,
        float empty_den) {
-  constexpr int LQ = D + 1;          // padded rows: a walk along d hits 32 banks
-  constexpr int LS = S_BK + 1;
-  extern __shared__ float smem[];
-  float* qs = smem;                  // [S_BQ][LQ]
-  float* ks = qs + S_BQ * LQ;        // [S_BK][LQ]
-  float* vs = ks + S_BK * LQ;        // [S_BK][D]
-  float* ss = vs + S_BK * D;         // [S_BQ][LS]: scores, then P
-  float* row_m = ss + S_BQ * LS;
-  float* row_l = row_m + S_BQ;
-  float* row_c = row_l + S_BQ;
+  using T = F32Tiles<D>;
+  constexpr int BK = T::BK, SK = T::SK, LD = T::LD;
+  extern __shared__ __align__(16) float fsm[];
 
   const int bh = blockIdx.y;
   const int b = bh / Hq, h = bh % Hq;
   const int kvh = h / (Hq / Hkv);
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * S_BQ;
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * F_ROWS;   // the longest key loops first
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;   // warp: the key slice
+  const int g = lane / 4, t = lane % 4;                // fragment row, column
+  const int r0 = q0 + g;                               // this thread's rows r0, r0 + 8
+  const int off = Lk - Lq;
   const long long qbase = static_cast<long long>(bh) * Lq * D;
   const long long kvbase = (static_cast<long long>(b) * Hkv + kvh) * Lk * D;
-  const int off = Lk - Lq;
+  const int ntiles = key_tiles(q0, F_ROWS, BK, Lq, Lk, causal);
 
-  for (int e = threadIdx.x; e < S_BQ * D; e += S_THREADS) {
-    const int r = e / D, c = e % D;
-    qs[r * LQ + c] = q0 + r < Lq ? q[qbase + static_cast<long long>(q0 + r) * D + c] : 0.f;
-  }
-  if (threadIdx.x < S_BQ) {
-    row_m[threadIdx.x] = NEG;
-    row_l[threadIdx.x] = 0.f;
-  }
-  float acc[4][D / 16];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int jj = 0; jj < D / 16; ++jj) acc[i][jj] = 0.f;
+  float* qs = fsm + 2 * T::STAGE;
+  load_rows<D>(qs, q, nullptr, qbase, q0, F_ROWS, Lq);
+  load_rows<D>(fsm, k, v, kvbase, 0, BK, Lk);
+  cp_async_commit();
+  // A fragments of Q: rows g, g + 8 by columns 8kk + t, + 4
+  const float* qw = qs + g * LD + t;
 
-  const int ntiles = key_tiles(q0, S_BQ, S_BK, Lq, Lk, causal);
+  float acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  float m0 = NEG, m1 = NEG, l0 = 0.f, l1 = 0.f, c0 = 1.f, c1 = 1.f;
+
   for (int j = 0; j < ntiles; ++j) {
-    const int k0 = j * S_BK;
-    __syncthreads();
-    for (int e = threadIdx.x; e < S_BK * D; e += S_THREADS) {
-      const int r = e / D, c = e % D;
-      const bool in = k0 + r < Lk;
-      const long long at = kvbase + static_cast<long long>(k0 + r) * D + c;
-      ks[r * LQ + c] = in ? k[at] : 0.f;
-      vs[r * D + c] = in ? v[at] : 0.f;
+    if (j + 1 < ntiles) {
+      load_rows<D>(fsm + ((j + 1) & 1) * T::STAGE, k, v, kvbase, (j + 1) * BK, BK, Lk);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
     }
     __syncthreads();
+    // this warp's slice: keys k0 .. k0 + SK - 1
+    const float* ks = fsm + (j & 1) * T::STAGE + warp * SK * LD;
+    const float* vs = ks + BK * LD;
+    const int k0 = j * BK + warp * SK;
+    // S = Q K^T: B fragment of key block n is K[8n + g][8kk + t (+ 4)]
+    float s[SK / 2];
+#pragma unroll
+    for (int i = 0; i < SK / 2; ++i) s[i] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < D / 8; ++kk) {
+      uint32_t ah[4], al[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        split_tf32(qw[8 * (e & 1) * LD + 8 * kk + 4 * (e >> 1)], ah[e], al[e]);
+#pragma unroll
+      for (int n = 0; n < SK / 8; ++n) {
+        const float* kr = ks + (8 * n + g) * LD + 8 * kk + t;
+        uint32_t kh[2], kl[2];
+        split_tf32(kr[0], kh[0], kl[0]);
+        split_tf32(kr[4], kh[1], kl[1]);
+        mma_3xtf32(s + 4 * n, ah, al, kh, kl);
+      }
+    }
+    if (k0 + SK > Lk || (causal && k0 + SK - 1 > q0 + off))
+      online_softmax<true>(s, m0, m1, l0, l1, c0, c1, scale_log2, k0, r0, t, Lk, off, causal);
+    else
+      online_softmax<false>(s, m0, m1, l0, l1, c0, c1, scale_log2, k0, r0, t, Lk, off, causal);
+#pragma unroll
+    for (int i = 0; i < D / 8; ++i) {
+      acc[4 * i] *= c0;
+      acc[4 * i + 1] *= c0;
+      acc[4 * i + 2] *= c1;
+      acc[4 * i + 3] *= c1;
+    }
+    // O += P V over key blocks kk: the accumulator holds keys 2t, 2t + 1 of
+    // rows r0, r0 + 8, so fragment column t is key 2t and t + 4 is key
+    // 2t + 1; V's B fragment takes its rows in the same order
+#pragma unroll
+    for (int kk = 0; kk < SK / 8; ++kk) {
+      uint32_t ph[4], pl[4];
+      split_tf32(s[4 * kk], ph[0], pl[0]);
+      split_tf32(s[4 * kk + 2], ph[1], pl[1]);
+      split_tf32(s[4 * kk + 1], ph[2], pl[2]);
+      split_tf32(s[4 * kk + 3], ph[3], pl[3]);
+      const float* vr = vs + (8 * kk + 2 * t) * LD + g;
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n) {
+        uint32_t vh[2], vl[2];
+        split_tf32(vr[8 * n], vh[0], vl[0]);
+        split_tf32(vr[LD + 8 * n], vh[1], vl[1]);
+        mma_3xtf32(acc + 4 * n, ph, pl, vh, vl);
+      }
+    }
+    __syncthreads();      // every warp is done with the stage the next load fills
+  }
 
-    // S block: rows ty + 16 i, keys tx + 16 jj
-    float sc[4][4];
+  // Merge the slices in slice order: each warp's (m, l, acc) into the
+  // stages, then M = max m, L = sum l 2^(m - M), O = sum acc 2^(m - M).  A
+  // slice that saw no key of a row (m = NEG) weighs 0 once another did; a
+  // row no slice saw keeps every slot's V and divides by empty_den.
+  l0 += __shfl_xor_sync(FULL, l0, 1);
+  l0 += __shfl_xor_sync(FULL, l0, 2);
+  l1 += __shfl_xor_sync(FULL, l1, 1);
+  l1 += __shfl_xor_sync(FULL, l1, 2);
+  float* mm = fsm;                              // [slice][row]
+  float* ll = mm + F_SLICES * F_ROWS;           // [slice][row]
+  float* aa = ll + F_SLICES * F_ROWS;           // [slice][row][LD]
+  if (t == 0) {
+    mm[warp * F_ROWS + g] = m0;
+    mm[warp * F_ROWS + g + 8] = m1;
+    ll[warp * F_ROWS + g] = l0;
+    ll[warp * F_ROWS + g + 8] = l1;
+  }
+  float* aw = aa + (warp * F_ROWS + g) * LD + 2 * t;
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int jj = 0; jj < 4; ++jj) sc[i][jj] = 0.f;
-    for (int d = 0; d < D; ++d) {
-      float a[4], kb[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = qs[(ty + 16 * i) * LQ + d];
-#pragma unroll
-      for (int jj = 0; jj < 4; ++jj) kb[jj] = ks[(tx + 16 * jj) * LQ + d];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int jj = 0; jj < 4; ++jj) sc[i][jj] = __fmaf_rn(a[i], kb[jj], sc[i][jj]);
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int jj = 0; jj < 4; ++jj) ss[(ty + 16 * i) * LS + tx + 16 * jj] = sc[i][jj];
-    __syncthreads();
-
-    // online softmax: 4 neighbouring lanes per row, 16 keys each
-    {
-      const int r = threadIdx.x >> 2, part = threadIdx.x & 3;
-      float* sr = ss + r * LS + part * 16;
-      float x[16];
-      float mx = NEG;
-#pragma unroll
-      for (int e = 0; e < 16; ++e) {
-        const int key = k0 + part * 16 + e;
-        x[e] = visible(key, q0 + r, Lk, off, causal) ? sr[e] * scale : NEG;
-        mx = fmaxf(mx, x[e]);
-      }
-      mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, 1));
-      mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, 2));
-      const float m_old = row_m[r];
-      const float m_new = fmaxf(m_old, mx);
-      float sum = 0.f;
-#pragma unroll
-      for (int e = 0; e < 16; ++e) {
-        const float p = expf(x[e] - m_new);
-        sr[e] = p;
-        sum += p;
-      }
-      sum += __shfl_xor_sync(FULL, sum, 1);
-      sum += __shfl_xor_sync(FULL, sum, 2);
-      if (part == 0) {
-        const float c = expf(m_old - m_new);
-        row_c[r] = c;
-        row_l[r] = row_l[r] * c + sum;
-        row_m[r] = m_new;
-      }
-    }
-    __syncthreads();
-
-    // acc rows ty + 16 i, columns tx + 16 jj
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float c = row_c[ty + 16 * i];
-#pragma unroll
-      for (int jj = 0; jj < D / 16; ++jj) acc[i][jj] *= c;
-    }
-    for (int kk = 0; kk < S_BK; ++kk) {
-      float p[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) p[i] = ss[(ty + 16 * i) * LS + kk];
-#pragma unroll
-      for (int jj = 0; jj < D / 16; ++jj) {
-        const float vv = vs[kk * D + tx + 16 * jj];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) acc[i][jj] = __fmaf_rn(p[i], vv, acc[i][jj]);
-      }
-    }
+  for (int n = 0; n < D / 8; ++n) {
+    *reinterpret_cast<float2*>(aw + 8 * n) = make_float2(acc[4 * n], acc[4 * n + 1]);
+    *reinterpret_cast<float2*>(aw + 8 * LD + 8 * n) = make_float2(acc[4 * n + 2], acc[4 * n + 3]);
   }
   __syncthreads();
+  for (int e = threadIdx.x; e < F_ROWS * D / 2; e += blockDim.x) {
+    const int row = e / (D / 2), col = 2 * (e % (D / 2));
+    if (q0 + row >= Lq) continue;
+    float M = NEG;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = ty + 16 * i;
-    if (q0 + r >= Lq) continue;
-    const float den = fmaxf(row_m[r] == NEG ? empty_den : row_l[r], 1e-30f);
-    float* out = o + qbase + static_cast<long long>(q0 + r) * D;
+    for (int w = 0; w < F_SLICES; ++w) M = fmaxf(M, mm[w * F_ROWS + row]);
+    float L = 0.f, ox = 0.f, oy = 0.f;
 #pragma unroll
-    for (int jj = 0; jj < D / 16; ++jj) out[tx + 16 * jj] = acc[i][jj] / den;
+    for (int w = 0; w < F_SLICES; ++w) {
+      const float f = ex2(mm[w * F_ROWS + row] - M);
+      const float2 a = *reinterpret_cast<const float2*>(aa + (w * F_ROWS + row) * LD + col);
+      L += ll[w * F_ROWS + row] * f;
+      ox += a.x * f;
+      oy += a.y * f;
+    }
+    const float den = fmaxf(M == NEG ? empty_den : L, 1e-30f);
+    *reinterpret_cast<float2*>(o + qbase + static_cast<long long>(q0 + row) * D + col) =
+        make_float2(ox / den, oy / den);
   }
 }
 
@@ -776,14 +862,14 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o, int B, int
 template <int D>
 int launch_f32(const void* q, const void* k, const void* v, void* o, int B, int Hq, int Hkv,
                int Lq, int Lk, int causal, float scale, float empty_den, cudaStream_t s) {
-  constexpr int bytes = f32_smem_floats<D>() * static_cast<int>(sizeof(float));
+  constexpr int bytes = F32Tiles<D>::SMEM;
   cudaError_t e = cudaFuncSetAttribute(fa_f32<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        bytes);
   if (e != cudaSuccess) return e;
-  const dim3 grid((Lq + S_BQ - 1) / S_BQ, B * Hq);
-  fa_f32<D><<<grid, S_THREADS, bytes, s>>>(
+  const dim3 grid((Lq + F_ROWS - 1) / F_ROWS, B * Hq);
+  fa_f32<D><<<grid, F_SLICES * 32, bytes, s>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<float*>(o), Hq, Hkv, Lq, Lk, causal, scale, empty_den);
+      static_cast<float*>(o), Hq, Hkv, Lq, Lk, causal, scale * LOG2E, empty_den);
   return cudaGetLastError();
 }
 

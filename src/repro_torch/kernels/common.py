@@ -22,8 +22,8 @@ import subprocess
 import threading
 import time
 
-__all__ = ["ceil_div", "require_cuda", "build", "library", "library_path",
-           "CudaKernel", "CSRC", "BUILD_DIR", "NVCC_FLAGS"]
+__all__ = ["ceil_div", "require_cuda", "aligned", "build", "library",
+           "library_path", "CudaKernel", "CSRC", "BUILD_DIR", "NVCC_FLAGS"]
 
 CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -48,6 +48,13 @@ def require_cuda(*tensors) -> None:
     for t in tensors:
         if not t.is_cuda:
             raise ValueError(f"expected a CUDA tensor, got one on {t.device}")
+
+
+def aligned(t):
+    """``t`` contiguous and 16-byte aligned (a copy only where it is not),
+    for kernels that read 16-byte rows or build TMA maps over them."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def _nvcc() -> str:

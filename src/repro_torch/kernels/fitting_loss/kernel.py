@@ -6,7 +6,8 @@ Replaces ``src/repro/kernels/fitting_loss/kernel.py::fitting_loss_batched_call``
 same launch with T = 1, counted on its own).  Inputs are packed as in the
 reference: blocks (B, 16) = rects | labels | weights | unused, trees
 (T, K, 8) = rect | label | unused, float32.  Ragged B and T are masked in
-the kernel, not padded.
+the kernel, not padded.  :func:`launch_shape` chooses the launch from B and
+T: CTAs a tree and warps a CTA.
 """
 from __future__ import annotations
 
@@ -14,18 +15,56 @@ import ctypes
 
 import torch
 
-from ..common import CudaKernel, ceil_div, require_cuda
+from ..common import CudaKernel, aligned, ceil_div, require_cuda
 
-__all__ = ["FITTING_LOSS", "FITTING_LOSS_BATCHED", "pack_blocks",
-           "pack_trees", "fitting_loss_batched_cuda", "fitting_loss_cuda"]
+__all__ = ["FITTING_LOSS", "FITTING_LOSS_BATCHED", "launch_shape",
+           "pack_blocks", "pack_trees", "fitting_loss_batched_cuda",
+           "fitting_loss_cuda"]
 
-_ARGS = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_ARGS = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]
 FITTING_LOSS_BATCHED = CudaKernel("fitting_loss", "fitting_loss_batched", _ARGS)
 FITTING_LOSS = CudaKernel("fitting_loss", "fitting_loss_batched", _ARGS)
-# coreset blocks per CTA: THREADS in csrc/fitting_loss.cu, which sizes the
-# (T, ceil(B / CHUNK)) partials the launcher is given
-CHUNK = 256
+# coreset blocks a chunk (one warp, LANES in csrc/fitting_loss.cu): the
+# partials are (T, ceil(B / CHUNK))
+CHUNK = 32
+# warps a CTA at most (csrc/fitting_loss.cu) and the H100's SMs
+MAX_WARPS = 16
+SMS = 132
+
+
+def launch_shape(B: int, T: int) -> dict:
+    """The launch of the loss kernel for T trees against B blocks: one CTA
+    a tree over all its chunks once the trees fill half the SMs, else each
+    tree's chunks split over CTAs until the card is filled (the last CTA of
+    a tree sums it); up to ``MAX_WARPS`` warps a CTA take its chunks in
+    rounds."""
+    if B < 1 or T < 1:
+        raise ValueError(f"launch_shape needs B, T >= 1, got B={B} T={T}")
+    nchunks = ceil_div(B, CHUNK)
+    splits = 1 if T >= SMS // 2 else min(nchunks, ceil_div(SMS, T), 65535)
+    per_cta = ceil_div(nchunks, splits)
+    splits = ceil_div(nchunks, per_cta)
+    warps = min(per_cta, MAX_WARPS)
+    return {"splits": splits, "chunks": nchunks, "chunks_per_cta": per_cta,
+            "warps": warps, "rounds": ceil_div(per_cta, warps), "ctas": T * splits}
+
+
+# Each stream's counts of a tree's finished CTAs: zeroed once, and each
+# launch leaves them zero again, so a launch needs no fill of its own.
+# Launches on one stream run in order; each stream has its own counts.
+_DONE: dict = {}
+
+
+def done_counts(device: torch.device, stream: int, trees: int) -> torch.Tensor:
+    """The zeroed int32 counts of ``trees`` trees for launches on
+    ``stream`` of ``device``."""
+    key = (device, stream)
+    done = _DONE.get(key)
+    if done is None or done.numel() < trees:
+        done = torch.zeros(max(trees, 1024), dtype=torch.int32, device=device)
+        _DONE[key] = done
+    return done
 
 
 def pack_blocks(rects, labels4, weights4) -> torch.Tensor:
@@ -55,15 +94,18 @@ def _launch(kern: CudaKernel, blk: torch.Tensor, seg: torch.Tensor) -> torch.Ten
     B, (T, K) = blk.shape[0], seg.shape[:2]
     if B == 0 or T == 0 or K == 0:
         return torch.zeros(T, dtype=torch.float32, device=blk.device)
-    nchunks = ceil_div(B, CHUNK)
-    if T >= 2**31 or nchunks > 65535 or K >= 2**31:
+    if max(B, T, K) >= 2**31:
         raise ValueError(f"unsupported sizes B={B} T={T} K={K}")
-    partial = torch.empty((T, nchunks), dtype=torch.float32, device=blk.device)
+    shape = launch_shape(B, T)
+    partial = torch.empty((T, shape["chunks"]), dtype=torch.float32,
+                          device=blk.device)
     out = torch.empty(T, dtype=torch.float32, device=blk.device)
-    blk, seg = blk.contiguous(), seg.contiguous()
+    blk, seg = aligned(blk), aligned(seg)     # the kernel reads float4 rows
     with torch.cuda.device(blk.device):
-        kern(blk.data_ptr(), seg.data_ptr(), partial.data_ptr(), out.data_ptr(),
-             B, T, K, torch.cuda.current_stream().cuda_stream)
+        stream = torch.cuda.current_stream().cuda_stream
+        done = done_counts(blk.device, stream, T)
+        kern(blk.data_ptr(), seg.data_ptr(), partial.data_ptr(), done.data_ptr(),
+             out.data_ptr(), B, T, K, shape["warps"], shape["splits"], stream)
     return out
 
 

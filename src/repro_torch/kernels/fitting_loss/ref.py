@@ -10,19 +10,25 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["fitting_loss_ref", "fitting_loss_batched_ref"]
+__all__ = ["overlaps", "fitting_loss_ref", "fitting_loss_batched_ref"]
 
 
-def fitting_loss_batched_ref(rects, labels4, weights4, seg_rects, seg_labels):
-    """(T,) losses: rects/labels4/weights4 (B, 4); seg_rects (T, K, 4);
-    seg_labels (T, K)."""
+def overlaps(rects, seg_rects):
+    """(T, B, K) areas z of block b's rectangle within tree t's leaf k:
+    rects (B, 4), seg_rects (T, K, 4), rows (r0, r1, c0, c1)."""
     br = rects[None, :, None, :]                      # (1, B, 1, 4)
     sr = seg_rects[:, None, :, :]                     # (T, 1, K, 4)
     z_r = (torch.minimum(br[..., 1], sr[..., 1])
            - torch.maximum(br[..., 0], sr[..., 0])).clamp(min=0)
     z_c = (torch.minimum(br[..., 3], sr[..., 3])
            - torch.maximum(br[..., 2], sr[..., 2])).clamp(min=0)
-    z = z_r * z_c                                     # (T, B, K)
+    return z_r * z_c
+
+
+def fitting_loss_batched_ref(rects, labels4, weights4, seg_rects, seg_labels):
+    """(T,) losses: rects/labels4/weights4 (B, 4); seg_rects (T, K, 4);
+    seg_labels (T, K)."""
+    z = overlaps(rects, seg_rects)                    # (T, B, K)
     Z = torch.cumsum(z, dim=2)
     Zp = Z - z
     U = torch.cumsum(weights4, dim=1)                 # (B, 4)

@@ -3,9 +3,10 @@ and bound).
 
 Replaces ``src/repro/kernels/flash_attention/kernel.py::flash_attention_call``:
 ``FLASH_ATTENTION_BF16`` for bfloat16 inputs and ``FLASH_ATTENTION_F32``
-(scalar fused multiply-adds) for float32 ones, each with its own launch
-count.  The bfloat16 kernel is written for Hopper: a producer warp feeds Q
-and a ring of K/V tiles into shared memory by TMA, and two consumer
+(3xTF32 on ``mma.sync``, float32 accuracy; four warps for 16 query rows,
+each a quarter of every key tile) for float32 ones, each with its own
+launch count.  The bfloat16 kernel is written for Hopper: a producer warp
+feeds Q and a ring of K/V tiles into shared memory by TMA, and two consumer
 warpgroups of 64 query rows each run ``wgmma`` on them (Q·Kᵀ from shared
 memory, P·V with P from registers), the online softmax in between in
 registers; the bf16 tensor-core peak bounds it at the model's shapes.  The
@@ -18,7 +19,7 @@ import ctypes
 
 import torch
 
-from ..common import CudaKernel, ceil_div, require_cuda
+from ..common import CudaKernel, aligned, ceil_div, require_cuda
 from .ref import TILE_K
 
 __all__ = ["FLASH_ATTENTION_BF16", "FLASH_ATTENTION_F32", "HEAD_DIMS",
@@ -42,7 +43,7 @@ def check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     The bfloat16 kernel reads q, k and v by TMA, which needs each stride a
     multiple of 16 bytes: a row is ``2 * D`` bytes and a head ``2 * L * D``,
     so every D in ``HEAD_DIMS`` meets it once the launcher has made the
-    tensors contiguous and 16-byte aligned (``_aligned``)."""
+    tensors contiguous and 16-byte aligned (``common.aligned``)."""
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("flash_attention takes q (B, Hq, Lq, D) and k, v "
                          "(B, Hkv, Lk, D)")
@@ -73,11 +74,6 @@ def empty_row_divisor(Lk: int) -> float:
     return float(ceil_div(Lk, tk) * tk)
 
 
-def _aligned(t: torch.Tensor) -> torch.Tensor:
-    t = t.contiguous()
-    return t if t.data_ptr() % 16 == 0 else t.clone()
-
-
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          causal: bool = True) -> torch.Tensor:
     """(B, Hq, Lq, D) attention output in q's dtype, by the kernel of q's
@@ -88,7 +84,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError("q, k, v lie on different devices")
     B, Hq, Lq, D = q.shape
     Hkv, Lk = k.shape[1], k.shape[2]
-    q, k, v = _aligned(q), _aligned(k), _aligned(v)
+    q, k, v = aligned(q), aligned(k), aligned(v)
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
         _KERNELS[q.dtype](q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),

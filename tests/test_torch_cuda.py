@@ -112,6 +112,108 @@ def test_tree_alone_equals_in_batch_bitwise(cuda):
     assert fl_kernel.FITTING_LOSS.launches == before + 3
 
 
+def _blocks_and_trees(B, T, K, device, seed=0, band_blocks=64, cell=8):
+    """(blk, seg) on ``device``: B blocks tiling bands of ``band_blocks``
+    cells of ``cell`` x ``cell``, in the coreset's order (band by band, left
+    to right), random labels and weights that sum to each block's area; T
+    random K-leaf trees over the plane the bands fill."""
+    rng = np.random.default_rng(seed)
+    i = np.arange(B)
+    r0, c0 = (i // band_blocks) * cell, (i % band_blocks) * cell
+    rects = np.stack([r0, r0 + cell, c0, c0 + cell], axis=1).astype(np.float64)
+    weights = rng.dirichlet(np.ones(4), size=B) * cell * cell
+    labels = rng.normal(size=(B, 4))
+    n, m = max(int(rects[:, 1].max()), 1), band_blocks * cell
+    segs = [random_tree_segmentation(n, m, K, rng) for _ in range(T)]
+    sr = np.stack([sg.rects for sg in segs]).astype(np.float64)
+    sl = np.stack([sg.labels for sg in segs])
+    blk = fl_kernel.pack_blocks(*(torch.as_tensor(a, dtype=torch.float32, device=device)
+                                  for a in (rects, labels, weights)))
+    return blk, fl_kernel.pack_trees(torch.as_tensor(sr, device=device),
+                                     torch.as_tensor(sl, device=device))
+
+
+def _plain(blk, seg):
+    from repro_torch.kernels.fitting_loss.ref import fitting_loss_batched_ref
+    return fitting_loss_batched_ref(blk[:, :4], blk[:, 4:8], blk[:, 8:12],
+                                    seg[..., :4], seg[..., 4])
+
+
+# (B, T, K): B at 1, 31, 32, 33 and past one CTA's chunks (rounds of warps,
+# chunks split over CTAs); T on both sides of the split rule (66 trees);
+# K past one staging tile of 256 leaves
+LOSS_EDGES = [(1, 1, 7), (31, 3, 64), (32, 1, 64), (33, 2, 64), (33, 9, 1),
+              (10_000, 1, 64), (2_600, 256, 64), (5_000, 40, 16), (300, 257, 16),
+              (300, 530, 9), (100, 3, 300), (700, 70, 257), (2_600, 2, 520)]
+
+
+@pytest.mark.parametrize("B,T,K", LOSS_EDGES)
+def test_loss_kernel_at_its_edges_matches_plain(cuda, B, T, K):
+    blk, seg = _blocks_and_trees(B, T, K, cuda)
+    before = fl_kernel.FITTING_LOSS_BATCHED.launches
+    got = fl_kernel.fitting_loss_batched_cuda(blk, seg)
+    assert fl_kernel.FITTING_LOSS_BATCHED.launches == before + 1
+    want = _plain(blk, seg)
+    torch.cuda.synchronize()
+    assert got.shape == (T,) and bool(torch.isfinite(got).all())
+    assert _rel(got.cpu().numpy(), want.cpu().numpy()).max() < 1e-4
+
+
+@pytest.mark.parametrize("T", [1, 2, 3, 8, 40, 66, 257, 530])
+def test_loss_tree_alone_equals_tree_in_batch_at_every_T(cuda, T):
+    blk, seg = _blocks_and_trees(2_600, T, 24, cuda, seed=T)
+    batch = fl_kernel.fitting_loss_batched_cuda(blk, seg).cpu().numpy()
+    alone = np.array([fl_kernel.fitting_loss_cuda(blk, seg[t]).item()
+                      for t in range(T)], np.float32)
+    assert np.array_equal(alone, batch)
+    for lo in (0, T // 3):
+        part = fl_kernel.fitting_loss_batched_cuda(blk, seg[lo:lo + 5])
+        assert np.array_equal(part.cpu().numpy(), batch[lo:lo + 5])
+
+
+def test_loss_launches_leave_their_counts_at_zero(cuda):
+    # split launches (T = 1 and 3 over 2,600 blocks) count a tree's
+    # finished CTAs on the stream's counts and must leave them zero
+    blk, seg = _blocks_and_trees(2_600, 3, 24, cuda)
+    for T in (1, 3, 1):
+        assert fl_kernel.launch_shape(2_600, T)["splits"] > 1
+        fl_kernel.fitting_loss_batched_cuda(blk, seg[:T])
+    stream = torch.cuda.current_stream().cuda_stream
+    done = fl_kernel.done_counts(blk.device, stream, 1)
+    torch.cuda.synchronize()
+    assert int(done.abs().sum()) == 0
+
+
+def _with_leaves(seg, where, rects):
+    """seg with leaves of the given rectangles (label 3) inserted before
+    leaf ``where`` of every tree."""
+    T = seg.shape[0]
+    extra = torch.zeros((T, len(rects), 8), device=seg.device)
+    extra[..., :4] = torch.as_tensor(rects, dtype=torch.float32, device=seg.device)
+    extra[..., 4] = 3.0
+    return torch.cat([seg[:, :where], extra, seg[:, where:]], dim=1)
+
+
+@pytest.mark.parametrize("B,T", [(2_600, 1), (2_600, 256), (33, 3)])
+def test_loss_leaves_that_meet_no_block_change_nothing(cuda, B, T):
+    blk, seg = _blocks_and_trees(B, T, 16, cuda, seed=5)
+    bottom = float(blk[:, 1].max())
+    got = fl_kernel.fitting_loss_batched_cuda(blk, seg).cpu().numpy()
+    # zero-area leaves (a point, a segment inside the blocks, an inverted
+    # one); leaves that miss every block, so every warp's box; leaves that
+    # only touch a block's edge (below the last band, right of the bands)
+    cases = {
+        "zero_area": [(0, 0, 0, 0), (8, 8, 0, 64), (4, 4, 4, 4), (16, 8, 0, 512)],
+        "missing": [(bottom + 8, bottom + 40, 0, 512), (0, 64, 600, 700)],
+        "touching": [(bottom, bottom + 8, 0, 512), (0, 16, 512, 520), (0, 8, -8, 0)],
+    }
+    for what, rects in cases.items():
+        for where in (0, 7, 16):
+            extended = _with_leaves(seg, where, rects)
+            again = fl_kernel.fitting_loss_batched_cuda(blk, extended).cpu().numpy()
+            assert np.array_equal(again, got), (what, where)
+
+
 def test_cuda_backend_builds_the_numpy_fingerprint(cuda):
     y = piecewise_signal(300, 200, 8, seed=3)
     with ops.backend_override("numpy"):
@@ -682,6 +784,42 @@ def test_flash_attention_matches_plain(cuda, shape, causal, D, dtype):
     assert got.dtype == dtype and got.shape == q.shape
     tol = FA_TOL[dtype]
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+# float32 kernel edges: Lq at a CTA's 16 query rows, Lk at a warp's key
+# slice (16 keys, 8 at D = 128) and at the 64-key tile (32 at D = 128), Lq >
+# Lk by less and by more than a query tile
+F32_EDGES = [(1, 2, 1, 15, 15), (1, 2, 2, 16, 64), (2, 2, 1, 17, 33),
+             (1, 4, 2, 31, 65), (1, 2, 2, 32, 32), (1, 2, 2, 33, 63),
+             (1, 14, 2, 33, 129), (1, 2, 2, 65, 31), (1, 2, 2, 48, 17),
+             (2, 14, 2, 300, 300), (1, 2, 1, 16, 49)]
+
+
+@pytest.mark.parametrize("D", [32, 64, 128])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("shape", F32_EDGES)
+def test_flash_attention_f32_at_its_tile_edges(cuda, shape, causal, D):
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.kernels.flash_attention.ref import flash_attention_plain
+    q, k, v = _qkv(shape, D, torch.float32, cuda, seed=sum(shape))
+    before = fa_kernel.FLASH_ATTENTION_F32.launches
+    got = fa_kernel.flash_attention_cuda(q, k, v, causal=causal)
+    assert fa_kernel.FLASH_ATTENTION_F32.launches == before + 1
+    want = flash_attention_plain(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    tol = FA_TOL[torch.float32]
+    torch.testing.assert_close(got, want, rtol=tol, atol=tol)
+    assert float((got - want).norm() / want.norm()) <= tol
+
+
+@pytest.mark.parametrize("D", [32, 64, 128])
+def test_flash_attention_f32_is_the_same_from_run_to_run(cuda, D):
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    for shape in ((4, 14, 2, 64, 64), (2, 14, 2, 700, 700)):
+        q, k, v = _qkv(shape, D, torch.float32, cuda, seed=D)
+        first = fa_ops.flash_attention(q, k, v)
+        for _ in range(3):
+            assert torch.equal(fa_ops.flash_attention(q, k, v), first)
 
 
 @pytest.mark.parametrize("D", [64, 128])

@@ -111,3 +111,36 @@ def test_cuda_launcher_refuses_cpu_tensors():
     with pytest.raises((RuntimeError, ValueError)):
         fl_kernel.fitting_loss_batched_cuda(torch.zeros(3, 16),
                                             torch.zeros(1, 2, 8))
+
+
+# (B, T): the serving coreset (B ~ 2,121) at T = 1 and 256, B at a chunk's
+# edges, T on both sides of the split rule, and sizes past one CTA's chunks
+SHAPES = [(2121, 1), (2121, 256), (1, 1), (31, 3), (32, 65), (33, 66),
+          (10_000, 1), (10_000, 40), (300, 257), (300, 530), (5_000, 5_000),
+          (3_000_000, 2)]
+
+
+@pytest.mark.parametrize("B,T", SHAPES)
+def test_launch_shape_covers_every_chunk(B, T):
+    got = fl_kernel.launch_shape(B, T)
+    splits, per_cta = got["splits"], got["chunks_per_cta"]
+    warps, rounds = got["warps"], got["rounds"]
+    assert got["chunks"] == -(-B // fl_kernel.CHUNK)
+    assert (splits - 1) * per_cta < got["chunks"] <= splits * per_cta
+    assert splits <= 65535
+    assert 1 <= warps <= fl_kernel.MAX_WARPS and (rounds - 1) * warps < per_cta <= rounds * warps
+    assert got["ctas"] == T * splits
+
+
+@pytest.mark.parametrize("T", [1, 256])
+def test_launch_shape_fills_the_card_at_the_serving_shapes(T):
+    got = fl_kernel.launch_shape(2121, T)
+    assert got["ctas"] >= fl_kernel.SMS // 2
+    if T > 1:       # every tree's chunks in one CTA
+        assert got["splits"] == 1
+
+
+def test_launch_shape_refuses_empty_inputs():
+    for B, T in ((0, 1), (1, 0)):
+        with pytest.raises(ValueError):
+            fl_kernel.launch_shape(B, T)
