@@ -104,14 +104,20 @@ HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
 FP64_FLOP_PER_S = 34e12
 BF16_FLOP_PER_S = 989e12
-# the loss kernel's work, as its inputs need it: the overlap z of every
-# (tree, block, leaf) triple (two clipped overlaps of 4 operations, the
-# product and the running sum Z), and for the triples with z > 0 the body:
-# Z - z, and per point min, max, sub, max, sub, two products and the add
-# (1 + 8 x 4).  Adds, multiplies, mins and maxes issue at half the FMA-counted
-# float32 peak
+# dense TF32 on the tensor cores; a 3xTF32 product is three of them
+TF32_FLOP_PER_S = 495e12
+F32_3XTF32_FLOP_PER_S = TF32_FLOP_PER_S / 3
+# the loss kernel's work, as these inputs need it in its design (fl_work): a
+# box test of every (tree, 32-block chunk, leaf) (a min, a max and a compare
+# for the rows and for the columns); the overlap z of every block of a
+# chunk with each leaf that overlaps some block of it (two clipped overlaps
+# of 4 operations, the product and the test z > 0); and for the (tree,
+# block, leaf) triples with z > 0 the body: Z, Z - z, and per point min,
+# max, sub, max, sub, two products and the add (2 + 8 x 4).  Adds,
+# multiplies, mins and maxes issue at half the FMA-counted float32 peak
+FL_BOX_OPS = 6
 FL_OVERLAP_OPS = 10
-FL_BODY_OPS = 33
+FL_BODY_OPS = 34
 FP32_OPS_PER_S = FP32_FLOP_PER_S / 2
 # the tuning sweep of slice 2 and cart's histogram width (max_bins + 1)
 KS = [8, 16, 32, 64, 128, 256]
@@ -361,19 +367,38 @@ def bound(bytes_, ops_, peak):
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
+def fl_work(rects, seg_rects):
+    """The loss kernel's operations for each of the (T, K, 4) trees against
+    the (B, 4) blocks on the card, as its design needs them for these inputs
+    (FL_*_OPS), and the counts they come from (kernel.work)."""
+    from repro_torch.kernels.fitting_loss import kernel as fl_kernel
+    chunk = fl_kernel.launch_shape(rects.shape[0], 1)["chunk"]
+    work = fl_kernel.work(rects, seg_rects, chunk)
+    ops_ = (FL_BOX_OPS * work["box_tests"] + FL_OVERLAP_OPS * chunk * work["chunk_hits"]
+            + FL_BODY_OPS * work["live_pairs"])
+    return ops_, work
+
+
+def fl_shares(work, T, B, K) -> dict:
+    """The first T trees' shares of (block, leaf) pairs that overlap and of
+    (chunk, leaf) pairs with any overlapping block."""
+    return {"pairs": float(work["live_pairs"][:T].sum()) / (T * B * K),
+            "chunks": float(work["chunk_hits"][:T].sum()) / float(work["box_tests"][:T].sum())}
+
+
 def check_fitting_loss(cs, rects, labels):
     """Both loss kernels at the serving shapes against the plain version on
     the card and the numpy oracle; tree alone equals tree in a batch, and
     zero-area leaves, appended or inserted, change nothing.  Each row has
     its launch, the share of (block, leaf) pairs that overlap and of
-    (32-block chunk, leaf) pairs with any, and a bound that counts the
-    overlap of every triple and the loss body of the overlapping ones."""
+    (32-block chunk, leaf) pairs with any, and a bound that counts the work
+    the kernel's design needs for these inputs (fl_work)."""
     import numpy as np
     import torch
     from repro_torch.core import fitting_loss as oracle
     from repro_torch.kernels.fitting_loss import kernel as fl_kernel
     from repro_torch.kernels.fitting_loss.ref import (fitting_loss_batched_ref,
-                                                      fitting_loss_ref, overlaps)
+                                                      fitting_loss_ref)
 
     def dev(a):
         return torch.as_tensor(np.asarray(a, np.float32), device="cuda")
@@ -406,15 +431,7 @@ def check_fitting_loss(cs, rects, labels):
     single_plain = fitting_loss_ref(cr, cl, cw, sr[0], sl[0]).item()
     B = cs.num_blocks
     in_bytes = B * 16 * 4
-    # the triples with z > 0, by the plain version's z, for each tree, and
-    # the (tree, 32-block chunk, leaf) triples with any
-    hit = overlaps(cr, sr) > 0                         # (T, B, K)
-    live_pairs = hit.sum(dim=(1, 2)).cpu().numpy()
-    chunk = fl_kernel.CHUNK
-    pad = torch.zeros((T, -B % chunk, K), dtype=torch.bool, device="cuda")
-    warp_hit = torch.cat([hit, pad], dim=1).view(T, -1, chunk, K).any(dim=2)
-    share = {"pairs": float(hit.float().mean()), "warps": float(warp_hit.float().mean())}
-    del hit, pad, warp_hit
+    ops_, work = fl_work(cr, sr)
     rows = []
     for name, T_, fn, pfn, err in (
             ("fitting_loss", 1, lambda: fl_kernel.fitting_loss_cuda(blk, seg[0]),
@@ -430,10 +447,10 @@ def check_fitting_loss(cs, rects, labels):
                "library_ms": None, "max_abs_err": err,
                "kernel": (fl_kernel.FITTING_LOSS if T_ == 1
                           else fl_kernel.FITTING_LOSS_BATCHED)}
-        ops_ = FL_OVERLAP_OPS * T_ * B * K + FL_BODY_OPS * int(live_pairs[:T_].sum())
-        row.update(bound(in_bytes + T_ * K * 8 * 4 + T_ * 4, ops_, FP32_OPS_PER_S))
-        row.update(launch=fl_kernel.launch_shape(B, T_), overlap_share=(
-            {"pairs": float(live_pairs[0] / (B * K))} if T_ == 1 else share))
+        row.update(bound(in_bytes + T_ * K * 8 * 4 + T_ * 4, int(ops_[:T_].sum()),
+                         FP32_OPS_PER_S))
+        row.update(launch=fl_kernel.launch_shape(B, T_),
+                   overlap_share=fl_shares(work, T_, B, K))
         rows.append(row)
     return rows, float(rel_err(got, want).max())
 
@@ -1102,7 +1119,7 @@ def check_flash_attention():
                 q, k, v, is_causal=True, enable_gqa=True), reps)[0]
         size = q.element_size()
         flops = 4 * B * Hq * D * visible_pairs(Lq, Lk, True)
-        peak = BF16_FLOP_PER_S if dtype == torch.bfloat16 else FP32_FLOP_PER_S
+        peak = BF16_FLOP_PER_S if dtype == torch.bfloat16 else F32_3XTF32_FLOP_PER_S
         at.update(bound((2 * q.numel() + k.numel() + v.numel()) * size, flops, peak))
         at["flops"] = flops
         rows[dt]["at_shapes"].append(at)

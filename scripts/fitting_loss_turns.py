@@ -3,14 +3,14 @@ built from other sources, in turns, on one CUDA card.
 
     git archive <commit> src/repro_torch/csrc | tar -x -C build/parent
     python3 scripts/fitting_loss_turns.py \\
-        --before parent=build/parent/src/repro_torch/csrc/fitting_loss.cu
+        --other parent=build/parent/src/repro_torch/csrc/fitting_loss.cu
 
-``--other NAME=PATH`` names a ``fitting_loss.cu`` with this checkout's C
-interface (the launch shape as arguments), such as an edited copy;
-``--before NAME=PATH`` one with the interface the kernel had before the
-launch shape was an argument (blocks, trees, partials of 256-block chunks,
-out, B, T, K, stream).  Each one's directory also holds the ``common.cuh``
-it includes; all are built at once with this checkout's nvcc flags.
+Each ``--other NAME=PATH`` names a ``fitting_loss.cu`` with this checkout's C
+interface (``fitting_loss_batched`` taking the launch shape and
+``fl_launch_shape`` giving it), such as an edited copy; its directory also
+holds the ``common.cuh`` it includes.  All are built at once with this
+checkout's nvcc flags, and each runs at its own ``fl_launch_shape``'s launch
+with partials of its own chunks.
 
 The inputs are ``chip_smoke.py``'s serving shapes: the coreset of
 ``piecewise_signal(4096, 4096, k=64, noise=0.15, seed=0)`` (k = 64,
@@ -46,27 +46,27 @@ VARIANTS = {1: [(1, 34), (2, 34), (4, 17), (8, 9), (16, 5), (16, 1)],
             256: [(8, 1), (14, 1), (7, 2), (8, 2), (16, 2)]}
 
 
-def caller(lib: ctypes.CDLL, before: bool):
+def caller(lib: ctypes.CDLL):
     """A function of (blk, seg, shape) launching ``lib``'s
-    ``fitting_loss_batched`` as the port's launcher does; ``shape`` is
-    (warps, splits), ignored by a ``before`` build."""
+    ``fitting_loss_batched`` as the port's launcher does, at ``lib``'s own
+    launch shape or at ``shape``, (warps, splits), where one is given."""
     import torch
     from repro_torch.kernels.fitting_loss import kernel as fk
     P, I = ctypes.c_void_p, ctypes.c_int
     fn = lib.fitting_loss_batched
-    fn.argtypes = ([P, P, P] + ([] if before else [P]) + [P, I, I, I]
-                   + ([] if before else [I, I]) + [P])
+    fn.argtypes = [P, P, P, P, P, I, I, I, I, I, P]
     fn.restype = ctypes.c_int
 
-    def run(blk, seg, shape):
+    def run(blk, seg, shape=None):
         B, (T, K) = blk.shape[0], seg.shape[:2]
-        chunk = 256 if before else fk.CHUNK
-        partial = torch.empty((T, -(-B // chunk)), dtype=torch.float32, device=blk.device)
+        launch = fk.launch_shape(B, T, lib=lib)
+        warps, splits = shape or (launch["warps"], launch["splits"])
+        partial = torch.empty((T, launch["chunks"]), dtype=torch.float32, device=blk.device)
         out = torch.empty(T, dtype=torch.float32, device=blk.device)
         stream = torch.cuda.current_stream().cuda_stream
-        done = [] if before else [fk.done_counts(blk.device, stream, T).data_ptr()]
-        rc = fn(blk.data_ptr(), seg.data_ptr(), partial.data_ptr(), *done, out.data_ptr(),
-                B, T, K, *([] if before else shape), stream)
+        done = fk.done_counts(blk.device, stream, T)
+        rc = fn(blk.data_ptr(), seg.data_ptr(), partial.data_ptr(), done.data_ptr(),
+                out.data_ptr(), B, T, K, warps, splits, stream)
         if rc != 0:
             raise RuntimeError(f"fitting_loss_batched returned {rc}")
         return out
@@ -79,8 +79,6 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--other", action="append", default=[], metavar="NAME=PATH",
                     help="a fitting_loss.cu with this checkout's interface")
-    ap.add_argument("--before", action="append", default=[], metavar="NAME=PATH",
-                    help="a fitting_loss.cu with the interface before launch shapes")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("fitting_loss_turns: no CUDA device; nothing was run", file=sys.stderr)
@@ -91,16 +89,15 @@ def main() -> int:
     from repro_torch.data import piecewise_signal
     from repro_torch.kernels import common
     from repro_torch.kernels.fitting_loss import kernel as fk
-    from repro_torch.kernels.fitting_loss.ref import fitting_loss_batched_ref, overlaps
+    from repro_torch.kernels.fitting_loss.ref import fitting_loss_batched_ref
 
     from concurrent.futures import ThreadPoolExecutor
-    specs = ([(*s.partition("=")[::2], True) for s in args.before]
-             + [(*s.partition("=")[::2], False) for s in args.other])
+    specs = [s.partition("=")[::2] for s in args.other]
     with ThreadPoolExecutor(max(len(specs), 1)) as pool:
         libs = list(pool.map(lambda s: build_library(s[0], pathlib.Path(s[1]).resolve()),
                              specs))
-    builds = {name: caller(lib, before) for (name, _, before), lib in zip(specs, libs)}
-    builds["this"] = caller(common.library("fitting_loss"), False)
+    builds = {name: caller(lib) for (name, _), lib in zip(specs, libs)}
+    builds["this"] = caller(common.library("fitting_loss"))
     others = [n for n in builds if n != "this"]
     order = others + ["this", "this"] + others[::-1]
 
@@ -126,36 +123,31 @@ def main() -> int:
         plain = fitting_loss_batched_ref(cr, cl, cw, sr, sl).cpu().numpy()
         errs = {}
         for name, run in builds.items():
-            got = run(blk, seg, default).cpu().numpy()
+            got = run(blk, seg).cpu().numpy()
             errs[name] = float(cs.rel_err(got, plain).max())
             if not errs[name] <= 1e-4:
                 failed.append(f"{name} at T={T}: {errs[name]} from the plain version")
-        ref = builds["this"](blk, seg, default)
+        ref = builds["this"](blk, seg)
         variants = [v for v in VARIANTS[T] if v[1] <= launch["chunks"]]
         for v in variants:
             if not torch.equal(builds["this"](blk, seg, v), ref):
                 failed.append(f"launch {v} at T={T} differs from {default}")
         ms = {name: [] for name in builds}
         for name in order:
-            ms[name].append(cs.device_ms(lambda run=builds[name]: run(blk, seg, default),
-                                         20)[0])
+            ms[name].append(cs.device_ms(lambda run=builds[name]: run(blk, seg), 20)[0])
         variant_ms = {"x".join(map(str, v)): cs.device_ms(
             lambda v=v: builds["this"](blk, seg, v), 20)[0] for v in variants}
-        hit = overlaps(cr, sr) > 0
-        pad = torch.zeros((T, -B % fk.CHUNK, LEAVES), dtype=torch.bool, device="cuda")
-        warp_hit = torch.cat([hit, pad], dim=1).view(T, -1, fk.CHUNK, LEAVES).any(dim=2)
-        ops_ = cs.FL_OVERLAP_OPS * T * B * LEAVES + cs.FL_BODY_OPS * int(hit.sum())
+        ops_, work = cs.fl_work(cr, sr)
+        ops_ = int(ops_.sum())
         print(json.dumps({
             "kernel": "fitting_loss" if T == 1 else "fitting_loss_batched", "T": T, "B": B,
             "K": LEAVES, "order": order, "ms": ms, "launch": launch,
             "variants_ms": variant_ms, "plain_ms": cs.device_ms(
                 lambda: fitting_loss_batched_ref(cr, cl, cw, sr, sl), 5)[0],
-            "overlap_share": {"pairs": float(hit.float().mean()),
-                              "warps": float(warp_hit.float().mean())},
+            "overlap_share": cs.fl_shares(work, T, B, LEAVES),
             "ops": ops_, **cs.bound(B * 64 + T * LEAVES * 32 + T * 4, ops_,
                                     cs.FP32_OPS_PER_S),
             "max_rel_err": errs}), flush=True)
-        del hit, pad, warp_hit
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True).stdout.strip()

@@ -134,7 +134,7 @@ def main() -> int:
             lambda: torch.nn.functional.scaled_dot_product_attention(
                 q, k, v, is_causal=True, enable_gqa=True), reps)[0]
         flops = 4 * B * Hq * D * cs.visible_pairs(Lq, Lk, True)
-        peak = cs.BF16_FLOP_PER_S if dt == "bfloat16" else cs.FP32_FLOP_PER_S
+        peak = cs.BF16_FLOP_PER_S if dt == "bfloat16" else cs.F32_3XTF32_FLOP_PER_S
         print(json.dumps({
             "shape": label, "B": B, "Hq": Hq, "Hkv": Hkv, "Lq": Lq, "Lk": Lk, "D": D,
             "dtype": dt, "order": order, "ms": ms, "library_ms": library_ms, "flops": flops,

@@ -48,19 +48,24 @@
 // launch shape, and zero-area padding leaves (never overlapping) change
 // nothing.
 //
-// Launch shape (kernels/fitting_loss/kernel.py::launch_shape chooses it from
-// B and T): grid (T, splits), each CTA up to 16 warps.  Many trees: one CTA
-// a tree over all its chunks.  Few trees (a single query): the chunks are
-// split over CTAs until the card is filled.  One launch either way.
+// Launch shape (fl_launch_shape chooses it from B, T and the card's SMs;
+// kernels/fitting_loss/kernel.py::launch_shape asks it): grid (T, splits),
+// each CTA up to 16 warps.  Many trees: one CTA a tree over all its chunks.
+// Few trees (a single query): the chunks are split over CTAs until the card
+// is filled.  One launch either way.
 //
 // Bound.  Operations at the float32 issue rate (33.5 T/s on an H100; the
-// loss body has no fused multiply-add): the overlap test of every (tree,
-// block, leaf) triple and the loss body of those with z > 0, as
-// chip_smoke.py counts them from its inputs.  At the serving shapes (T = 256,
-// K = 64, B ~ 2,100) that is 11 us; T = 1 is bound by latency instead: the
-// loads, a chunk's chain of leaves and the final sum.  The design spends a
-// 32-wide box test per 32 leaves instead of 32 x 32 overlaps, keeps the
-// chains to the leaves that meet a box, and fills the card at T = 1.
+// loss body has no fused multiply-add), counted as these inputs need them
+// in this design (chip_smoke.py's fl_work): a box test of every (tree,
+// chunk, leaf), the 32 lanes' overlaps of each (tree, chunk, leaf) in which
+// some block overlaps the leaf, and the loss body of each (tree, block,
+// leaf) with z > 0.  At the serving shapes (T = 256, K = 64, B ~ 2,100)
+// that is ~3 us; T = 1 is bound by latency instead: the loads, a chunk's
+// chain of leaves and the final sum.  The design spends a 32-wide box test
+// per 32 leaves instead of 32 x 32 overlaps, keeps the chains to the leaves
+// that meet a box, and fills the card at T = 1.
+#include <algorithm>
+
 #include "common.cuh"
 
 namespace {
@@ -242,11 +247,34 @@ fl_score(const float4* __restrict__ blk, const float4* __restrict__ seg,
 
 }  // namespace
 
+// The launch of T trees against B blocks on a card of `sms` SMs, the one
+// place its numbers live: shape = {chunk (blocks a warp scores), chunks
+// (the partials a tree), splits (CTAs a tree), chunks a CTA, warps a CTA,
+// rounds, CTAs, warps a CTA at most}.  One CTA a tree over all its chunks
+// once the trees fill half the SMs, else a tree's chunks split over CTAs
+// until the card is filled.  B, T, sms >= 1.
+extern "C" void fl_launch_shape(int B, int T, int sms, long long* shape) {
+  const long long nchunks = (static_cast<long long>(B) + LANES - 1) / LANES;
+  long long splits = 1;
+  if (T < sms / 2) splits = std::min({nchunks, (sms + T - 1LL) / T, 65535LL});
+  const long long per_cta = (nchunks + splits - 1) / splits;
+  splits = (nchunks + per_cta - 1) / per_cta;
+  const long long warps = std::min<long long>(per_cta, MAX_WARPS);
+  shape[0] = LANES;
+  shape[1] = nchunks;
+  shape[2] = splits;
+  shape[3] = per_cta;
+  shape[4] = warps;
+  shape[5] = (per_cta + warps - 1) / warps;
+  shape[6] = static_cast<long long>(T) * splits;
+  shape[7] = MAX_WARPS;
+}
+
 // blk (B, 16): rects | labels | weights | unused; seg (T, K, 8): rect | label
-// | unused; both 16-byte aligned.  partial (T, ceil(B / 32)) scratch; done
-// (T,) counts, zero on entry and left zero; out (T,).  The launch shape:
-// warps in [1, 16], splits in [1, min(65535, ceil(B / 32))]
-// (kernel.py::launch_shape).  B, T, K >= 1, T <= 2^31 - 1.
+// | unused; both 16-byte aligned.  partial (T, chunks) scratch; done (T,)
+// counts, zero on entry and left zero; out (T,).  The launch shape: warps
+// in [1, 16], splits in [1, min(65535, chunks)] (fl_launch_shape gives
+// chunks and the default).  B, T, K >= 1, T <= 2^31 - 1.
 extern "C" int fitting_loss_batched(const float* blk, const float* seg, float* partial,
                                     unsigned* done, float* out, int B, int T, int K, int warps,
                                     int splits, void* stream) {

@@ -95,7 +95,7 @@
 // a persistent grid, so each CTA's prologue (barriers, the first Q and K/V
 // loads) and epilogue are exposed once per 128 query rows.  In float32, at
 // the cross-check's 4 x 14 x 64 x 64, the work is 30 MFLOP (x3 for the
-// split) on 2 MB: both bounds are below a microsecond and the time is
+// split, at the TF32 peak) on 2 MB: both bounds are below a microsecond and the time is
 // latency, so the design fills the card with small CTAs, splits each tile's
 // products over four warps and overlaps each tile's load with the previous
 // tile's products.

@@ -6,8 +6,8 @@ Replaces ``src/repro/kernels/fitting_loss/kernel.py::fitting_loss_batched_call``
 same launch with T = 1, counted on its own).  Inputs are packed as in the
 reference: blocks (B, 16) = rects | labels | weights | unused, trees
 (T, K, 8) = rect | label | unused, float32.  Ragged B and T are masked in
-the kernel, not padded.  :func:`launch_shape` chooses the launch from B and
-T: CTAs a tree and warps a CTA.
+the kernel, not padded.  :func:`launch_shape` gives the launch that the
+source chooses from B, T and the card's SMs: CTAs a tree and warps a CTA.
 """
 from __future__ import annotations
 
@@ -15,9 +15,10 @@ import ctypes
 
 import torch
 
-from ..common import CudaKernel, aligned, ceil_div, require_cuda
+from ..common import CudaKernel, aligned, ceil_div, library, require_cuda
+from .ref import overlaps
 
-__all__ = ["FITTING_LOSS", "FITTING_LOSS_BATCHED", "launch_shape",
+__all__ = ["FITTING_LOSS", "FITTING_LOSS_BATCHED", "launch_shape", "work",
            "pack_blocks", "pack_trees", "fitting_loss_batched_cuda",
            "fitting_loss_cuda"]
 
@@ -25,29 +26,51 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGS = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]
 FITTING_LOSS_BATCHED = CudaKernel("fitting_loss", "fitting_loss_batched", _ARGS)
 FITTING_LOSS = CudaKernel("fitting_loss", "fitting_loss_batched", _ARGS)
-# coreset blocks a chunk (one warp, LANES in csrc/fitting_loss.cu): the
-# partials are (T, ceil(B / CHUNK))
-CHUNK = 32
-# warps a CTA at most (csrc/fitting_loss.cu) and the H100's SMs
-MAX_WARPS = 16
-SMS = 132
+# fl_launch_shape's numbers, in its order
+_SHAPE_KEYS = ("chunk", "chunks", "splits", "chunks_per_cta", "warps", "rounds",
+               "ctas", "max_warps")
+_SMS: dict = {}
 
 
-def launch_shape(B: int, T: int) -> dict:
-    """The launch of the loss kernel for T trees against B blocks: one CTA
-    a tree over all its chunks once the trees fill half the SMs, else each
-    tree's chunks split over CTAs until the card is filled (the last CTA of
-    a tree sums it); up to ``MAX_WARPS`` warps a CTA take its chunks in
-    rounds."""
-    if B < 1 or T < 1:
-        raise ValueError(f"launch_shape needs B, T >= 1, got B={B} T={T}")
-    nchunks = ceil_div(B, CHUNK)
-    splits = 1 if T >= SMS // 2 else min(nchunks, ceil_div(SMS, T), 65535)
-    per_cta = ceil_div(nchunks, splits)
-    splits = ceil_div(nchunks, per_cta)
-    warps = min(per_cta, MAX_WARPS)
-    return {"splits": splits, "chunks": nchunks, "chunks_per_cta": per_cta,
-            "warps": warps, "rounds": ceil_div(per_cta, warps), "ctas": T * splits}
+def launch_shape(B: int, T: int, sms: int | None = None, lib=None) -> dict:
+    """The launch of the loss kernel for T trees against B blocks on a card
+    of ``sms`` SMs (the current device's by default), as
+    ``csrc/fitting_loss.cu``'s ``fl_launch_shape`` chooses it: blocks a
+    chunk (a warp), chunks (a tree's partials), CTAs a tree, chunks a CTA,
+    warps a CTA and their rounds, CTAs, and warps a CTA at most.  ``lib``
+    is the library to ask: this checkout's by default, or another build of
+    the source (scripts/fitting_loss_turns.py)."""
+    if B < 1 or T < 1 or max(B, T) >= 2**31:
+        raise ValueError(f"launch_shape needs 1 <= B, T < 2^31, got B={B} T={T}")
+    if sms is None:
+        device = torch.cuda.current_device()
+        if device not in _SMS:
+            _SMS[device] = torch.cuda.get_device_properties(device).multi_processor_count
+        sms = _SMS[device]
+    shape = (ctypes.c_longlong * len(_SHAPE_KEYS))()
+    fn = (library("fitting_loss") if lib is None else lib).fl_launch_shape
+    fn.argtypes = [_I, _I, _I, ctypes.POINTER(ctypes.c_longlong)]
+    fn.restype = None
+    fn(B, T, sms, shape)
+    return dict(zip(_SHAPE_KEYS, shape))
+
+
+def work(rects: torch.Tensor, seg_rects: torch.Tensor, chunk: int) -> dict:
+    """What the kernel's design needs to do for each of T trees, by the
+    plain version's overlaps z of the (B, 4) block rects within the
+    (T, K, 4) leaf rects, with ``chunk`` consecutive blocks a warp: the
+    (chunk, leaf) box tests (every one), the (chunk, leaf) pairs in which
+    some block overlaps the leaf (each runs ``chunk`` overlaps) and the
+    (block, leaf) pairs with z > 0 (each runs the loss body); (T,) int64
+    each."""
+    hit = overlaps(rects, seg_rects) > 0                   # (T, B, K)
+    T, B, K = hit.shape
+    chunks = ceil_div(B, chunk)
+    pad = hit.new_zeros((T, chunks * chunk - B, K))
+    chunk_hit = torch.cat([hit, pad], dim=1).view(T, chunks, chunk, K).any(dim=2)
+    return {"box_tests": torch.full((T,), chunks * K, dtype=torch.int64),
+            "chunk_hits": chunk_hit.sum(dim=(1, 2)).cpu(),
+            "live_pairs": hit.sum(dim=(1, 2)).cpu()}
 
 
 # Each stream's counts of a tree's finished CTAs: zeroed once, and each
@@ -96,12 +119,12 @@ def _launch(kern: CudaKernel, blk: torch.Tensor, seg: torch.Tensor) -> torch.Ten
         return torch.zeros(T, dtype=torch.float32, device=blk.device)
     if max(B, T, K) >= 2**31:
         raise ValueError(f"unsupported sizes B={B} T={T} K={K}")
-    shape = launch_shape(B, T)
-    partial = torch.empty((T, shape["chunks"]), dtype=torch.float32,
-                          device=blk.device)
-    out = torch.empty(T, dtype=torch.float32, device=blk.device)
     blk, seg = aligned(blk), aligned(seg)     # the kernel reads float4 rows
     with torch.cuda.device(blk.device):
+        shape = launch_shape(B, T)
+        partial = torch.empty((T, shape["chunks"]), dtype=torch.float32,
+                              device=blk.device)
+        out = torch.empty(T, dtype=torch.float32, device=blk.device)
         stream = torch.cuda.current_stream().cuda_stream
         done = done_counts(blk.device, stream, T)
         kern(blk.data_ptr(), seg.data_ptr(), partial.data_ptr(), done.data_ptr(),

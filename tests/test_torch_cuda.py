@@ -184,6 +184,35 @@ def test_loss_launches_leave_their_counts_at_zero(cuda):
     assert int(done.abs().sum()) == 0
 
 
+# (B, T): the serving coreset (B ~ 2,121) at T = 1 and 256, B at a chunk's
+# edges, T on both sides of the split rule, and sizes past one CTA's chunks
+FL_LAUNCH_SHAPES = [(2121, 1), (2121, 256), (1, 1), (31, 3), (32, 65), (33, 66),
+                    (10_000, 1), (10_000, 40), (300, 257), (300, 530), (5_000, 5_000),
+                    (3_000_000, 2)]
+
+
+@pytest.mark.parametrize("B,T", FL_LAUNCH_SHAPES)
+def test_launch_shape_covers_every_chunk(cuda, B, T):
+    got = fl_kernel.launch_shape(B, T)
+    splits, per_cta = got["splits"], got["chunks_per_cta"]
+    warps, rounds = got["warps"], got["rounds"]
+    assert got["chunk"] == 32 and got["chunks"] == -(-B // got["chunk"])
+    assert (splits - 1) * per_cta < got["chunks"] <= splits * per_cta
+    assert splits <= 65535
+    assert 1 <= warps <= got["max_warps"] and (rounds - 1) * warps < per_cta <= rounds * warps
+    assert got["ctas"] == T * splits
+
+
+@pytest.mark.parametrize("T", [1, 256])
+def test_launch_shape_fills_the_card_at_the_serving_shapes(cuda, T):
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    got = fl_kernel.launch_shape(2121, T)
+    assert got == fl_kernel.launch_shape(2121, T, sms=sms)
+    assert got["ctas"] >= sms // 2
+    if T > 1:       # every tree's chunks in one CTA
+        assert got["splits"] == 1
+
+
 def _with_leaves(seg, where, rects):
     """seg with leaves of the given rectangles (label 3) inserted before
     leaf ``where`` of every tree."""

@@ -113,34 +113,60 @@ def test_cuda_launcher_refuses_cpu_tensors():
                                             torch.zeros(1, 2, 8))
 
 
-# (B, T): the serving coreset (B ~ 2,121) at T = 1 and 256, B at a chunk's
-# edges, T on both sides of the split rule, and sizes past one CTA's chunks
-SHAPES = [(2121, 1), (2121, 256), (1, 1), (31, 3), (32, 65), (33, 66),
-          (10_000, 1), (10_000, 40), (300, 257), (300, 530), (5_000, 5_000),
-          (3_000_000, 2)]
-
-
-@pytest.mark.parametrize("B,T", SHAPES)
-def test_launch_shape_covers_every_chunk(B, T):
-    got = fl_kernel.launch_shape(B, T)
-    splits, per_cta = got["splits"], got["chunks_per_cta"]
-    warps, rounds = got["warps"], got["rounds"]
-    assert got["chunks"] == -(-B // fl_kernel.CHUNK)
-    assert (splits - 1) * per_cta < got["chunks"] <= splits * per_cta
-    assert splits <= 65535
-    assert 1 <= warps <= fl_kernel.MAX_WARPS and (rounds - 1) * warps < per_cta <= rounds * warps
-    assert got["ctas"] == T * splits
-
-
-@pytest.mark.parametrize("T", [1, 256])
-def test_launch_shape_fills_the_card_at_the_serving_shapes(T):
-    got = fl_kernel.launch_shape(2121, T)
-    assert got["ctas"] >= fl_kernel.SMS // 2
-    if T > 1:       # every tree's chunks in one CTA
-        assert got["splits"] == 1
-
-
 def test_launch_shape_refuses_empty_inputs():
-    for B, T in ((0, 1), (1, 0)):
+    for B, T in ((0, 1), (1, 0), (2**31, 1)):
         with pytest.raises(ValueError):
             fl_kernel.launch_shape(B, T)
+
+
+def _work_by_loops(rects, seg_rects, chunk):
+    """kernel.work's counts by plain loops over every (tree, block, leaf)."""
+    T, K = seg_rects.shape[:2]
+    B = len(rects)
+    chunks = -(-B // chunk)
+    box, hits, live = [], [], []
+    for t in range(T):
+        z = np.zeros((chunks * chunk, K), bool)
+        for b in range(B):
+            for k in range(K):
+                r0, r1, c0, c1 = rects[b]
+                l0, l1, m0, m1 = seg_rects[t, k]
+                z[b, k] = (max(min(r1, l1) - max(r0, l0), 0)
+                           * max(min(c1, m1) - max(c0, m0), 0)) > 0
+        box.append(chunks * K)
+        hits.append(int(z.reshape(chunks, chunk, K).any(axis=1).sum()))
+        live.append(int(z.sum()))
+    return {"box_tests": box, "chunk_hits": hits, "live_pairs": live}
+
+
+# (n, m, coreset k, tree leaves, trees, chunk): the loss kernel's 32-block
+# chunks, one-block chunks, chunks that do not divide B and one wider than B
+WORK_CASES = [(57, 41, 5, 7, 3, 32), (60, 70, 6, 1, 2, 32), (33, 90, 4, 12, 4, 32),
+              (96, 64, 8, 16, 5, 32), (96, 64, 8, 16, 5, 1), (64, 48, 6, 9, 3, 4),
+              (64, 48, 6, 9, 3, 7), (40, 40, 3, 5, 2, 1000)]
+
+
+@pytest.mark.parametrize("n,m,k,leaves,t,chunk", WORK_CASES)
+def test_work_counts_what_the_kernel_scores(n, m, k, leaves, t, chunk):
+    cs = _coreset(n, m, k)
+    sr, sl = _trees(n, m, leaves, t)
+    got = fl_kernel.work(torch.as_tensor(cs.rects, dtype=torch.float32),
+                         torch.as_tensor(sr, dtype=torch.float32), chunk)
+    want = _work_by_loops(cs.rects, sr, chunk)
+    assert {key: v.tolist() for key, v in got.items()} == want
+    # a tree's leaves tile the plane, so every block meets one at least
+    assert (got["live_pairs"] >= len(cs.rects)).all()
+    assert (got["chunk_hits"] <= got["box_tests"]).all()
+    assert (got["chunk_hits"] * chunk >= got["live_pairs"]).all()
+
+
+def test_work_skips_zero_area_leaves():
+    cs = _coreset(57, 41, 5)
+    sr, _ = _trees(57, 41, 7, 3)
+    rects = torch.as_tensor(cs.rects, dtype=torch.float32)
+    padded = np.concatenate([sr[:, :3], np.zeros((3, 4, 4)), sr[:, 3:]], axis=1)
+    a = fl_kernel.work(rects, torch.as_tensor(sr, dtype=torch.float32), 32)
+    b = fl_kernel.work(rects, torch.as_tensor(padded, dtype=torch.float32), 32)
+    assert torch.equal(a["live_pairs"], b["live_pairs"])
+    assert torch.equal(a["chunk_hits"], b["chunk_hits"])
+    assert torch.equal(b["box_tests"], a["box_tests"] // 7 * 11)
