@@ -14,8 +14,9 @@ Phases, one JSON line each:
 
   device      the card's name and count, and nvidia-smi's name and power limit
   build       nvcc of every source in src/repro_torch/csrc, all at once, with
-              each entry's registers and spills (ptxas); the three fa_bf16
-              instantiations and the ten sat2d entries must not spill
+              each entry's registers and spills (ptxas); the fa_bf16 and
+              fa_f32 instantiations, the ten sat2d entries, fl_score and
+              histsplit's two hist_sort_kernel entries must not spill
   kernels     each kernel against its plain PyTorch version on the card (and
               the float64 scan against numpy, bitwise), with CUDA-event times
               beside the plain version's, a library call's and the bound;
@@ -40,7 +41,12 @@ Phases, one JSON line each:
               numpy's bincount, within 1e-12 of its plain version on the
               card, the same from run to run; device ms, host ms a call
               through the resident path (ResidentHist, the trees' path),
-              bincount x6 ms and the bytes bound
+              bincount x6 ms and the bytes bound.  The float32 kernels run
+              at the three shapes and at the skewed node, each the same
+              from run to run; fused and partials also bitwise the CPU's
+              in-order sums (partials_ref) at the two roots, with each
+              shape's launch (the source's hist_f32_launch_shape) and
+              their entries' registers and spills
   tuning      tune_k over k in KS with methods full, coreset and uniform,
               once on the auto backend (the card) and once on numpy: equal
               results bitwise, the coreset within 2x of the full data's SSE;
@@ -294,17 +300,19 @@ def phase_build():
                    if "warning" in ln.lower()])
     # the attention kernels (three head widths each), every sat2d entry
     # (row_scan: moments mode at 1 and 4 rows a CTA and plain mode;
-    # col_scan at 1 and 3 warps a CTA; two types) and the fitting_loss
-    # entry must not spill
+    # col_scan at 1 and 3 warps a CTA; two types), the fitting_loss entry
+    # and histsplit's in-tile sort (fused and partials) must not spill
     for source, name, count in (("flash_attention", "fa_bf16", 3),
                                 ("flash_attention", "fa_f32", 3), ("sat2d", "", 10),
-                                ("fitting_loss", "fl_score", 1)):
+                                ("fitting_loss", "fl_score", 1),
+                                ("histsplit", "hist_sort_kernel", 2)):
         if source in built:
             found = {f: e for f, e in entries[source].items() if name in f}
             check(len(found) == count and all(e.get("spill_stores") == 0
                                               and e.get("spill_loads") == 0
                                               for e in found.values()),
                   f"the {name} entries spill or are missing: {found}")
+    return entries
 
 
 def check_sat(shapes, dtype, kern, plain_tol):
@@ -495,6 +503,22 @@ def hist_inputs(X, y, w):
     return codes, w, w * y, w * y * y
 
 
+def hist_roots(ys, train, y) -> dict:
+    """hist_split's inputs at the three shapes of the histogram phases: the
+    root of a tree over the §5 signal's training points (full_root), over
+    its coreset's (coreset_root), and over the 2^24 points of the slice-1
+    raster ``y``."""
+    import numpy as np
+    from repro_torch.configs import CONFIG
+    from repro_torch.trees import signal_to_points
+    X_tr, y_tr = signal_to_points(ys, train)
+    roots = {"full_root": hist_inputs(X_tr, y_tr, np.ones(len(y_tr))),
+             "coreset_root": hist_inputs(*CONFIG.build(ys, mask=train).as_points())}
+    X_r, y_r = signal_to_points(y)
+    roots["raster_2^24"] = hist_inputs(X_r, y_r, np.ones(len(y_r)))
+    return roots
+
+
 def _rows_from_shapes(rows):
     """Table rows whose times are those at the first shape."""
     rows = list(rows)
@@ -621,13 +645,25 @@ def check_hist_f64(shapes):
              **{k: node[k] for k in keys}}]
 
 
-def check_histsplit(shapes):
-    """Each float32 histsplit kernel at each of ``shapes`` against its plain
-    version on the card, the fused one also against itself over two runs,
-    with CUDA-event times beside the plain version's, the library call's
-    (torch.bincount per feature and channel) and the bound.  Returns one
-    table row per kernel; its times are those at the first shape, every
-    shape's are under ``at_shapes``."""
+def _ptxas_of(entries: dict, *marks: str) -> dict | None:
+    """The ptxas line (registers, spills) of the one entry whose mangled name
+    holds every one of ``marks``; None where this run did not build it."""
+    found = [e for name, e in entries.items() if all(m in name for m in marks)]
+    return found[0] if len(found) == 1 else None
+
+
+def check_histsplit(shapes, entries):
+    """Each float32 histsplit kernel at each of ``shapes`` and at a skewed
+    node of HIST_SKEWED points in one bin, against its plain version on the
+    card, each kernel also against itself over two runs, with CUDA-event
+    times beside the plain version's, the library call's (torch.bincount per
+    feature and channel) and the bound.  At the roots of fewer than 2^17
+    points fused and partials are also held bitwise to ``partials_ref`` run
+    on the CPU (a chain in point order a tile; fused adds the tiles in tile
+    order).  Fused and partials carry their launch (``kernel.launch_shape``,
+    the source's own query) and ``entries``' ptxas line of their entry.
+    Returns one table row per kernel; its times are those at the first
+    shape, every shape's are under ``at_shapes``."""
     import numpy as np
     import torch
     from repro_torch.kernels.histsplit import kernel as hk
@@ -637,13 +673,16 @@ def check_histsplit(shapes):
     kernels = {"fused": ("hist_fused_f32", hk.HIST_FUSED),
                "partials": ("hist_partials_f32", hk.HIST_PARTIALS),
                "legacy": ("hist_legacy_f32", hk.HIST_LEGACY)}
-    rows = {v: {"name": name, "kernel": kern, "at_shapes": []}
+    ptxas = {"fused": _ptxas_of(entries, "hist_sort_kernel", "ILi3E"),
+             "partials": _ptxas_of(entries, "hist_sort_kernel", "ILi6E"),
+             "legacy": _ptxas_of(entries, "hist_tiles_kernel")}
+    rows = {v: {"name": name, "kernel": kern, "at_shapes": [], "ptxas": ptxas[v]}
             for v, (name, kern) in kernels.items()}
     B = HIST_BINS
-    for label, (codes, w, wy, wy2) in shapes.items():
+    for label, (codes, w, wy, wy2) in {**shapes, "skewed_2^20": skewed_node()}.items():
         P, F = codes.shape
         C = -(-P // HIST_TILE)
-        reps = 3 if P > 1 << 20 else 20
+        reps = 3 if P > 1 << 20 else (5 if P == 1 << 20 else 20)
         oracle = ops.hist_split(codes, w, wy, wy2, B, backend="numpy")
         c = torch.as_tensor(codes, device="cuda")
         cols = [c[:, f].contiguous() for f in range(F)]
@@ -684,9 +723,20 @@ def check_histsplit(shapes):
                     p[..., :3].sum(axis=0) + p[..., 3:].sum(axis=0), oracle)
                 check(at["certificate"] <= HIST_PARTIALS_TOL,
                       f"hist partials at {label} vs numpy: {at['certificate']}")
-            if variant == "fused":
-                check(torch.equal(kern(), got),
-                      f"hist fused at {label} differs from run to run")
+            check(torch.equal(kern(), got),
+                  f"hist {variant} at {label} differs from run to run")
+            if variant != "legacy":
+                if P < 1 << 17:
+                    parts = partials_ref(c.cpu(), vals.cpu(), B, HIST_TILE)
+                    if variant == "fused":
+                        in_order = parts[0].clone()
+                        for t in range(1, C):
+                            in_order += parts[t]
+                        parts = in_order
+                    at["cpu_order_bitwise"] = bool(torch.equal(got.cpu(), parts))
+                    check(at["cpu_order_bitwise"], f"hist {variant} at {label} "
+                          "differs from the CPU's in-order sums")
+                at["launch"] = hk.launch_shape(variant, P, F, B, HIST_TILE)
             at["ms"], at["wall_ms"] = device_ms(kern, reps)
             at["plain_ms"] = device_ms(plain, reps)[0]
             at["library_ms"] = device_ms(library, reps)[0]
@@ -694,6 +744,8 @@ def check_histsplit(shapes):
             at.update(bound(P * F + P * S * size + out_bytes, S * P * F,
                             FP32_FLOP_PER_S))
             row["at_shapes"].append(at)
+        del c, cols, tile, dev
+        torch.cuda.empty_cache()
     return _rows_from_shapes(rows.values())
 
 
@@ -1319,10 +1371,10 @@ def main() -> int:
                                   random_tree_segmentation, signal_coreset)
     from repro_torch.data import patch_mask, piecewise_signal, sensor_matrix
     from repro_torch.kernels.sat2d import kernel as sat_kernel
-    from repro_torch.trees import best_segmentation, signal_to_points
+    from repro_torch.trees import best_segmentation
 
     smi = phase_device()
-    phase_build()
+    ptxas = phase_build()
 
     n = m = 4096
     k, eps, leaves, batch = 64, 0.3, 64, 256
@@ -1434,17 +1486,14 @@ def main() -> int:
     ys = sensor_matrix(9358, 15, seed=0)
     train, test = patch_mask(*ys.shape, CONFIG.test_fraction, CONFIG.patch,
                              seed=1)
-    X_tr, y_tr = signal_to_points(ys, train)
-    roots = {"full_root": hist_inputs(X_tr, y_tr, np.ones(len(y_tr))),
-             "coreset_root": hist_inputs(*CONFIG.build(ys, mask=train).as_points())}
-    X_r, y_r = signal_to_points(y)
-    roots["raster_2^24"] = hist_inputs(X_r, y_r, np.ones(len(y_r)))
-    del X_r, y_r
+    roots = hist_roots(ys, train, y)
     t0 = time.perf_counter()
-    hist_rows = check_hist_f64(roots) + check_histsplit(roots)
+    hist_rows = check_hist_f64(roots) + check_histsplit(roots,
+                                                        ptxas.get("histsplit", {}))
     emit("hist_kernels", checked=[r["name"] for r in hist_rows],
          at_shapes={r["name"]: r["at_shapes"] for r in hist_rows
                     if "at_shapes" in r},
+         ptxas={r["name"]: r["ptxas"] for r in hist_rows if "ptxas" in r},
          node_kernel={k: v for k, v in hist_rows[1].items() if k != "kernel"},
          seconds=time.perf_counter() - t0)
     del roots["raster_2^24"]

@@ -11,25 +11,56 @@
 // over a node's ascending rows, and hist_f64_node, one tree node's round
 // trip (its rows in, its sums out) in one call.
 //
-// The float32 variants share one histogram body.  A CTA has one thread per
-// bin; it stages STAGE points of codes and values in shared memory at a
-// time (every thread reads each staged code: a broadcast), and the thread
-// whose bin a point's code names adds that point's channels into registers.
-// So each (feature, bin, channel) sum of a CTA is one chain of adds in
-// ascending point order, each add rounded on its own, with no atomics.
-// Launch shapes:
-//   fused, partials: one CTA per P-tile of tile_p points, looping over the
-//                  features inside the CTA as the Pallas kernel's body does;
-//                  each CTA writes its tile's histogram as a partial.
-//   legacy:        one CTA per (P-tile, feature), the Pallas kernel's
-//                  (F, P/TP) grid.
-// The Pallas fused and legacy kernels accumulate in place over the P tiles,
-// which is sound only on the TPU's sequential grid.  Here fused and legacy
-// end with a second kernel that sums each output element's tile partials in
-// tile order, so their result does not change from run to run; partials
-// returns the per-tile partials and the host sums them in float64.  They
-// compare every point with every bin, P x F x n_bins compares, far above
-// their bytes bound; they are off the trees' path.
+// The float32 variants' contract: each (P-tile, feature, bin, channel) sum
+// is one chain of __fadd_rn adds from +0.0 over the tile's points with that
+// code in ascending point order, with no atomics.  The Pallas fused and
+// legacy kernels accumulate in place over the P tiles, which is sound only
+// on the TPU's sequential grid.  Here fused and legacy end with a second
+// kernel that sums each output element's tile partials in tile order, so
+// their result does not change from run to run; partials returns the
+// per-tile partials and the host sums them in float64.
+//
+// fused, partials: a stable counting sort inside each tile (hist_sort_kernel).
+// A CTA of 256 threads takes one P-tile and a range of features (one CTA a
+// tile, or, when the tiles do not fill the card, a CTA a (tile, feature
+// group): hist_f32_launch_shape).  It takes the tile in sub-chunks of SUB =
+// 2048 points (tile_p is the caller's, up to 2^31):
+//   1. stage   the sub-chunk's values (SUB x S floats, contiguous) go to
+//              shared memory by 16-byte cp.async, which runs while the CTA
+//              ranks; once for all the CTA's features when the tile is one
+//              sub-chunk, else once a (feature, sub-chunk): F reads of the
+//              values for tiles past SUB points;
+//   2. rank    each warp takes a run of consecutive points, 32 at a time,
+//              and ranks each among the points of its code in point order
+//              (__match_any_sync and the __popc of the lower lanes), keeping
+//              the warp's count of each bin in shared memory;
+//   3. place   a bin's start (an exclusive scan over the bins of their
+//              counts) plus the counts of its code in lower warps plus the
+//              rank is the point's place; each point copies its S values
+//              there, in a second (SUB, S) buffer;
+//   4. sums    one lane a (bin, channel) walks its channel of the bin's
+//              segment: one chain, loaded a batch of 16 ahead of the adds
+//              (the S lanes of a bin read neighbouring words: no bank
+//              conflict).  A tile of several sub-chunks carries each
+//              chain in its partial, which the lane writes and reads back.
+// Integer counts are exact in any order and no place comes from an atomic,
+// so every chain is the contract's, the same at every sub-chunk size and
+// launch shape.  The work is O(P x F) against legacy's P x F x n_bins
+// compares.  A tile whose points share one bin is S chains of tile_p adds
+// (the contract's order, on S lanes): then the adds' latency, ~4 cycles a
+// point, sets the tile's time.
+// fused then sums the tile partials in tile order (reduce_ring_kernel): a
+// CTA a 32 outputs keeps stages of 128 tiles in flight by cp.async while
+// one warp's lanes run the chains, where reduce_tiles_kernel (legacy's)
+// waits on its loads: at 2^24 points (8,192 tiles, 1,536 outputs) that is
+// 12 CTAs of 128 chains with 16 loads in flight each.
+// Bound.  Each point's codes (F bytes) and values (S x 4 bytes) read once,
+// the (tiles, F, n_bins, S) partials written once (fused reads them back).
+//
+// legacy: the Pallas legacy kernel's (F, P/TP) grid, one CTA a (P-tile,
+// feature), kept as it was ported (the reference keeps it so the autotuner
+// can measure the difference): one thread a bin, every thread reads every
+// staged code, P x F x n_bins compares, far above its bytes bound.
 //
 // hist_f64: a stable counting sort, then ordered segment sums.
 // Its contract is numpy's: each (feature, bin, channel) sum is one chain of
@@ -69,8 +100,8 @@
 
 namespace {
 
-constexpr int STAGE = 512;       // points staged in shared memory at a time
-constexpr int MAX_THREADS = 1024;  // one thread per bin; MAX_BINS in kernel.py
+constexpr int STAGE = 512;       // legacy: points staged in shared memory at a time
+constexpr int MAX_THREADS = 1024;  // MAX_BINS in kernel.py
 
 // Channel sums of the points [p0, p1) whose feature-f code is `bin`.  Every
 // thread of the CTA must call it (it synchronises); threads with a bin past
@@ -96,27 +127,21 @@ __device__ void bin_sums(const uint8_t* __restrict__ codes, const T* __restrict_
   }
 }
 
-// partial (C, F, n_bins, S): CTA x = P-tile c; with per_feature, CTA y is the
-// one feature it bins, else it loops over all F.
-template <int S>
+// legacy: partial (C, F, n_bins, 3); CTA x = P-tile c, CTA y = its feature.
 __global__ void __launch_bounds__(MAX_THREADS)
 hist_tiles_kernel(const uint8_t* __restrict__ codes, const float* __restrict__ vals,
-                  float* __restrict__ partial, long long P, int F, int n_bins, int tile_p,
-                  int per_feature) {
+                  float* __restrict__ partial, long long P, int F, int n_bins, int tile_p) {
   __shared__ uint8_t s_codes[STAGE];
-  __shared__ float s_vals[STAGE * S];
+  __shared__ float s_vals[STAGE * 3];
   const long long c = blockIdx.x;
   const long long p0 = c * tile_p, p1 = min(P, p0 + tile_p);
-  const int f0 = per_feature ? static_cast<int>(blockIdx.y) : 0;
-  const int f1 = per_feature ? f0 + 1 : F;
+  const int f = blockIdx.y;
   const int bin = threadIdx.x;
-  for (int f = f0; f < f1; ++f) {
-    float acc[S];
-    bin_sums<float, S>(codes, vals, F, f, p0, p1, bin, s_codes, s_vals, acc);
-    if (bin < n_bins) {
-      float* o = partial + ((c * F + f) * n_bins + bin) * S;
-      for (int s = 0; s < S; ++s) o[s] = acc[s];
-    }
+  float acc[3];
+  bin_sums<float, 3>(codes, vals, F, f, p0, p1, bin, s_codes, s_vals, acc);
+  if (bin < n_bins) {
+    float* o = partial + ((c * F + f) * n_bins + bin) * 3;
+    for (int s = 0; s < 3; ++s) o[s] = acc[s];
   }
 }
 
@@ -147,27 +172,10 @@ int threads_for(int n_bins) { return (n_bins + 31) / 32 * 32; }
 
 int tiles(long long P, int tile_p) { return static_cast<int>((P + tile_p - 1) / tile_p); }
 
-template <int S>
-int launch_tiles(const uint8_t* codes, const float* vals, float* partial, long long P, int F,
-                 int n_bins, int tile_p, bool per_feature, cudaStream_t s) {
-  const dim3 grid(tiles(P, tile_p), per_feature ? F : 1);
-  hist_tiles_kernel<S><<<grid, threads_for(n_bins), 0, s>>>(codes, vals, partial, P, F, n_bins,
-                                                            tile_p, per_feature ? 1 : 0);
-  return cudaGetLastError();
-}
-
 int launch_reduce(const float* partial, float* out, int C, long long n, cudaStream_t s) {
   reduce_tiles_kernel<<<static_cast<unsigned>((n + REDUCE_THREADS - 1) / REDUCE_THREADS),
                         REDUCE_THREADS, 0, s>>>(partial, out, C, n);
   return cudaGetLastError();
-}
-
-int fused_or_legacy(const uint8_t* codes, const float* vals, float* partial, float* out,
-                    long long P, int F, int n_bins, int tile_p, bool per_feature, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  int e = launch_tiles<3>(codes, vals, partial, P, F, n_bins, tile_p, per_feature, s);
-  if (e != cudaSuccess) return e;
-  return launch_reduce(partial, out, tiles(P, tile_p), static_cast<long long>(F) * n_bins * 3, s);
 }
 
 // ------------------------------------------------------------------ hist_f64
@@ -519,6 +527,322 @@ int launch_rows(const uint8_t* codes, const double* vals, const int* rows, long 
   return cudaGetLastError();
 }
 
+// ------------------------------------------------------- fused and partials
+constexpr int SORT_THREADS = 256;                   // 8 warps a CTA
+constexpr int SORT_WARPS = SORT_THREADS / 32;
+constexpr int SORT_PPL = 8;                         // points a lane ranks
+constexpr int SUB = SORT_THREADS * SORT_PPL;        // points a sub-chunk
+constexpr int SORT_SLOTS = MAX_THREADS / SORT_THREADS;  // bins a thread scans
+constexpr int CHAIN_U = 16;                         // a chain's loads run a batch ahead
+constexpr int RING_ROWS = 128;                      // tile partials a ring stage
+constexpr int RING_STAGES = 4;
+constexpr unsigned FULL = 0xffffffffu;
+
+// Shared memory of hist_sort_kernel: the staged values (SUB x S floats and
+// 4 of slack, so the copy can take the global address's alignment), the
+// sorted values (SUB x S), the warps' counts (SORT_WARPS, n_bins;
+// 16 bits: a warp ranks SORT_PPL x 32 points), the bins' starts (n_bins +
+// 1) and the scan's warp sums.
+__host__ __device__ constexpr long long sort_vals_bytes(int S) { return (SUB * S + 4) * 4LL; }
+
+__host__ __device__ inline long long sort_smem(int S, int n_bins) {
+  return 2 * sort_vals_bytes(S) + (n_bins + 1 + SORT_WARPS) * 4LL + SORT_WARPS * 2LL * n_bins;
+}
+
+// The launch: tiles; feature groups (CTAs a tile: 1 once the tiles fill
+// the SMs, else enough to fill them, at most F); features a CTA; CTAs.
+struct SortShape {
+  long long tiles, groups, per_cta, ctas;
+};
+
+SortShape sort_shape(long long P, int F, int tile_p, int sms) {
+  SortShape sh;
+  sh.tiles = (P + tile_p - 1) / tile_p;
+  long long g = 1;
+  if (sh.tiles < sms) g = std::min<long long>(F, (sms + sh.tiles - 1) / sh.tiles);
+  sh.per_cta = (F + g - 1) / g;
+  sh.groups = (F + sh.per_cta - 1) / sh.per_cta;
+  sh.ctas = sh.tiles * sh.groups;
+  return sh;
+}
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_u32(dst)), "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_u32(dst)), "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Start the copy of the values of points [q0, q0 + cnt) to shared memory by
+// 16-byte cp.async, which holds no registers and runs while the CTA ranks:
+// the copy starts as far into s_raw (16-byte aligned) as the first value
+// lies past a 16-byte boundary, so the middle moves 16 bytes at a time and
+// at most 3 floats at each end one by one.  Returns the first value's
+// place.  Every thread of the CTA calls it; each waits for its own copies
+// (cp_async_wait<0>) before the barrier ahead of the first read.
+template <int S>
+__device__ const float* stage_vals(const float* __restrict__ vals, long long q0, int cnt,
+                                   float* s_raw) {
+  const int t = threadIdx.x;
+  const float* g = vals + q0 * S;
+  const int n = cnt * S;
+  const int mis = static_cast<int>((reinterpret_cast<uintptr_t>(g) >> 2) & 3);
+  float* s = s_raw + mis;
+  const int head = min(n, (4 - mis) & 3);
+  const int nv = (n - head) >> 2;
+  for (int v = t; v < nv; v += SORT_THREADS) cp_async16(s + head + 4 * v, g + head + 4 * v);
+  cp_async_commit();
+  const int tail = head + nv * 4;
+  if (t < head) s[t] = g[t];
+  if (t < n - tail) s[tail + t] = g[tail + t];
+  return s;
+}
+
+// In-place exclusive scan of v[0, n) in shared memory, n <= MAX_THREADS,
+// SORT_SLOTS consecutive entries a thread; wsum holds SORT_WARPS ints.
+// Integer adds: exact in any order.  Every thread of the CTA calls it.
+__device__ void scan_counts(int* v, int n, int* wsum) {
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  int loc[SORT_SLOTS], sum = 0;
+#pragma unroll
+  for (int k = 0; k < SORT_SLOTS; ++k) {
+    const int b = t * SORT_SLOTS + k;
+    loc[k] = b < n ? v[b] : 0;
+    sum += loc[k];
+  }
+  int inc = sum;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const int x = __shfl_up_sync(FULL, inc, off);
+    if (lane >= off) inc += x;
+  }
+  if (lane == 31) wsum[warp] = inc;
+  __syncthreads();
+  int run = inc - sum;
+  for (int w = 0; w < warp; ++w) run += wsum[w];
+#pragma unroll
+  for (int k = 0; k < SORT_SLOTS; ++k) {
+    const int b = t * SORT_SLOTS + k;
+    if (b < n) v[b] = run;
+    run += loc[k];
+  }
+  __syncthreads();
+}
+
+// acc + x[0] + x[STRIDE] + ... + x[(n - 1) * STRIDE], one __fadd_rn at a
+// time in that order, x in shared memory.  The adds are the chain; two
+// batches of CHAIN_U values take turns, one loading while the other is
+// added, so the chain waits on the adds' latency and not on the loads'.
+template <int STRIDE>
+__device__ __forceinline__ float chain(const float* x, int n, float acc) {
+  float a[CHAIN_U], b[CHAIN_U];
+  int k = 0;
+  if (n >= CHAIN_U) {
+#pragma unroll
+    for (int u = 0; u < CHAIN_U; ++u) a[u] = x[u * STRIDE];
+    for (k = CHAIN_U;; ) {
+      if (k + CHAIN_U > n) {
+#pragma unroll
+        for (int u = 0; u < CHAIN_U; ++u) acc = add_rn(acc, a[u]);
+        break;
+      }
+#pragma unroll
+      for (int u = 0; u < CHAIN_U; ++u) b[u] = x[(k + u) * STRIDE];
+#pragma unroll
+      for (int u = 0; u < CHAIN_U; ++u) acc = add_rn(acc, a[u]);
+      k += CHAIN_U;
+      if (k + CHAIN_U > n) {
+#pragma unroll
+        for (int u = 0; u < CHAIN_U; ++u) acc = add_rn(acc, b[u]);
+        break;
+      }
+#pragma unroll
+      for (int u = 0; u < CHAIN_U; ++u) a[u] = x[(k + u) * STRIDE];
+#pragma unroll
+      for (int u = 0; u < CHAIN_U; ++u) acc = add_rn(acc, b[u]);
+      k += CHAIN_U;
+    }
+  }
+  for (; k < n; ++k) acc = add_rn(acc, x[k * STRIDE]);
+  return acc;
+}
+
+// partial (C, F, n_bins, S): CTA x = P-tile c, CTA y = the group of
+// per_cta features it bins.  Each (bin, channel) chain is one lane's; a
+// tile of several sub-chunks carries it in the partial, which the lane
+// reads back (its own write) at the next sub-chunk.
+template <int S>
+__global__ void __launch_bounds__(SORT_THREADS)
+hist_sort_kernel(const uint8_t* __restrict__ codes, const float* __restrict__ vals,
+                 float* __restrict__ partial, long long P, int F, int n_bins, int tile_p,
+                 int per_cta) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* s_raw = reinterpret_cast<float*>(smem);
+  float* sorted = reinterpret_cast<float*>(smem + sort_vals_bytes(S));
+  int* start = reinterpret_cast<int*>(smem + 2 * sort_vals_bytes(S));
+  int* wsum = start + n_bins + 1;
+  uint16_t* wcnt = reinterpret_cast<uint16_t*>(wsum + SORT_WARPS);
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const unsigned below = (1u << lane) - 1u;
+  const long long c = blockIdx.x;
+  const long long p0 = c * tile_p, p1 = min(P, p0 + tile_p);
+  const int f0 = static_cast<int>(blockIdx.y) * per_cta, f1 = min(F, f0 + per_cta);
+  const bool once = p1 - p0 <= SUB;   // one sub-chunk: its values serve every feature
+  uint16_t* wc = wcnt + warp * n_bins;
+  for (int e = t; e < SORT_WARPS * n_bins; e += SORT_THREADS) wcnt[e] = 0;
+  const float* sv = once ? stage_vals<S>(vals, p0, static_cast<int>(p1 - p0), s_raw) : nullptr;
+  for (int f = f0; f < f1; ++f) {
+    float* o = partial + (c * F + f) * n_bins * S;
+    for (long long q0 = p0; q0 < p1; q0 += SUB) {
+      const int cnt = static_cast<int>(min(static_cast<long long>(SUB), p1 - q0));
+      __syncthreads();  // the last chains have read the sorted values
+      if (!once) sv = stage_vals<S>(vals, q0, cnt, s_raw);
+      // 2. rank: warp w takes groups [w * gpw, (w + 1) * gpw) of 32 points
+      const int gpw = ((cnt + 31) / 32 + SORT_WARPS - 1) / SORT_WARPS;
+      const uint8_t* cf = codes + q0 * F + f;
+      int code[SORT_PPL], rank[SORT_PPL];
+#pragma unroll
+      for (int g = 0; g < SORT_PPL; ++g) {
+        const int j = (warp * gpw + g) * 32 + lane;
+        code[g] = g < gpw && j < cnt ? cf[static_cast<long long>(j) * F] : -1;
+      }
+#pragma unroll
+      for (int g = 0; g < SORT_PPL; ++g) {
+        rank[g] = 0;
+        if (g < gpw) {
+          const unsigned peers = __match_any_sync(FULL, code[g]);
+          const int before = code[g] >= 0 ? wc[code[g]] : 0;
+          __syncwarp();
+          if (code[g] >= 0 && (peers & below) == 0)
+            wc[code[g]] = static_cast<uint16_t>(before + __popc(peers));
+          __syncwarp();
+          rank[g] = before + __popc(peers & below);
+        }
+      }
+      __syncthreads();
+      // 3. place: each bin's counts to exclusive offsets over the warps, its
+      // total to start, then the scan of the totals
+#pragma unroll
+      for (int k = 0; k < SORT_SLOTS; ++k) {
+        const int b = t + k * SORT_THREADS;
+        if (b < n_bins) {
+          int run = 0;
+          for (int w = 0; w < SORT_WARPS; ++w) {
+            const int x = wcnt[w * n_bins + b];
+            wcnt[w * n_bins + b] = static_cast<uint16_t>(run);
+            run += x;
+          }
+          start[b] = run;
+        }
+      }
+      if (t == 0) start[n_bins] = cnt;
+      cp_async_wait<0>();
+      __syncthreads();
+      scan_counts(start, n_bins, wsum);
+#pragma unroll
+      for (int g = 0; g < SORT_PPL; ++g)
+        if (g < gpw && code[g] >= 0) {
+          const int place = start[code[g]] + wc[code[g]] + rank[g];
+          const float* v = sv + ((warp * gpw + g) * 32 + lane) * S;
+#pragma unroll
+          for (int s = 0; s < S; ++s) sorted[place * S + s] = v[s];
+        }
+      __syncthreads();
+      // 4. sums: chain (b, s) over bin b's segment [start[b], start[b + 1])
+      for (int b = t; b < n_bins; b += SORT_THREADS)
+        for (int w = 0; w < SORT_WARPS; ++w) wcnt[w * n_bins + b] = 0;
+      for (int q = t; q < n_bins * S; q += SORT_THREADS) {
+        const int b = q / S, i0 = start[b];
+        o[q] = chain<S>(sorted + i0 * S + q - b * S, start[b + 1] - i0,
+                        q0 == p0 ? 0.f : o[q]);
+      }
+    }
+  }
+}
+
+// Fused's tile reduction: out[e] = partial[0][e] + partial[1][e] + ... in
+// tile order, as reduce_tiles_kernel adds them, for 32 consecutive e a CTA.
+// All 8 warps keep RING_STAGES - 1 stages of RING_ROWS tiles' 32 values
+// (128 bytes a tile, by 4-byte cp.async) in flight while warp 0's lanes, one
+// an element, add the stage that has landed: the chains are the same, the
+// loads no longer wait one by one.
+__global__ void __launch_bounds__(SORT_THREADS)
+reduce_ring_kernel(const float* __restrict__ partial, float* __restrict__ out, int C,
+                   long long n) {
+  extern __shared__ __align__(16) float ring[];   // (RING_STAGES, RING_ROWS, 32)
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const long long e = static_cast<long long>(blockIdx.x) * 32 + lane;
+  const int stages = (C + RING_ROWS - 1) / RING_ROWS;
+  auto load = [&](int i) {
+    if (i < stages && e < n) {
+      float* r = ring + (i % RING_STAGES) * RING_ROWS * 32 + lane;
+      const int c0 = i * RING_ROWS, m = min(RING_ROWS, C - c0);
+      for (int k = warp; k < m; k += SORT_WARPS)
+        cp_async4(r + k * 32, partial + static_cast<long long>(c0 + k) * n + e);
+    }
+    cp_async_commit();
+  };
+#pragma unroll
+  for (int i = 0; i < RING_STAGES - 1; ++i) load(i);
+  float acc = 0.f;
+  for (int i = 0; i < stages; ++i) {
+    load(i + RING_STAGES - 1);
+    cp_async_wait<RING_STAGES - 1>();   // stage i has landed
+    __syncthreads();
+    if (warp == 0 && e < n) {
+      const float* r = ring + (i % RING_STAGES) * RING_ROWS * 32 + lane;
+      const int m = min(RING_ROWS, C - i * RING_ROWS);
+      acc = i ? chain<32>(r, m, acc) : chain<32>(r + 32, m - 1, r[0]);
+    }
+    __syncthreads();   // stage i is read before it is loaded again
+  }
+  if (warp == 0 && e < n) out[e] = acc;
+}
+
+constexpr int RING_SMEM = RING_STAGES * RING_ROWS * 32 * 4;
+
+template <int S>
+int launch_sort(const uint8_t* codes, const float* vals, float* partial, long long P, int F,
+                int n_bins, int tile_p, cudaStream_t s) {
+  int dev = 0, sms = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return e;
+  static const cudaError_t attr =
+      cudaFuncSetAttribute(hist_sort_kernel<S>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           static_cast<int>(sort_smem(S, MAX_THREADS)));
+  if (attr != cudaSuccess) return attr;
+  const SortShape sh = sort_shape(P, F, tile_p, sms);
+  hist_sort_kernel<S><<<dim3(static_cast<unsigned>(sh.tiles), static_cast<unsigned>(sh.groups)),
+                        SORT_THREADS, sort_smem(S, n_bins), s>>>(
+      codes, vals, partial, P, F, n_bins, tile_p, static_cast<int>(sh.per_cta));
+  return cudaGetLastError();
+}
+
+int launch_ring(const float* partial, float* out, int C, long long n, cudaStream_t s) {
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      reduce_ring_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, RING_SMEM);
+  if (attr != cudaSuccess) return attr;
+  reduce_ring_kernel<<<static_cast<unsigned>((n + 31) / 32), SORT_THREADS, RING_SMEM, s>>>(
+      partial, out, C, n);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // Common arguments: codes (P, F) uint8 row-major, every code < n_bins;
@@ -556,23 +880,48 @@ extern "C" int hist_f64_node(const uint8_t* codes, const double* vals, const int
   return e != cudaSuccess ? e : cudaGetLastError();
 }
 
+// The launch of hist_fused_f32 (S = 3) or hist_partials_f32 (S = 6) on a
+// card of sms SMs: shape = {P-tiles, feature groups (CTAs a tile), features
+// a CTA, CTAs, threads a CTA, shared bytes a CTA, points a sub-chunk,
+// sub-chunks of a full tile}.  P, F, tile_p, sms >= 1; S in {3, 6}.
+extern "C" void hist_f32_launch_shape(long long P, int F, int n_bins, int tile_p, int S, int sms,
+                                      long long* shape) {
+  const SortShape sh = sort_shape(P, F, tile_p, sms);
+  shape[0] = sh.tiles;
+  shape[1] = sh.groups;
+  shape[2] = sh.per_cta;
+  shape[3] = sh.ctas;
+  shape[4] = SORT_THREADS;
+  shape[5] = sort_smem(S, n_bins);
+  shape[6] = SUB;
+  shape[7] = (tile_p + SUB - 1LL) / SUB;
+}
+
 // vals (P, 3) float32; partial (ceil(P / tile_p), F, n_bins, 3) scratch;
 // out (F, n_bins, 3) float32.
 extern "C" int hist_fused_f32(const uint8_t* codes, const float* vals, float* partial, float* out,
                               long long P, int F, int n_bins, int tile_p, void* stream) {
-  return fused_or_legacy(codes, vals, partial, out, P, F, n_bins, tile_p, false, stream);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int e = launch_sort<3>(codes, vals, partial, P, F, n_bins, tile_p, s);
+  if (e != cudaSuccess) return e;
+  return launch_ring(partial, out, tiles(P, tile_p), static_cast<long long>(F) * n_bins * 3, s);
 }
 
 extern "C" int hist_legacy_f32(const uint8_t* codes, const float* vals, float* partial,
                                float* out, long long P, int F, int n_bins, int tile_p,
                                void* stream) {
-  return fused_or_legacy(codes, vals, partial, out, P, F, n_bins, tile_p, true, stream);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  hist_tiles_kernel<<<dim3(tiles(P, tile_p), F), threads_for(n_bins), 0, s>>>(
+      codes, vals, partial, P, F, n_bins, tile_p);
+  const int e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  return launch_reduce(partial, out, tiles(P, tile_p), static_cast<long long>(F) * n_bins * 3, s);
 }
 
 // vals (P, 6) float32 (the hi and lo halves of the three channels);
 // partial (ceil(P / tile_p), F, n_bins, 6) float32 is the output.
 extern "C" int hist_partials_f32(const uint8_t* codes, const float* vals, float* partial,
                                  long long P, int F, int n_bins, int tile_p, void* stream) {
-  return launch_tiles<6>(codes, vals, partial, P, F, n_bins, tile_p, false,
-                         static_cast<cudaStream_t>(stream));
+  return launch_sort<6>(codes, vals, partial, P, F, n_bins, tile_p,
+                        static_cast<cudaStream_t>(stream));
 }

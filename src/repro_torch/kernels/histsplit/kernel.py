@@ -6,7 +6,9 @@ Replaces ``src/repro/kernels/histsplit/kernel.py::histograms_kernel_call``:
 ``HIST_LEGACY`` ``"legacy"``, all float32 as on the TPU; ``HIST_F64`` is the
 float64 variant, bitwise equal to numpy's ``bincount`` over all points or a
 node's rows, and ``HIST_F64_NODE`` the same kernel in one tree node's round
-trip, the launch the trees make (``ops.ResidentHist``).  Codes
+trip, the launch the trees make (``ops.ResidentHist``).  :func:`launch_shape`
+gives the launch that the source chooses for the fused and partials
+kernels (its ``hist_f32_launch_shape``).  Codes
 are read as ``apply_bins`` makes them, (P, F) uint8 row-major; the reference
 transposes them to (F, P) int32 only because its TPU kernel needs that.
 """
@@ -20,7 +22,7 @@ from ..common import CudaKernel, ceil_div, library, require_cuda
 
 __all__ = ["HIST_F64", "HIST_F64_NODE", "HIST_FUSED", "HIST_PARTIALS",
            "HIST_LEGACY", "MAX_BINS", "VARIANTS", "f64_scratch_bytes",
-           "histograms_cuda", "hist_rows_cuda"]
+           "launch_shape", "histograms_cuda", "hist_rows_cuda"]
 
 _P = ctypes.c_void_p
 _TILES = [_P, _P, _P, _P, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
@@ -35,7 +37,7 @@ HIST_LEGACY = CudaKernel("histsplit", "hist_legacy_f32", _TILES)
 HIST_PARTIALS = CudaKernel("histsplit", "hist_partials_f32",
                            [_P, _P, _P, ctypes.c_longlong, ctypes.c_int,
                             ctypes.c_int, ctypes.c_int, _P])
-# one thread per bin: MAX_THREADS in csrc/histsplit.cu
+# MAX_THREADS in csrc/histsplit.cu (legacy and hist_f64: a thread a bin)
 MAX_BINS = 1024
 # hist_f64 indexes rows with int32
 MAX_ROWS = 2**31 - 1
@@ -49,6 +51,38 @@ def f64_scratch_bytes(n: int, F: int, n_bins: int) -> int:
     fn = library("histsplit").hist_f64_scratch_bytes
     fn.argtypes, fn.restype = [_LL, _I, _I], _LL
     return int(fn(n, F, n_bins))
+
+
+# hist_f32_launch_shape's numbers, in its order
+_SHAPE_KEYS = ("tiles", "feature_groups", "features_per_cta", "ctas",
+               "threads", "smem_bytes", "sub_chunk", "sub_chunks_per_tile")
+_SMS: dict = {}
+
+
+def launch_shape(variant: str, P: int, F: int, n_bins: int, tile_p: int,
+                 sms: int | None = None) -> dict:
+    """The launch of the ``"fused"`` or ``"partials"`` kernel as
+    ``csrc/histsplit.cu``'s ``hist_f32_launch_shape`` chooses it on a card of
+    ``sms`` SMs (the current device's by default): P-tiles, feature groups
+    (CTAs a tile), features a CTA, CTAs, threads and shared bytes a CTA,
+    points a sub-chunk and sub-chunks of a full tile."""
+    if variant not in ("fused", "partials"):
+        raise ValueError(f"launch_shape covers fused and partials, not {variant!r}")
+    if (min(P, F, n_bins, tile_p) < 1 or n_bins > MAX_BINS or tile_p >= 2**31
+            or F >= 65536):
+        raise ValueError(f"unsupported shape P={P} F={F} n_bins={n_bins} "
+                         f"tile_p={tile_p}")
+    if sms is None:
+        device = torch.cuda.current_device()
+        if device not in _SMS:
+            _SMS[device] = torch.cuda.get_device_properties(device).multi_processor_count
+        sms = _SMS[device]
+    shape = (ctypes.c_longlong * len(_SHAPE_KEYS))()
+    fn = library("histsplit").hist_f32_launch_shape
+    fn.argtypes = [_LL, _I, _I, _I, _I, _I, ctypes.POINTER(ctypes.c_longlong)]
+    fn.restype = None
+    fn(P, F, n_bins, tile_p, VARIANTS[variant][1], sms, shape)
+    return dict(zip(_SHAPE_KEYS, shape))
 
 
 def check_f64_shapes(P: int, F: int, n_bins: int) -> None:

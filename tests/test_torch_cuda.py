@@ -243,6 +243,42 @@ def test_loss_leaves_that_meet_no_block_change_nothing(cuda, B, T):
             assert np.array_equal(again, got), (what, where)
 
 
+def _one_block_and_label(label):
+    """A coreset of one block (0, 4, 0, 4) with labels (1, 2, 3, 4) and
+    weights 4 each, and a tree of a leaf (0, 4, 0, 4) labelled 2 beside a
+    zero-area leaf (4, 4, 0, 4) labelled ``label``."""
+    from repro_torch.core import SignalCoreset
+    labels = np.array([[1.0, 2.0, 3.0, 4.0]])
+    weights = np.full((1, 4), 4.0)
+    cs = SignalCoreset.from_arrays({
+        "n": 4, "m": 4, "k": 2, "eps": 0.3, "rects": [[0, 4, 0, 4]],
+        "labels": labels, "weights": weights,
+        "moments": [[16.0, (weights * labels).sum(), (weights * labels ** 2).sum()]],
+        "sigma": 1.0, "tolerance": 1.0, "max_slices": 1, "build_seconds": 0.0,
+        "certified": True,
+        "bicriteria": {"sigma": 1.0, "ell": 1.0, "alpha_hat": 1.0,
+                       "n_iterations": 1, "n_blocks": 1, "iter_losses": []}})
+    rects = np.array([[0.0, 4.0, 0.0, 4.0], [4.0, 4.0, 0.0, 4.0]])
+    return cs, rects, np.array([2.0, label])
+
+
+@pytest.mark.parametrize("label", [np.nan, np.inf])
+def test_non_finite_label_on_a_zero_area_leaf_follows_the_numpy_oracle(cuda, label):
+    # the kernel skips every (block, leaf) pair with z = 0, so the zero-area
+    # leaf's label never enters the sum: the numpy oracle's 24, where the
+    # plain version gives NaN (tests/test_torch_fitting_loss.py)
+    cs, rects, labels = _one_block_and_label(label)
+    want = ops.fitting_loss(cs, rects, labels, backend="numpy")
+    assert want == 24.0
+    before = (fl_kernel.FITTING_LOSS.launches, fl_kernel.FITTING_LOSS_BATCHED.launches)
+    got = ops.fitting_loss(cs, rects, labels, backend="cuda")
+    got_b = ops.fitting_loss_batched(cs, rects[None], labels[None], backend="cuda")
+    assert (fl_kernel.FITTING_LOSS.launches, fl_kernel.FITTING_LOSS_BATCHED.launches) == (
+        before[0] + 1, before[1] + 1)
+    np.testing.assert_array_equal([got], [want])
+    np.testing.assert_array_equal(got_b, [want])
+
+
 def test_cuda_backend_builds_the_numpy_fingerprint(cuda):
     y = piecewise_signal(300, 200, 8, seed=3)
     with ops.backend_override("numpy"):
@@ -338,6 +374,79 @@ def test_hist_fused_is_the_same_from_run_to_run(cuda):
     for _ in range(3):
         assert torch.equal(hist_ops.histograms(*args, 256, variant="fused"),
                            first)
+
+
+def test_hist_partials_is_the_same_from_run_to_run(cuda):
+    codes, w, wy, wy2 = _on(cuda, *_hist_inputs(200_000, 2, 256, seed=3))
+    vals = hist_ops.pack_values(w, wy, wy2, "partials")
+    first = hist_kernel.histograms_cuda(codes, vals, 256, variant="partials")
+    for _ in range(3):
+        assert torch.equal(hist_kernel.histograms_cuda(
+            codes, vals, 256, variant="partials"), first)
+
+
+# (P, F, n_bins, tile_p, codes) at the edges of the fused and partials
+# kernels' in-tile sort: every point of a tile in one bin (within one
+# sub-chunk of 2048 points and across three); n_bins 1, 255 and 1024;
+# tile_p 32, 33 (tiles whose values start off a 16-byte boundary), 2048, one
+# past the sub-chunk and larger than P (one tile of several sub-chunks);
+# F = 1 and the Air-Quality shape's 15 features; P = 1
+HIST_F32_EDGES = [(5000, 2, 256, 2048, "one_bin"), (5000, 2, 256, 5000, "one_bin"),
+                  (3000, 2, 1, 2048, "random"), (3000, 2, 255, 2048, "random"),
+                  (3000, 2, 1024, 2048, "random"), (3000, 3, 64, 32, "random"),
+                  (3000, 2, 256, 33, "random"), (4096, 2, 256, 2048, "random"),
+                  (5000, 2, 256, 2049, "random"), (3000, 2, 256, 10_000, "random"),
+                  (7000, 1, 300, 1 << 20, "random"), (100, 1, 16, 2048, "random"),
+                  (9358, 15, 256, 2048, "random"), (1, 1, 16, 2048, "random"),
+                  (1, 3, 256, 1, "random")]
+
+
+@pytest.mark.parametrize("P,F,B,tile_p,codes", HIST_F32_EDGES)
+def test_hist_f32_sort_at_its_edges_equals_the_cpu_order(cuda, P, F, B, tile_p, codes):
+    # the rule of test_hist_f32_kernels_equal_their_order_on_the_cpu, one
+    # counted launch a call
+    args = _hist_inputs(P, F, B, seed=5)
+    if codes == "one_bin":
+        args[0][:] = B - 1
+    for variant, kern in (("partials", hist_kernel.HIST_PARTIALS),
+                          ("fused", hist_kernel.HIST_FUSED)):
+        vals = hist_ops.pack_values(*_on("cpu", *args)[1:], variant)
+        parts = partials_ref(torch.from_numpy(args[0]), vals, B, tile_p)
+        want = parts
+        if variant == "fused":
+            want = parts[0].clone()
+            for c in range(1, parts.shape[0]):
+                want += parts[c]
+        before = kern.launches
+        got = hist_kernel.histograms_cuda(
+            torch.as_tensor(args[0], device=cuda), vals.to(cuda), B,
+            variant=variant, tile_p=tile_p)
+        assert kern.launches == before + 1
+        assert torch.equal(got.cpu(), want), (variant, P, F, B, tile_p, codes)
+
+
+# (P, F, n_bins, tile_p): chip_smoke's three shapes, tiles on both sides of
+# the SM count, past one sub-chunk, many features, 1024 bins
+HIST_LAUNCH_SHAPES = [(98_237, 2, 256, 2048), (2_112, 2, 256, 2048),
+                      (1 << 24, 2, 256, 2048), (1, 1, 1, 1), (3000, 2, 256, 33),
+                      (9358, 15, 256, 2048), (5000, 2, 1024, 2049),
+                      (7000, 1, 300, 1 << 20), (1 << 20, 40_000, 16, 1 << 20)]
+
+
+@pytest.mark.parametrize("variant", ["fused", "partials"])
+@pytest.mark.parametrize("P,F,B,tile_p", HIST_LAUNCH_SHAPES)
+def test_hist_f32_launch_shape_covers_every_tile_and_feature(cuda, variant, P, F, B,
+                                                              tile_p):
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    got = hist_kernel.launch_shape(variant, P, F, B, tile_p)
+    assert got == hist_kernel.launch_shape(variant, P, F, B, tile_p, sms=sms)
+    groups, per_cta = got["feature_groups"], got["features_per_cta"]
+    assert got["tiles"] == -(-P // tile_p)
+    assert (groups - 1) * per_cta < F <= groups * per_cta and groups <= 65535
+    assert got["ctas"] == got["tiles"] * groups
+    assert groups == 1 or got["tiles"] < sms
+    assert got["sub_chunks_per_tile"] == -(-tile_p // got["sub_chunk"])
+    assert got["smem_bytes"] <= 227 * 1024 and got["threads"] >= 32
 
 
 def test_hist_launcher_rejects_bins_past_one_cta(cuda):

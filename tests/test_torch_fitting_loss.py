@@ -170,3 +170,42 @@ def test_work_skips_zero_area_leaves():
     assert torch.equal(a["live_pairs"], b["live_pairs"])
     assert torch.equal(a["chunk_hits"], b["chunk_hits"])
     assert torch.equal(b["box_tests"], a["box_tests"] // 7 * 11)
+
+
+def _one_block_and_label(label):
+    """The reference coreset of one block (0, 4, 0, 4) with labels
+    (1, 2, 3, 4) and weights 4 each, and a tree of a leaf (0, 4, 0, 4)
+    labelled 2 beside a zero-area leaf (4, 4, 0, 4) labelled ``label``."""
+    from repro.core.bicriteria import BicriteriaResult
+    from repro.core.coreset import SignalCoreset as RefCoreset
+    labels = np.array([[1.0, 2.0, 3.0, 4.0]])
+    weights = np.full((1, 4), 4.0)
+    moments = np.array([[16.0, (weights * labels).sum(),
+                         (weights * labels ** 2).sum()]])
+    cs = RefCoreset(n=4, m=4, k=2, eps=0.3, rects=np.array([[0, 4, 0, 4]]),
+                    labels=labels, weights=weights, moments=moments,
+                    sigma=1.0, tolerance=1.0, max_slices=1,
+                    bicriteria=BicriteriaResult(1.0, 1.0, 1.0, 1, 1, []),
+                    build_seconds=0.0)
+    rects = np.array([[0.0, 4.0, 0.0, 4.0], [4.0, 4.0, 0.0, 4.0]])
+    return cs, rects, np.array([2.0, label])
+
+
+@pytest.mark.parametrize("label", [np.nan, np.inf])
+def test_non_finite_label_on_a_zero_area_leaf_follows_the_xla_backend(label):
+    # the plain version's dense terms take 0 * label for the zero-area leaf,
+    # as the reference's xla backend does, so both give NaN; the numpy
+    # oracle skips the leaf and gives 24 (the CUDA kernel's answer,
+    # tests/test_torch_cuda.py)
+    cs, rects, labels = _one_block_and_label(label)
+    port = _carried(cs)
+    got = ops.fitting_loss(port, rects, labels, backend="torch")
+    want = ref_ops.fitting_loss(cs, rects, labels, backend="xla")
+    assert np.isnan(got) and np.isnan(want)
+    got_b = ops.fitting_loss_batched(port, rects[None], labels[None],
+                                     backend="torch")
+    want_b = ref_ops.fitting_loss_batched(cs, rects[None], labels[None],
+                                          backend="xla")
+    assert np.isnan(got_b).all() and np.isnan(want_b).all()
+    assert ops.fitting_loss(port, rects, labels, backend="numpy") == 24.0
+    assert ref_ops.fitting_loss(cs, rects, labels, backend="numpy") == 24.0

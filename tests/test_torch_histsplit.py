@@ -139,3 +139,16 @@ def test_cuda_launcher_refuses_cpu_tensors():
     with pytest.raises((RuntimeError, ValueError)):
         hist_kernel.histograms_cuda(codes, vals, 16)
     assert hist_kernel.HIST_F64.launches == before
+
+
+# launch_shape asks the compiled source (so its values are checked in
+# tests/test_torch_cuda.py); what it refuses, it refuses before the build
+@pytest.mark.parametrize("variant,P,F,n_bins,tile_p", [
+    ("legacy", 10, 1, 4, 8), ("f64", 10, 1, 4, 8), ("fused", 0, 1, 4, 8),
+    ("fused", 10, 0, 4, 8), ("partials", 10, 1, 0, 8),
+    ("partials", 10, 1, hist_kernel.MAX_BINS + 1, 8), ("fused", 10, 1, 4, 0),
+    ("fused", 10, 1, 4, 2**31), ("partials", 10, 65536, 4, 8)])
+def test_launch_shape_refuses_what_the_kernels_do_not_take(variant, P, F, n_bins,
+                                                           tile_p):
+    with pytest.raises(ValueError):
+        hist_kernel.launch_shape(variant, P, F, n_bins, tile_p, sms=132)
