@@ -16,9 +16,9 @@
 // code in ascending point order, with no atomics.  The Pallas fused and
 // legacy kernels accumulate in place over the P tiles, which is sound only
 // on the TPU's sequential grid.  Here fused and legacy end with a second
-// kernel that sums each output element's tile partials in tile order, so
-// their result does not change from run to run; partials returns the
-// per-tile partials and the host sums them in float64.
+// kernel (reduce_ring_kernel) that sums each output element's tile partials
+// in tile order, so their result does not change from run to run; partials
+// returns the per-tile partials and the host sums them in float64.
 //
 // fused, partials: a stable counting sort inside each tile (hist_sort_kernel).
 // A CTA of 256 threads takes one P-tile and a range of features (one CTA a
@@ -49,18 +49,18 @@
 // compares.  A tile whose points share one bin is S chains of tile_p adds
 // (the contract's order, on S lanes): then the adds' latency, ~4 cycles a
 // point, sets the tile's time.
-// fused then sums the tile partials in tile order (reduce_ring_kernel): a
-// CTA a 32 outputs keeps stages of 128 tiles in flight by cp.async while
-// one warp's lanes run the chains, where reduce_tiles_kernel (legacy's)
-// waits on its loads: at 2^24 points (8,192 tiles, 1,536 outputs) that is
-// 12 CTAs of 128 chains with 16 loads in flight each.
+// The tile sum (fused's and legacy's, reduce_ring_kernel): a CTA a 32
+// outputs keeps RING_STAGES - 1 stages of 128 tiles in flight by cp.async
+// while warp 0's lanes run the 32 chains: at 2^24 points (8,192 tiles,
+// 1,536 outputs) that is 48 CTAs of 32 chains.
 // Bound.  Each point's codes (F bytes) and values (S x 4 bytes) read once,
 // the (tiles, F, n_bins, S) partials written once (fused reads them back).
 //
 // legacy: the Pallas legacy kernel's (F, P/TP) grid, one CTA a (P-tile,
 // feature), kept as it was ported (the reference keeps it so the autotuner
 // can measure the difference): one thread a bin, every thread reads every
-// staged code, P x F x n_bins compares, far above its bytes bound.
+// staged code, P x F x n_bins compares, far above its bytes bound.  Its
+// tile sum is fused's.
 //
 // hist_f64: a stable counting sort, then ordered segment sums.
 // Its contract is numpy's: each (feature, bin, channel) sum is one chain of
@@ -145,38 +145,9 @@ hist_tiles_kernel(const uint8_t* __restrict__ codes, const float* __restrict__ v
   }
 }
 
-constexpr int REDUCE_THREADS = 128;
-constexpr int REDUCE_UNROLL = 16;
-
-// out[i] = partial[0][i] + partial[1][i] + ... in tile order, i < n.
-__global__ void __launch_bounds__(REDUCE_THREADS)
-reduce_tiles_kernel(const float* __restrict__ partial, float* __restrict__ out, int C,
-                    long long n) {
-  const long long i = static_cast<long long>(blockIdx.x) * REDUCE_THREADS + threadIdx.x;
-  if (i >= n) return;
-  const float* p = partial + i;
-  float acc = p[0];
-  int c = 1;
-  for (; c + REDUCE_UNROLL <= C; c += REDUCE_UNROLL) {
-    float v[REDUCE_UNROLL];
-#pragma unroll
-    for (int u = 0; u < REDUCE_UNROLL; ++u) v[u] = p[(c + u) * n];
-#pragma unroll
-    for (int u = 0; u < REDUCE_UNROLL; ++u) acc = add_rn(acc, v[u]);
-  }
-  for (; c < C; ++c) acc = add_rn(acc, p[c * n]);
-  out[i] = acc;
-}
-
 int threads_for(int n_bins) { return (n_bins + 31) / 32 * 32; }
 
 int tiles(long long P, int tile_p) { return static_cast<int>((P + tile_p - 1) / tile_p); }
-
-int launch_reduce(const float* partial, float* out, int C, long long n, cudaStream_t s) {
-  reduce_tiles_kernel<<<static_cast<unsigned>((n + REDUCE_THREADS - 1) / REDUCE_THREADS),
-                        REDUCE_THREADS, 0, s>>>(partial, out, C, n);
-  return cudaGetLastError();
-}
 
 // ------------------------------------------------------------------ hist_f64
 constexpr int ROWS_THREADS = 256;                    // 8 warps a CTA
@@ -774,8 +745,8 @@ hist_sort_kernel(const uint8_t* __restrict__ codes, const float* __restrict__ va
   }
 }
 
-// Fused's tile reduction: out[e] = partial[0][e] + partial[1][e] + ... in
-// tile order, as reduce_tiles_kernel adds them, for 32 consecutive e a CTA.
+// The tile sum of fused and legacy: out[e] = partial[0][e] + partial[1][e]
+// + ... in tile order, for 32 consecutive e a CTA.
 // All 8 warps keep RING_STAGES - 1 stages of RING_ROWS tiles' 32 values
 // (128 bytes a tile, by 4-byte cp.async) in flight while warp 0's lanes, one
 // an element, add the stage that has landed: the chains are the same, the
@@ -915,7 +886,7 @@ extern "C" int hist_legacy_f32(const uint8_t* codes, const float* vals, float* p
       codes, vals, partial, P, F, n_bins, tile_p);
   const int e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  return launch_reduce(partial, out, tiles(P, tile_p), static_cast<long long>(F) * n_bins * 3, s);
+  return launch_ring(partial, out, tiles(P, tile_p), static_cast<long long>(F) * n_bins * 3, s);
 }
 
 // vals (P, 6) float32 (the hi and lo halves of the three channels);

@@ -22,8 +22,9 @@ import subprocess
 import threading
 import time
 
-__all__ = ["ceil_div", "require_cuda", "aligned", "build", "library",
-           "library_path", "CudaKernel", "CSRC", "BUILD_DIR", "NVCC_FLAGS"]
+__all__ = ["ceil_div", "require_cuda", "aligned", "device_sms", "build",
+           "library", "library_path", "CudaKernel", "CSRC", "BUILD_DIR",
+           "NVCC_FLAGS"]
 
 CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -55,6 +56,19 @@ def aligned(t):
     for kernels that read 16-byte rows or build TMA maps over them."""
     t = t.contiguous()
     return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+_SMS: dict[int, int] = {}
+
+
+def device_sms() -> int:
+    """The current CUDA device's SM count, asked once a device: the launch
+    shape queries size their grids by it."""
+    import torch
+    device = torch.cuda.current_device()
+    if device not in _SMS:
+        _SMS[device] = torch.cuda.get_device_properties(device).multi_processor_count
+    return _SMS[device]
 
 
 def _nvcc() -> str:

@@ -15,7 +15,8 @@ import ctypes
 
 import torch
 
-from ..common import CudaKernel, aligned, ceil_div, library, require_cuda
+from ..common import (CudaKernel, aligned, ceil_div, device_sms, library,
+                      require_cuda)
 from .ref import overlaps
 
 __all__ = ["FITTING_LOSS", "FITTING_LOSS_BATCHED", "launch_shape", "work",
@@ -29,7 +30,6 @@ FITTING_LOSS = CudaKernel("fitting_loss", "fitting_loss_batched", _ARGS)
 # fl_launch_shape's numbers, in its order
 _SHAPE_KEYS = ("chunk", "chunks", "splits", "chunks_per_cta", "warps", "rounds",
                "ctas", "max_warps")
-_SMS: dict = {}
 
 
 def launch_shape(B: int, T: int, sms: int | None = None, lib=None) -> dict:
@@ -43,10 +43,7 @@ def launch_shape(B: int, T: int, sms: int | None = None, lib=None) -> dict:
     if B < 1 or T < 1 or max(B, T) >= 2**31:
         raise ValueError(f"launch_shape needs 1 <= B, T < 2^31, got B={B} T={T}")
     if sms is None:
-        device = torch.cuda.current_device()
-        if device not in _SMS:
-            _SMS[device] = torch.cuda.get_device_properties(device).multi_processor_count
-        sms = _SMS[device]
+        sms = device_sms()
     shape = (ctypes.c_longlong * len(_SHAPE_KEYS))()
     fn = (library("fitting_loss") if lib is None else lib).fl_launch_shape
     fn.argtypes = [_I, _I, _I, ctypes.POINTER(ctypes.c_longlong)]

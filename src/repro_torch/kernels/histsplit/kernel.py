@@ -18,7 +18,7 @@ import ctypes
 
 import torch
 
-from ..common import CudaKernel, ceil_div, library, require_cuda
+from ..common import CudaKernel, ceil_div, device_sms, library, require_cuda
 
 __all__ = ["HIST_F64", "HIST_F64_NODE", "HIST_FUSED", "HIST_PARTIALS",
            "HIST_LEGACY", "MAX_BINS", "VARIANTS", "f64_scratch_bytes",
@@ -56,7 +56,16 @@ def f64_scratch_bytes(n: int, F: int, n_bins: int) -> int:
 # hist_f32_launch_shape's numbers, in its order
 _SHAPE_KEYS = ("tiles", "feature_groups", "features_per_cta", "ctas",
                "threads", "smem_bytes", "sub_chunk", "sub_chunks_per_tile")
-_SMS: dict = {}
+
+
+def check_tile_shapes(P: int, F: int, n_bins: int, tile_p: int) -> None:
+    """Raise unless the tiled kernels take these sizes (P, F >= 0)."""
+    if not 1 <= n_bins <= MAX_BINS:
+        raise ValueError(f"n_bins={n_bins}: one CTA holds 1..{MAX_BINS} bins")
+    if not 1 <= tile_p < 2**31:
+        raise ValueError(f"unsupported tile_p={tile_p}")
+    if ceil_div(P, tile_p) >= 2**31 or F >= 65536:
+        raise ValueError(f"unsupported sizes P={P} F={F} tile_p={tile_p}")
 
 
 def launch_shape(variant: str, P: int, F: int, n_bins: int, tile_p: int,
@@ -68,15 +77,11 @@ def launch_shape(variant: str, P: int, F: int, n_bins: int, tile_p: int,
     points a sub-chunk and sub-chunks of a full tile."""
     if variant not in ("fused", "partials"):
         raise ValueError(f"launch_shape covers fused and partials, not {variant!r}")
-    if (min(P, F, n_bins, tile_p) < 1 or n_bins > MAX_BINS or tile_p >= 2**31
-            or F >= 65536):
-        raise ValueError(f"unsupported shape P={P} F={F} n_bins={n_bins} "
-                         f"tile_p={tile_p}")
+    if min(P, F) < 1:
+        raise ValueError(f"launch_shape needs P, F >= 1, got P={P} F={F}")
+    check_tile_shapes(P, F, n_bins, tile_p)
     if sms is None:
-        device = torch.cuda.current_device()
-        if device not in _SMS:
-            _SMS[device] = torch.cuda.get_device_properties(device).multi_processor_count
-        sms = _SMS[device]
+        sms = device_sms()
     shape = (ctypes.c_longlong * len(_SHAPE_KEYS))()
     fn = library("histsplit").hist_f32_launch_shape
     fn.argtypes = [_LL, _I, _I, _I, _I, _I, ctypes.POINTER(ctypes.c_longlong)]
@@ -152,15 +157,10 @@ def histograms_cuda(codes: torch.Tensor, vals: torch.Tensor, n_bins: int, *,
                         f"got {tuple(vals.shape)} {vals.dtype}")
     if codes.device != vals.device:
         raise ValueError("codes and values lie on different devices")
-    if not 1 <= n_bins <= MAX_BINS:
-        raise ValueError(f"n_bins={n_bins}: one CTA holds 1..{MAX_BINS} bins")
-    if not 1 <= tile_p < 2**31:
-        raise ValueError(f"unsupported tile_p={tile_p}")
-    C = ceil_div(P, tile_p)
-    if C >= 2**31 or F >= 65536:
-        raise ValueError(f"unsupported sizes P={P} F={F} tile_p={tile_p}")
+    check_tile_shapes(P, F, n_bins, tile_p)
     if variant == "f64":
         return hist_rows_cuda(codes, vals, None, n_bins)
+    C = ceil_div(P, tile_p)
     shape = (C, F, n_bins, 6) if variant == "partials" else (F, n_bins, 3)
     if P == 0 or F == 0:
         return torch.zeros(shape, dtype=dtype, device=vals.device)

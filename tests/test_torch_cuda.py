@@ -390,7 +390,9 @@ def test_hist_partials_is_the_same_from_run_to_run(cuda):
 # sub-chunk of 2048 points and across three); n_bins 1, 255 and 1024;
 # tile_p 32, 33 (tiles whose values start off a 16-byte boundary), 2048, one
 # past the sub-chunk and larger than P (one tile of several sub-chunks);
-# F = 1 and the Air-Quality shape's 15 features; P = 1
+# F = 1 and the Air-Quality shape's 15 features; P = 1; a CTA of several
+# features over tiles of several sub-chunks (14 tiles of 3000 points: on 132
+# SMs, 8 CTAs a tile of up to 2 features each)
 HIST_F32_EDGES = [(5000, 2, 256, 2048, "one_bin"), (5000, 2, 256, 5000, "one_bin"),
                   (3000, 2, 1, 2048, "random"), (3000, 2, 255, 2048, "random"),
                   (3000, 2, 1024, 2048, "random"), (3000, 3, 64, 32, "random"),
@@ -398,7 +400,7 @@ HIST_F32_EDGES = [(5000, 2, 256, 2048, "one_bin"), (5000, 2, 256, 5000, "one_bin
                   (5000, 2, 256, 2049, "random"), (3000, 2, 256, 10_000, "random"),
                   (7000, 1, 300, 1 << 20, "random"), (100, 1, 16, 2048, "random"),
                   (9358, 15, 256, 2048, "random"), (1, 1, 16, 2048, "random"),
-                  (1, 3, 256, 1, "random")]
+                  (1, 3, 256, 1, "random"), (40_000, 15, 256, 3000, "random")]
 
 
 @pytest.mark.parametrize("P,F,B,tile_p,codes", HIST_F32_EDGES)
