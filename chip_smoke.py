@@ -43,10 +43,10 @@ Phases, one JSON line each:
               through the resident path (ResidentHist, the trees' path),
               bincount x6 ms and the bytes bound.  The float32 kernels run
               at the three shapes and at the skewed node, each the same
-              from run to run; fused and partials also bitwise the CPU's
-              in-order sums (partials_ref) at the two roots, with each
-              shape's launch (the source's hist_f32_launch_shape) and
-              their entries' registers and spills
+              from run to run; each also bitwise the CPU's in-order sums
+              (partials_ref) at the two roots, with each shape's launch
+              (the source's hist_f32_launch_shape) and its entry's
+              registers and spills; legacy bitwise fused at every shape
   tuning      tune_k over k in KS with methods full, coreset and uniform,
               once on the auto backend (the card) and once on numpy: equal
               results bitwise, the coreset within 2x of the full data's SSE;
@@ -301,7 +301,8 @@ def phase_build():
     # the attention kernels (three head widths each), every sat2d entry
     # (row_scan: moments mode at 1 and 4 rows a CTA and plain mode;
     # col_scan at 1 and 3 warps a CTA; two types), the fitting_loss entry
-    # and histsplit's in-tile sort (fused and partials) must not spill
+    # and histsplit's in-tile sort (S = 3: fused and legacy; S = 6: partials)
+    # must not spill
     for source, name, count in (("flash_attention", "fa_bf16", 3),
                                 ("flash_attention", "fa_f32", 3), ("sat2d", "", 10),
                                 ("fitting_loss", "fl_score", 1),
@@ -660,8 +661,10 @@ def check_histsplit(shapes, entries):
     feature and channel) and the bound.  At the roots of fewer than 2^17
     points fused and partials are also held bitwise to ``partials_ref`` run
     on the CPU (a chain in point order a tile; fused adds the tiles in tile
-    order).  Fused and partials carry their launch (``kernel.launch_shape``,
-    the source's own query) and ``entries``' ptxas line of their entry.
+    order; legacy is fused's sort on the (tile, feature) grid, so it is
+    also held bitwise to fused at every shape).  Each kernel carries its
+    launch (``kernel.launch_shape``, the source's own query) and
+    ``entries``' ptxas line of the entry it launches.
     Returns one table row per kernel; its times are those at the first
     shape, every shape's are under ``at_shapes``."""
     import numpy as np
@@ -675,7 +678,7 @@ def check_histsplit(shapes, entries):
                "legacy": ("hist_legacy_f32", hk.HIST_LEGACY)}
     ptxas = {"fused": _ptxas_of(entries, "hist_sort_kernel", "ILi3E"),
              "partials": _ptxas_of(entries, "hist_sort_kernel", "ILi6E"),
-             "legacy": _ptxas_of(entries, "hist_tiles_kernel")}
+             "legacy": _ptxas_of(entries, "hist_sort_kernel", "ILi3E")}
     rows = {v: {"name": name, "kernel": kern, "at_shapes": [], "ptxas": ptxas[v]}
             for v, (name, kern) in kernels.items()}
     B = HIST_BINS
@@ -725,26 +728,32 @@ def check_histsplit(shapes, entries):
                       f"hist partials at {label} vs numpy: {at['certificate']}")
             check(torch.equal(kern(), got),
                   f"hist {variant} at {label} differs from run to run")
-            if variant != "legacy":
-                if P < 1 << 17:
-                    parts = partials_ref(c.cpu(), vals.cpu(), B, HIST_TILE)
-                    if variant == "fused":
-                        in_order = parts[0].clone()
-                        for t in range(1, C):
-                            in_order += parts[t]
-                        parts = in_order
-                    at["cpu_order_bitwise"] = bool(torch.equal(got.cpu(), parts))
-                    check(at["cpu_order_bitwise"], f"hist {variant} at {label} "
-                          "differs from the CPU's in-order sums")
-                at["launch"] = hk.launch_shape(variant, P, F, B, HIST_TILE)
+            if P < 1 << 17:
+                parts = partials_ref(c.cpu(), vals.cpu(), B, HIST_TILE)
+                if variant != "partials":
+                    in_order = parts[0].clone()
+                    for t in range(1, C):
+                        in_order += parts[t]
+                    parts = in_order
+                at["cpu_order_bitwise"] = bool(torch.equal(got.cpu(), parts))
+                check(at["cpu_order_bitwise"], f"hist {variant} at {label} "
+                      "differs from the CPU's in-order sums")
+            if variant == "fused":
+                fused = got
+            elif variant == "legacy":
+                at["fused_bitwise"] = bool(torch.equal(got, fused))
+                check(at["fused_bitwise"], f"hist legacy at {label} differs from fused")
+            at["launch"] = hk.launch_shape(variant, P, F, B, HIST_TILE)
             at["ms"], at["wall_ms"] = device_ms(kern, reps)
             at["plain_ms"] = device_ms(plain, reps)[0]
             at["library_ms"] = device_ms(library, reps)[0]
             out_bytes = (C if variant == "partials" else 1) * F * B * S * size
             at.update(bound(P * F + P * S * size + out_bytes, S * P * F,
                             FP32_FLOP_PER_S))
+            if variant == "legacy":   # its grid stages the values once a feature
+                at["grid_bytes"] = P * F + F * P * S * size + out_bytes
             row["at_shapes"].append(at)
-        del c, cols, tile, dev
+        del c, cols, tile, dev, fused
         torch.cuda.empty_cache()
     return _rows_from_shapes(rows.values())
 

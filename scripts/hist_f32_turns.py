@@ -19,8 +19,10 @@ this checkout's (the kernels keep one order of adds), then every build is
 timed by CUDA events in the order others, this, this, others reversed, and
 each build's device ms by kernel (torch.profiler), which splits fused and
 legacy into the tile kernel and the tile reduction.  One JSON line a
-(shape, kernel) with each build's times, this build's launch
-(``kernel.launch_shape``) and the bound as ``chip_smoke.py`` counts it,
+(shape, kernel) with each build's times, this build's launch of that
+kernel, legacy's included (``kernel.launch_shape``: fused and partials
+fold features into a CTA once the tiles fill the card, legacy keeps a CTA
+a (tile, feature)), and the bound as ``chip_smoke.py`` counts it,
 then nvidia-smi's name and power limit.  Exits non-zero without a card or
 when a check fails.
 """
@@ -132,8 +134,7 @@ def main() -> int:
                 "n_bins": B, "tile_p": tp, "order": order, "ms": ms,
                 "pass_ms": {name: pass_ms(run[variant], (c, vals))
                             for name, run in builds.items()},
-                "launch": (hk.launch_shape(variant, P, F, B, tp)
-                           if variant != "legacy" else None),
+                "launch": hk.launch_shape(variant, P, F, B, tp),
                 **cs.bound(P * F + P * S * size + out_bytes, S * P * F, cs.FP32_FLOP_PER_S)}),
                 flush=True)
             del vals, ref

@@ -17,19 +17,24 @@
 // legacy kernels accumulate in place over the P tiles, which is sound only
 // on the TPU's sequential grid.  Here fused and legacy end with a second
 // kernel (reduce_ring_kernel) that sums each output element's tile partials
-// in tile order, so their result does not change from run to run; partials
-// returns the per-tile partials and the host sums them in float64.
+// in tile order, so their result does not change from run to run and
+// legacy's equals fused's bitwise; partials returns the per-tile partials
+// and the host sums them in float64.
 //
-// fused, partials: a stable counting sort inside each tile (hist_sort_kernel).
-// A CTA of 256 threads takes one P-tile and a range of features (one CTA a
-// tile, or, when the tiles do not fill the card, a CTA a (tile, feature
-// group): hist_f32_launch_shape).  It takes the tile in sub-chunks of SUB =
-// 2048 points (tile_p is the caller's, up to 2^31):
+// fused, partials, legacy: a stable counting sort inside each tile
+// (hist_sort_kernel).  A CTA of 256 threads takes one P-tile and a range of
+// features (hist_f32_launch_shape).  Legacy keeps the Pallas legacy
+// kernel's (F, P/TP) grid at every size, one CTA a (P-tile, feature): the
+// reference keeps that grid so its autotuner can measure it against fused.
+// Fused and partials take one CTA a tile once the tiles fill the card, else
+// a CTA a (tile, feature group).  A CTA takes the tile in sub-chunks of
+// SUB = 2048 points (tile_p is the caller's, up to 2^31):
 //   1. stage   the sub-chunk's values (SUB x S floats, contiguous) go to
 //              shared memory by 16-byte cp.async, which runs while the CTA
 //              ranks; once for all the CTA's features when the tile is one
 //              sub-chunk, else once a (feature, sub-chunk): F reads of the
-//              values for tiles past SUB points;
+//              values for tiles past SUB points, and in legacy's grid,
+//              where each CTA stages its own, at every tile size;
 //   2. rank    each warp takes a run of consecutive points, 32 at a time,
 //              and ranks each among the points of its code in point order
 //              (__match_any_sync and the __popc of the lower lanes), keeping
@@ -45,22 +50,17 @@
 //              chain in its partial, which the lane writes and reads back.
 // Integer counts are exact in any order and no place comes from an atomic,
 // so every chain is the contract's, the same at every sub-chunk size and
-// launch shape.  The work is O(P x F) against legacy's P x F x n_bins
-// compares.  A tile whose points share one bin is S chains of tile_p adds
-// (the contract's order, on S lanes): then the adds' latency, ~4 cycles a
-// point, sets the tile's time.
+// launch shape.  The work is O(P x F).  A tile whose points share one bin
+// is S chains of tile_p adds (the contract's order, on S lanes): then the
+// adds' latency, ~4 cycles a point, sets the tile's time.
 // The tile sum (fused's and legacy's, reduce_ring_kernel): a CTA a 32
 // outputs keeps RING_STAGES - 1 stages of 128 tiles in flight by cp.async
 // while warp 0's lanes run the 32 chains: at 2^24 points (8,192 tiles,
 // 1,536 outputs) that is 48 CTAs of 32 chains.
 // Bound.  Each point's codes (F bytes) and values (S x 4 bytes) read once,
 // the (tiles, F, n_bins, S) partials written once (fused reads them back).
-//
-// legacy: the Pallas legacy kernel's (F, P/TP) grid, one CTA a (P-tile,
-// feature), kept as it was ported (the reference keeps it so the autotuner
-// can measure the difference): one thread a bin, every thread reads every
-// staged code, P x F x n_bins compares, far above its bytes bound.  Its
-// tile sum is fused's.
+// Legacy's grid reads the values once a (tile, feature): F x S x 4 bytes a
+// point.
 //
 // hist_f64: a stable counting sort, then ordered segment sums.
 // Its contract is numpy's: each (feature, bin, channel) sum is one chain of
@@ -95,64 +95,18 @@
 // long; that is numpy's own order and it cannot be split.
 #include <algorithm>
 #include <cstdint>
+#include <cstring>
 
 #include "common.cuh"
 
 namespace {
 
-constexpr int STAGE = 512;       // legacy: points staged in shared memory at a time
-constexpr int MAX_THREADS = 1024;  // MAX_BINS in kernel.py
-
-// Channel sums of the points [p0, p1) whose feature-f code is `bin`.  Every
-// thread of the CTA must call it (it synchronises); threads with a bin past
-// the last one help stage and find no points.
-template <typename T, int S>
-__device__ void bin_sums(const uint8_t* __restrict__ codes, const T* __restrict__ vals, int F,
-                         int f, long long p0, long long p1, int bin, uint8_t* s_codes, T* s_vals,
-                         T (&acc)[S]) {
-#pragma unroll
-  for (int s = 0; s < S; ++s) acc[s] = T(0);
-  for (long long q0 = p0; q0 < p1; q0 += STAGE) {
-    const int cnt = static_cast<int>(min(static_cast<long long>(STAGE), p1 - q0));
-    __syncthreads();  // the previous stage has been read
-    for (int j = threadIdx.x; j < cnt; j += blockDim.x) s_codes[j] = codes[(q0 + j) * F + f];
-    for (int e = threadIdx.x; e < cnt * S; e += blockDim.x) s_vals[e] = vals[q0 * S + e];
-    __syncthreads();
-    for (int j = 0; j < cnt; ++j) {
-      if (s_codes[j] == bin) {
-#pragma unroll
-        for (int s = 0; s < S; ++s) acc[s] = add_rn(acc[s], s_vals[j * S + s]);
-      }
-    }
-  }
-}
-
-// legacy: partial (C, F, n_bins, 3); CTA x = P-tile c, CTA y = its feature.
-__global__ void __launch_bounds__(MAX_THREADS)
-hist_tiles_kernel(const uint8_t* __restrict__ codes, const float* __restrict__ vals,
-                  float* __restrict__ partial, long long P, int F, int n_bins, int tile_p) {
-  __shared__ uint8_t s_codes[STAGE];
-  __shared__ float s_vals[STAGE * 3];
-  const long long c = blockIdx.x;
-  const long long p0 = c * tile_p, p1 = min(P, p0 + tile_p);
-  const int f = blockIdx.y;
-  const int bin = threadIdx.x;
-  float acc[3];
-  bin_sums<float, 3>(codes, vals, F, f, p0, p1, bin, s_codes, s_vals, acc);
-  if (bin < n_bins) {
-    float* o = partial + ((c * F + f) * n_bins + bin) * 3;
-    for (int s = 0; s < 3; ++s) o[s] = acc[s];
-  }
-}
-
-int threads_for(int n_bins) { return (n_bins + 31) / 32 * 32; }
-
-int tiles(long long P, int tile_p) { return static_cast<int>((P + tile_p - 1) / tile_p); }
+constexpr int MAX_BINS = 1024;  // the bins one CTA holds (MAX_BINS in kernel.py)
 
 // ------------------------------------------------------------------ hist_f64
 constexpr int ROWS_THREADS = 256;                    // 8 warps a CTA
 constexpr int ROWS_WARPS = ROWS_THREADS / 32;
-constexpr int BIN_SLOTS = MAX_THREADS / ROWS_THREADS;  // bins a thread owns
+constexpr int BIN_SLOTS = MAX_BINS / ROWS_THREADS;  // bins a thread owns
 constexpr int SMALL_ROWS = 4096;   // nodes up to this run in one CTA a feature
 constexpr int MIN_CHUNK = 1024;    // rows a CTA takes in passes 1 and 3
 constexpr int MAX_CHUNKS = 2048;   // chunks per node at most
@@ -183,7 +137,7 @@ __device__ __forceinline__ long long row_at(const int* rows, long long i) {
   return rows ? static_cast<long long>(rows[i]) : i;
 }
 
-// In-place exclusive scan of v[0, n) in shared memory, n <= MAX_THREADS;
+// In-place exclusive scan of v[0, n) in shared memory, n <= MAX_BINS;
 // tmp holds ROWS_THREADS ints.  Integer adds: exact in any order.  Every
 // thread of the CTA calls it.
 __device__ void scan_bins(int* v, int n, int* tmp) {
@@ -268,7 +222,7 @@ __device__ int stable_place(int code, int n_bins, int* run, int* wcount) {
 __global__ void __launch_bounds__(ROWS_THREADS)
 rows_count_kernel(const uint8_t* __restrict__ codes, const int* __restrict__ rows, long long n,
                   int F, int n_bins, long long chunk, int C, int* __restrict__ counts) {
-  __shared__ int cnt[MAX_THREADS];
+  __shared__ int cnt[MAX_BINS];
   const int f = blockIdx.y, c = blockIdx.x;
   for (int b = threadIdx.x; b < n_bins; b += ROWS_THREADS) cnt[b] = 0;
   __syncthreads();
@@ -315,8 +269,8 @@ rows_scatter_kernel(const uint8_t* __restrict__ codes, const double* __restrict_
                     const int* __restrict__ rows, long long n, int F, int n_bins,
                     long long chunk, int C, const int* __restrict__ offsets,
                     const int* __restrict__ totals, double* __restrict__ sorted) {
-  __shared__ int run[MAX_THREADS];
-  __shared__ int wcount[ROWS_WARPS * MAX_THREADS];
+  __shared__ int run[MAX_BINS];
+  __shared__ int wcount[ROWS_WARPS * MAX_BINS];
   __shared__ int tmp[ROWS_THREADS];
   const int f = blockIdx.y, c = blockIdx.x;
   for (int b = threadIdx.x; b < n_bins; b += ROWS_THREADS) {
@@ -475,7 +429,7 @@ int launch_rows(const uint8_t* codes, const double* vals, const int* rows, long 
   if (n <= SMALL_ROWS) {
     static const cudaError_t attr = cudaFuncSetAttribute(
         rows_small_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(small_smem(SMALL_ROWS, MAX_THREADS)));
+        static_cast<int>(small_smem(SMALL_ROWS, MAX_BINS)));
     if (attr != cudaSuccess) return attr;
     rows_small_kernel<<<F, ROWS_THREADS, small_smem(static_cast<int>(n), n_bins), s>>>(
         codes, vals, rows, static_cast<int>(n), F, n_bins, out);
@@ -503,7 +457,7 @@ constexpr int SORT_THREADS = 256;                   // 8 warps a CTA
 constexpr int SORT_WARPS = SORT_THREADS / 32;
 constexpr int SORT_PPL = 8;                         // points a lane ranks
 constexpr int SUB = SORT_THREADS * SORT_PPL;        // points a sub-chunk
-constexpr int SORT_SLOTS = MAX_THREADS / SORT_THREADS;  // bins a thread scans
+constexpr int SORT_SLOTS = MAX_BINS / SORT_THREADS;  // bins a thread scans
 constexpr int CHAIN_U = 16;                         // a chain's loads run a batch ahead
 constexpr int RING_ROWS = 128;                      // tile partials a ring stage
 constexpr int RING_STAGES = 4;
@@ -520,17 +474,20 @@ __host__ __device__ inline long long sort_smem(int S, int n_bins) {
   return 2 * sort_vals_bytes(S) + (n_bins + 1 + SORT_WARPS) * 4LL + SORT_WARPS * 2LL * n_bins;
 }
 
-// The launch: tiles; feature groups (CTAs a tile: 1 once the tiles fill
-// the SMs, else enough to fill them, at most F); features a CTA; CTAs.
+// The launch: tiles; feature groups (CTAs a tile); features a CTA; CTAs.
+// Legacy (one_feature) takes F groups of one feature at every size; fused
+// and partials 1 group once the tiles fill the SMs, else enough to fill
+// them, at most F.
 struct SortShape {
   long long tiles, groups, per_cta, ctas;
 };
 
-SortShape sort_shape(long long P, int F, int tile_p, int sms) {
+SortShape sort_shape(long long P, int F, int tile_p, int sms, bool one_feature) {
   SortShape sh;
   sh.tiles = (P + tile_p - 1) / tile_p;
-  long long g = 1;
-  if (sh.tiles < sms) g = std::min<long long>(F, (sms + sh.tiles - 1) / sh.tiles);
+  long long g = one_feature ? F : 1;
+  if (!one_feature && sh.tiles < sms)
+    g = std::min<long long>(F, (sms + sh.tiles - 1) / sh.tiles);
   sh.per_cta = (F + g - 1) / g;
   sh.groups = (F + sh.per_cta - 1) / sh.per_cta;
   sh.ctas = sh.tiles * sh.groups;
@@ -583,7 +540,7 @@ __device__ const float* stage_vals(const float* __restrict__ vals, long long q0,
   return s;
 }
 
-// In-place exclusive scan of v[0, n) in shared memory, n <= MAX_THREADS,
+// In-place exclusive scan of v[0, n) in shared memory, n <= MAX_BINS,
 // SORT_SLOTS consecutive entries a thread; wsum holds SORT_WARPS ints.
 // Integer adds: exact in any order.  Every thread of the CTA calls it.
 __device__ void scan_counts(int* v, int n, int* wsum) {
@@ -786,9 +743,11 @@ reduce_ring_kernel(const float* __restrict__ partial, float* __restrict__ out, i
 
 constexpr int RING_SMEM = RING_STAGES * RING_ROWS * 32 * 4;
 
+int tiles(long long P, int tile_p) { return static_cast<int>((P + tile_p - 1) / tile_p); }
+
 template <int S>
 int launch_sort(const uint8_t* codes, const float* vals, float* partial, long long P, int F,
-                int n_bins, int tile_p, cudaStream_t s) {
+                int n_bins, int tile_p, bool one_feature, cudaStream_t s) {
   int dev = 0, sms = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return e;
@@ -796,9 +755,9 @@ int launch_sort(const uint8_t* codes, const float* vals, float* partial, long lo
   if (e != cudaSuccess) return e;
   static const cudaError_t attr =
       cudaFuncSetAttribute(hist_sort_kernel<S>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           static_cast<int>(sort_smem(S, MAX_THREADS)));
+                           static_cast<int>(sort_smem(S, MAX_BINS)));
   if (attr != cudaSuccess) return attr;
-  const SortShape sh = sort_shape(P, F, tile_p, sms);
+  const SortShape sh = sort_shape(P, F, tile_p, sms, one_feature);
   hist_sort_kernel<S><<<dim3(static_cast<unsigned>(sh.tiles), static_cast<unsigned>(sh.groups)),
                         SORT_THREADS, sort_smem(S, n_bins), s>>>(
       codes, vals, partial, P, F, n_bins, tile_p, static_cast<int>(sh.per_cta));
@@ -851,21 +810,26 @@ extern "C" int hist_f64_node(const uint8_t* codes, const double* vals, const int
   return e != cudaSuccess ? e : cudaGetLastError();
 }
 
-// The launch of hist_fused_f32 (S = 3) or hist_partials_f32 (S = 6) on a
-// card of sms SMs: shape = {P-tiles, feature groups (CTAs a tile), features
-// a CTA, CTAs, threads a CTA, shared bytes a CTA, points a sub-chunk,
-// sub-chunks of a full tile}.  P, F, tile_p, sms >= 1; S in {3, 6}.
-extern "C" void hist_f32_launch_shape(long long P, int F, int n_bins, int tile_p, int S, int sms,
-                                      long long* shape) {
-  const SortShape sh = sort_shape(P, F, tile_p, sms);
+// The launch of hist_<variant>_f32, variant "fused", "partials" or
+// "legacy", on a card of sms SMs: shape = {P-tiles, feature groups (CTAs a
+// tile), features a CTA, CTAs, threads a CTA, shared bytes a CTA, points a
+// sub-chunk, sub-chunks of a full tile}.  P, F, tile_p, sms >= 1.  Returns
+// 0, or 1 for another variant (shape untouched).
+extern "C" int hist_f32_launch_shape(const char* variant, long long P, int F, int n_bins,
+                                     int tile_p, int sms, long long* shape) {
+  const bool partials = !std::strcmp(variant, "partials");
+  const bool legacy = !std::strcmp(variant, "legacy");
+  if (!partials && !legacy && std::strcmp(variant, "fused")) return 1;
+  const SortShape sh = sort_shape(P, F, tile_p, sms, legacy);
   shape[0] = sh.tiles;
   shape[1] = sh.groups;
   shape[2] = sh.per_cta;
   shape[3] = sh.ctas;
   shape[4] = SORT_THREADS;
-  shape[5] = sort_smem(S, n_bins);
+  shape[5] = sort_smem(partials ? 6 : 3, n_bins);
   shape[6] = SUB;
   shape[7] = (tile_p + SUB - 1LL) / SUB;
+  return 0;
 }
 
 // vals (P, 3) float32; partial (ceil(P / tile_p), F, n_bins, 3) scratch;
@@ -873,18 +837,17 @@ extern "C" void hist_f32_launch_shape(long long P, int F, int n_bins, int tile_p
 extern "C" int hist_fused_f32(const uint8_t* codes, const float* vals, float* partial, float* out,
                               long long P, int F, int n_bins, int tile_p, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int e = launch_sort<3>(codes, vals, partial, P, F, n_bins, tile_p, s);
+  const int e = launch_sort<3>(codes, vals, partial, P, F, n_bins, tile_p, false, s);
   if (e != cudaSuccess) return e;
   return launch_ring(partial, out, tiles(P, tile_p), static_cast<long long>(F) * n_bins * 3, s);
 }
 
+// As hist_fused_f32, on the (tile, feature) grid: the same bits.
 extern "C" int hist_legacy_f32(const uint8_t* codes, const float* vals, float* partial,
                                float* out, long long P, int F, int n_bins, int tile_p,
                                void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  hist_tiles_kernel<<<dim3(tiles(P, tile_p), F), threads_for(n_bins), 0, s>>>(
-      codes, vals, partial, P, F, n_bins, tile_p);
-  const int e = cudaGetLastError();
+  const int e = launch_sort<3>(codes, vals, partial, P, F, n_bins, tile_p, true, s);
   if (e != cudaSuccess) return e;
   return launch_ring(partial, out, tiles(P, tile_p), static_cast<long long>(F) * n_bins * 3, s);
 }
@@ -893,6 +856,6 @@ extern "C" int hist_legacy_f32(const uint8_t* codes, const float* vals, float* p
 // partial (ceil(P / tile_p), F, n_bins, 6) float32 is the output.
 extern "C" int hist_partials_f32(const uint8_t* codes, const float* vals, float* partial,
                                  long long P, int F, int n_bins, int tile_p, void* stream) {
-  return launch_sort<6>(codes, vals, partial, P, F, n_bins, tile_p,
+  return launch_sort<6>(codes, vals, partial, P, F, n_bins, tile_p, false,
                         static_cast<cudaStream_t>(stream));
 }

@@ -7,8 +7,8 @@ Replaces ``src/repro/kernels/histsplit/kernel.py::histograms_kernel_call``:
 float64 variant, bitwise equal to numpy's ``bincount`` over all points or a
 node's rows, and ``HIST_F64_NODE`` the same kernel in one tree node's round
 trip, the launch the trees make (``ops.ResidentHist``).  :func:`launch_shape`
-gives the launch that the source chooses for the fused and partials
-kernels (its ``hist_f32_launch_shape``).  Codes
+gives the launch that the source chooses for the fused, partials and
+legacy kernels (its ``hist_f32_launch_shape``).  Codes
 are read as ``apply_bins`` makes them, (P, F) uint8 row-major; the reference
 transposes them to (F, P) int32 only because its TPU kernel needs that.
 """
@@ -37,7 +37,7 @@ HIST_LEGACY = CudaKernel("histsplit", "hist_legacy_f32", _TILES)
 HIST_PARTIALS = CudaKernel("histsplit", "hist_partials_f32",
                            [_P, _P, _P, ctypes.c_longlong, ctypes.c_int,
                             ctypes.c_int, ctypes.c_int, _P])
-# MAX_THREADS in csrc/histsplit.cu (legacy and hist_f64: a thread a bin)
+# MAX_BINS in csrc/histsplit.cu: the bins one CTA holds
 MAX_BINS = 1024
 # hist_f64 indexes rows with int32
 MAX_ROWS = 2**31 - 1
@@ -70,13 +70,14 @@ def check_tile_shapes(P: int, F: int, n_bins: int, tile_p: int) -> None:
 
 def launch_shape(variant: str, P: int, F: int, n_bins: int, tile_p: int,
                  sms: int | None = None) -> dict:
-    """The launch of the ``"fused"`` or ``"partials"`` kernel as
-    ``csrc/histsplit.cu``'s ``hist_f32_launch_shape`` chooses it on a card of
-    ``sms`` SMs (the current device's by default): P-tiles, feature groups
+    """The launch of the ``"fused"``, ``"partials"`` or ``"legacy"`` kernel
+    as ``csrc/histsplit.cu``'s ``hist_f32_launch_shape`` chooses it on a card
+    of ``sms`` SMs (the current device's by default): P-tiles, feature groups
     (CTAs a tile), features a CTA, CTAs, threads and shared bytes a CTA,
-    points a sub-chunk and sub-chunks of a full tile."""
-    if variant not in ("fused", "partials"):
-        raise ValueError(f"launch_shape covers fused and partials, not {variant!r}")
+    points a sub-chunk and sub-chunks of a full tile.  Legacy's grid is a
+    CTA a (tile, feature) at every size."""
+    if variant not in ("fused", "partials", "legacy"):
+        raise ValueError(f"launch_shape covers the float32 kernels, not {variant!r}")
     if min(P, F) < 1:
         raise ValueError(f"launch_shape needs P, F >= 1, got P={P} F={F}")
     check_tile_shapes(P, F, n_bins, tile_p)
@@ -84,9 +85,11 @@ def launch_shape(variant: str, P: int, F: int, n_bins: int, tile_p: int,
         sms = device_sms()
     shape = (ctypes.c_longlong * len(_SHAPE_KEYS))()
     fn = library("histsplit").hist_f32_launch_shape
-    fn.argtypes = [_LL, _I, _I, _I, _I, _I, ctypes.POINTER(ctypes.c_longlong)]
-    fn.restype = None
-    fn(P, F, n_bins, tile_p, VARIANTS[variant][1], sms, shape)
+    fn.argtypes = [ctypes.c_char_p, _LL, _I, _I, _I, _I,
+                   ctypes.POINTER(ctypes.c_longlong)]
+    fn.restype = _I
+    if fn(variant.encode(), P, F, n_bins, tile_p, sms, shape) != 0:
+        raise ValueError(f"hist_f32_launch_shape does not know {variant!r}")
     return dict(zip(_SHAPE_KEYS, shape))
 
 

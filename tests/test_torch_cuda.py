@@ -385,8 +385,8 @@ def test_hist_partials_is_the_same_from_run_to_run(cuda):
             codes, vals, 256, variant="partials"), first)
 
 
-# (P, F, n_bins, tile_p, codes) at the edges of the fused and partials
-# kernels' in-tile sort: every point of a tile in one bin (within one
+# (P, F, n_bins, tile_p, codes) at the edges of the in-tile sort that
+# fused, partials and legacy launch: every point of a tile in one bin (within one
 # sub-chunk of 2048 points and across three); n_bins 1, 255 and 1024;
 # tile_p 32, 33 (tiles whose values start off a 16-byte boundary), 2048, one
 # past the sub-chunk and larger than P (one tile of several sub-chunks);
@@ -411,11 +411,12 @@ def test_hist_f32_sort_at_its_edges_equals_the_cpu_order(cuda, P, F, B, tile_p, 
     if codes == "one_bin":
         args[0][:] = B - 1
     for variant, kern in (("partials", hist_kernel.HIST_PARTIALS),
-                          ("fused", hist_kernel.HIST_FUSED)):
+                          ("fused", hist_kernel.HIST_FUSED),
+                          ("legacy", hist_kernel.HIST_LEGACY)):
         vals = hist_ops.pack_values(*_on("cpu", *args)[1:], variant)
         parts = partials_ref(torch.from_numpy(args[0]), vals, B, tile_p)
         want = parts
-        if variant == "fused":
+        if variant != "partials":
             want = parts[0].clone()
             for c in range(1, parts.shape[0]):
                 want += parts[c]
@@ -435,7 +436,7 @@ HIST_LAUNCH_SHAPES = [(98_237, 2, 256, 2048), (2_112, 2, 256, 2048),
                       (7000, 1, 300, 1 << 20), (1 << 20, 40_000, 16, 1 << 20)]
 
 
-@pytest.mark.parametrize("variant", ["fused", "partials"])
+@pytest.mark.parametrize("variant", ["fused", "partials", "legacy"])
 @pytest.mark.parametrize("P,F,B,tile_p", HIST_LAUNCH_SHAPES)
 def test_hist_f32_launch_shape_covers_every_tile_and_feature(cuda, variant, P, F, B,
                                                               tile_p):
@@ -446,9 +447,31 @@ def test_hist_f32_launch_shape_covers_every_tile_and_feature(cuda, variant, P, F
     assert got["tiles"] == -(-P // tile_p)
     assert (groups - 1) * per_cta < F <= groups * per_cta and groups <= 65535
     assert got["ctas"] == got["tiles"] * groups
-    assert groups == 1 or got["tiles"] < sms
+    if variant == "legacy":   # the reference's grid: a CTA a (tile, feature)
+        assert per_cta == 1 and groups == F
+    else:
+        assert groups == 1 or got["tiles"] < sms
     assert got["sub_chunks_per_tile"] == -(-tile_p // got["sub_chunk"])
     assert got["smem_bytes"] <= 227 * 1024 and got["threads"] >= 32
+
+
+# legacy is fused's sort on another grid: the same chains, the same bits,
+# at every shape above and at 2^20 points (512 tiles, more than the SMs:
+# fused folds the two features into a CTA, legacy does not)
+@pytest.mark.parametrize("P,F,B,tile_p,codes",
+                         [(P, F, B, 256, "random") for P, F, B in HIST_SHAPES]
+                         + HIST_F32_EDGES + [(1 << 20, 2, 256, 2048, "random")])
+def test_hist_legacy_equals_fused_bitwise(cuda, P, F, B, tile_p, codes):
+    args = _hist_inputs(P, F, B, seed=6)
+    if codes == "one_bin":
+        args[0][:] = B - 1
+    c, w, wy, wy2 = _on(cuda, *args)
+    vals = hist_ops.pack_values(w, wy, wy2, "legacy")
+    before = hist_kernel.HIST_LEGACY.launches
+    got = hist_kernel.histograms_cuda(c, vals, B, variant="legacy", tile_p=tile_p)
+    assert hist_kernel.HIST_LEGACY.launches == before + 1
+    want = hist_kernel.histograms_cuda(c, vals, B, variant="fused", tile_p=tile_p)
+    assert torch.equal(got, want), (P, F, B, tile_p, codes)
 
 
 def test_hist_launcher_rejects_bins_past_one_cta(cuda):

@@ -143,8 +143,10 @@ def test_cuda_launcher_refuses_cpu_tensors():
 
 # launch_shape asks the compiled source (so its values are checked in
 # tests/test_torch_cuda.py); what it refuses, it refuses before the build
+# (legacy: no bins, and more features than its grid's 65,535 CTAs a tile)
 @pytest.mark.parametrize("variant,P,F,n_bins,tile_p", [
-    ("legacy", 10, 1, 4, 8), ("f64", 10, 1, 4, 8), ("fused", 0, 1, 4, 8),
+    ("legacy", 10, 1, 0, 8), ("legacy", 10, 65536, 4, 8),
+    ("f64", 10, 1, 4, 8), ("fused", 0, 1, 4, 8),
     ("fused", 10, 0, 4, 8), ("partials", 10, 1, 0, 8),
     ("partials", 10, 1, hist_kernel.MAX_BINS + 1, 8), ("fused", 10, 1, 4, 0),
     ("fused", 10, 1, 4, 2**31), ("partials", 10, 65536, 4, 8)])
