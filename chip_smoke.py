@@ -87,6 +87,19 @@ Phases, one JSON line each:
               of 32 tokens after 4 x 64; host seconds, tokens/s, ms a step,
               and the device's busy time (torch.profiler) in a prefill and
               a decode step
+  autotune    last, and the only phase with a warm tuning cache (every
+              phase runs with REPRO_TORCH_AUTOTUNE_CACHE pointed at a file
+              in a temporary directory, cold until here; the default cache
+              is never read or written): tune_all(budget="full") at the
+              reference's LARGE_SHAPES, one line per op and backend (the
+              winner, us, numpy_us, rel_err, the source's launch shape, every
+              candidate and any failed one); every float64 cuda candidate
+              exact (rel_err 0), every compensated one within 1e-6, none
+              failed; the saved cache reloaded equal; tuned_backend at each
+              bucket in the f64, compensated and fast precision modes (f64
+              lifts no pin); then each op dispatched once at its tuned size
+              with no backend and no config, which must take the selected
+              backend and the planned config's kernel
 
 then the kernel table, nvidia-smi's line, and a last line
 {"ok": true, "device": {...}}.  Any failed check exits non-zero before the
@@ -96,10 +109,14 @@ the repro_torch package only.
 """
 from __future__ import annotations
 
+import contextlib
 import json
+import os
 import pathlib
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = pathlib.Path(__file__).resolve().parent
@@ -829,7 +846,8 @@ def phase_variants(inputs, kernels):
                                ("legacy", "hist_legacy_f32", HIST_F32_TOL),
                                ("partials", "hist_partials_f32", HIST_PARTIALS_TOL)):
         kernels[name].launches = 0
-        got = ops.hist_split(*inputs, HIST_BINS, backend="cuda", variant=variant)
+        got = ops.hist_split(*inputs, HIST_BINS, backend="cuda",
+                             config={"variant": variant})
         own[name] = kernels[name].launches
         errs[name] = scaled_err(got, oracle)
         check(errs[name] <= tol, f"ops.hist_split {variant} vs numpy: {errs[name]}")
@@ -1367,12 +1385,149 @@ def _leaves(tree):
         yield tree
 
 
+def _file_state(path: pathlib.Path):
+    st = path.stat() if path.exists() else None
+    return None if st is None else (st.st_size, st.st_mtime_ns)
+
+
+@contextlib.contextmanager
+def cold_tuning_cache():
+    """Point the autotune cache at a file in a fresh temporary directory
+    (absent, so every dispatch sees a cold cache until the autotune phase
+    tunes into it), with the precision and disable variables unset; restore
+    all three and remove the directory afterwards.  Yields the default
+    cache path and its state, which must not change."""
+    from repro_torch.ops import autotune
+    names = (autotune.CACHE_ENV_VAR, autotune.PRECISION_ENV_VAR,
+             autotune.DISABLE_ENV_VAR)
+    saved = {v: os.environ.pop(v, None) for v in names}
+    default = autotune.cache_path()
+    before = _file_state(default)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_autotune_")
+    os.environ[autotune.CACHE_ENV_VAR] = str(pathlib.Path(tmp) / "autotune.json")
+    autotune.reset_cache()
+    try:
+        yield default, before
+    finally:
+        for v, val in saved.items():
+            os.environ.pop(v, None)
+            if val is not None:
+                os.environ[v] = val
+        autotune.reset_cache()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+# the kernel each op's cuda config launches
+def _planned_kernel(op: str, cfg: dict) -> str:
+    if op == "hist_split":
+        return {"f64": "hist_f64", "fused": "hist_fused_f32",
+                "partials": "hist_partials_f32",
+                "legacy": "hist_legacy_f32"}[cfg.get("variant", "f64")]
+    if op == "fitting_loss_batched":
+        return "fitting_loss_batched"
+    t = "f32" if cfg.get("dtype") == "float32" else "f64"
+    return {"sat_moments": f"sat_moments_{t}", "delta_sat": f"sat_delta_{t}"}[op]
+
+
+def _consults(autotune) -> int:
+    """Plans served or held: a backend that found its cache entry."""
+    c = autotune.counters_snapshot()
+    return c["cache_hit"] + c["pin_held"]
+
+
+def phase_autotune(kernels, default_cache):
+    """The tuner on the card at the reference's LARGE_SHAPES into the
+    temporary cache (``cold_tuning_cache``), then dispatch through the warm
+    cache.  Returns the kernels' launches during the tuning and the
+    dispatches (the tuner's candidates, not a main path)."""
+    import numpy as np
+    from repro_torch import ops
+    from repro_torch.ops import autotune
+    path, state = default_cache
+    check(autotune.cache_path() != path, "the autotune phase would use the default cache")
+    before = {name: k.launches for name, k in kernels.items()}
+    t0 = time.perf_counter()
+    results = autotune.tune_all(budget="full")
+    tune_s = time.perf_counter() - t0
+    sizes = {}
+    for op, per in results.items():
+        for backend, e in per.items():
+            emit("autotune", op=op, backend=backend,
+                 **{k: e.get(k) for k in ("config", "us", "numpy_us", "rel_err",
+                                          "size", "bucket", "launch",
+                                          "candidates", "failed", "skipped")})
+            check("skipped" not in e, f"{op}/{backend} skipped: {e.get('skipped')}")
+            check(not e["failed"], f"{op}/{backend} candidates failed: {e['failed']}")
+            check("config" in e, f"{op}/{backend}: no candidate ran")
+            sizes[op] = e["size"]
+            for c in e["candidates"]:
+                cfg = c["config"]
+                if backend == "cuda" and (cfg.get("dtype") == "float64"
+                                          or cfg.get("variant") == "f64"):
+                    check(c["rel_err"] == 0.0,
+                          f"{op}/cuda {cfg}: float64 rel_err {c['rel_err']}")
+                if cfg.get("compensated"):
+                    check(c["rel_err"] <= autotune.PARITY_RTOL,
+                          f"{op}/{backend} {cfg}: certificate {c['rel_err']}")
+    cache = autotune.get_cache()
+    saved = json.loads(json.dumps(cache.entries))
+    doc = json.loads(cache.path.read_text())
+    autotune.reset_cache()
+    cache = autotune.get_cache()
+    check(cache.loaded_from_disk and cache.entries == saved
+          and doc["fingerprint"] == autotune.kernel_fingerprint()
+          and len(saved) == 2 * len(results),
+          "the saved tuning cache did not reload with its entries")
+    picks = {}
+    for mode in ("f64", "compensated", "fast"):
+        os.environ[autotune.PRECISION_ENV_VAR] = mode
+        picks[mode] = {op: autotune.tuned_backend(op, size) for op, size in sizes.items()}
+    os.environ.pop(autotune.PRECISION_ENV_VAR)
+    for op in sizes:
+        if op in ops.PINNED_OPS:
+            check(picks["f64"][op] is None, f"f64 mode lifted the pin of {op}")
+    emit("autotune_picks", seconds=tune_s, cache=str(cache.path), entries=len(saved),
+         fingerprint=doc["fingerprint"], device=autotune.device_kind(),
+         tuned_backend=picks)
+    # warm-cache dispatch: no backend and no config, at each tuned size
+    dispatched = {}
+    for op in sizes:
+        call_of, size, _ = autotune._problem(op, np.random.default_rng(0), False)
+        check(size == sizes[op], f"{op}: tuned at {sizes[op]}, dispatched at {size}")
+        selected = ops.select_backend(op, size)
+        planned = autotune.plan(op, selected, size)
+        consults = _consults(autotune)
+        ops.reset_dispatch_counts()
+        launched = {name: k.launches for name, k in kernels.items()}
+        call_of(None, None)()
+        launched = {name: k.launches - launched[name] for name, k in kernels.items()
+                    if k.launches != launched[name]}
+        want = {_planned_kernel(op, planned)} if selected == "cuda" else set()
+        check(set(launched) == want and ops.dispatch_counts() == {(op, selected): 1},
+              f"{op}: dispatch took {ops.dispatch_counts()} and launched {launched}; "
+              f"the cache selects {selected} with config {planned}")
+        check(_consults(autotune) == consults + 1,
+              f"{op}: the {selected} backend did not consult its plan once")
+        dispatched[op] = {"size": size, "selected": selected, "config": planned,
+                          "launched": launched}
+    emit("autotune_dispatch", dispatched=dispatched,
+         counters=autotune.counters_snapshot(), ops_snapshot=ops.snapshot())
+    check(_file_state(path) == state, f"the default cache {path} changed")
+    return {name: k.launches - before[name] for name, k in kernels.items()}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 2
+    with cold_tuning_cache() as default_cache:
+        return run(default_cache)
+
+
+def run(default_cache) -> int:
     import numpy as np
+    import torch
 
     from repro_torch import ops
     from repro_torch.configs import CONFIG
@@ -1477,7 +1632,7 @@ def main() -> int:
     # and held to the float64 images
     own = sat_kernel.SAT_MOMENTS_F32
     own.launches = 0
-    s32 = ops.sat_moments(y, dtype=np.float32)
+    s32 = ops.sat_moments(y, config={"dtype": "float32"})
     own_counts = {"sat_moments_f32": own.launches}
     for c, p in enumerate((ps.p0, ps.p1, ps.p2)):
         d = np.abs(s32[c].astype(np.float64) - p[1:, 1:]).max()
@@ -1551,14 +1706,14 @@ def main() -> int:
     kern = kernels["sat_delta_f32"]
     kern.launches = 0
     carry, tail = ps.carry_row(n - STREAM_ROWS), y[n - STREAM_ROWS:]
-    d32 = ops.delta_sat(carry, tail, dtype=np.float32)
+    d32 = ops.delta_sat(carry, tail, config={"dtype": "float32"})
     d64 = ops.delta_sat(carry, tail)
     own3["sat_delta_f32"] = kern.launches
     d32_err = float((np.abs(d32 - d64) / np.abs(d64).max(axis=(1, 2), keepdims=True)).max())
     check(d32_err <= SAT_F32_TOL, f"float32 delta_sat vs float64: {d32_err}")
     kern = kernels["sat_stack_f32"]
     kern.launches = 0
-    rc32 = ops.streaming_compress(level1, dtype=np.float32)
+    rc32 = ops.streaming_compress(level1, config={"dtype": "float32"})
     own3["sat_stack_f32"] = kern.launches
     for a, b in zip(rc32, level1):
         check(np.isclose(a.total_mass(), b.total_mass()),
@@ -1583,6 +1738,9 @@ def main() -> int:
     kernels = {r["name"]: r["kernel"] for r in rows}
     lm_counts = phase_lm_serve(kernels, {r["name"]: r for r in fa_rows})
     counts.update(lm_counts)
+
+    # ------------------------------------ the op layer's tuning contract
+    phase_autotune(kernels, default_cache)
 
     replaces = {
         "sat_moments_f64": "src/repro/kernels/sat2d/kernel.py:78",

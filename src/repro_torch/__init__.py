@@ -10,6 +10,6 @@ environment variable), and the LM path raises unless it is given
 ``attn_impl="torch"`` (``models``) or ``--device cpu`` (``launch.serve``).
 Imports ``torch`` and numpy only — never ``jax`` or ``repro``.
 """
-from . import configs, core, data, launch, models, ops, trees
+from . import configs, core, data, launch, models, obs, ops, trees
 
-__all__ = ["configs", "core", "data", "launch", "models", "ops", "trees"]
+__all__ = ["configs", "core", "data", "launch", "models", "obs", "ops", "trees"]

@@ -10,6 +10,9 @@ float32 as the TPU kernels do; ``"partials"`` is the compensated path: each
 float64 channel is split into a float32 (hi, lo) pair, the six channels are
 binned per P-tile, and the tiles and halves are summed in float64 on the
 host, so neither the cast nor a long P axis leaves float32-level error.
+On the CPU only, ``PLAIN_VARIANTS`` adds the reference's XLA lowerings:
+``"vmap"`` and ``"flat"`` in float32, ``"chunked"`` compensated as
+``"partials"`` in 8192-point chunks.
 """
 from __future__ import annotations
 
@@ -18,16 +21,22 @@ import torch
 
 from .kernel import (HIST_F64_NODE, VARIANTS, check_f64_shapes,
                      f64_scratch_bytes, histograms_cuda)
-from .ref import hist_rows_ref, histograms_ref, partials_ref, split_hi_lo
+from .ref import (CHUNK, hist_flat_ref, hist_rows_ref, hist_vmap_ref,
+                  histograms_ref, partials_ref, split_hi_lo)
 
 __all__ = ["pack_values", "histograms_packed", "histograms", "hist_split",
-           "ResidentHist"]
+           "ResidentHist", "PLAIN_VARIANTS"]
+
+# the reference's XLA lowerings, which have plain versions only (no kernel):
+# variant -> the kernel variant whose packed values it sums
+PLAIN_VARIANTS = {"vmap": "fused", "flat": "fused", "chunked": "partials"}
 
 
 def pack_values(w, wy, wy2, variant: str = "f64") -> torch.Tensor:
     """(P, S) value channels of ``variant`` from three (P,) tensors, on
     their device."""
     x = torch.stack([w, wy, wy2], dim=1).to(torch.float64)
+    variant = PLAIN_VARIANTS.get(variant, variant)
     if variant == "f64":
         return x
     if variant == "partials":
@@ -39,21 +48,31 @@ def histograms_packed(codes: torch.Tensor, vals: torch.Tensor, n_bins: int, *,
                       variant: str = "f64", tile_p: int = 2048) -> torch.Tensor:
     """(F, n_bins, 3) sums of packed values (``pack_values``): float64 for
     ``"f64"``, float32 for ``"fused"`` and ``"legacy"``, and for
-    ``"partials"`` float64 on the CPU, where the partials are combined."""
-    if variant not in VARIANTS:
+    ``"partials"`` and ``"chunked"`` float64 on the CPU, where the partials
+    are combined."""
+    packed = PLAIN_VARIANTS.get(variant, variant)
+    if packed not in VARIANTS:
         raise ValueError(f"unknown histsplit variant {variant!r}; "
-                         f"valid: {sorted(VARIANTS)}")
-    dtype, S = VARIANTS[variant]
+                         f"valid: {sorted(VARIANTS) + sorted(PLAIN_VARIANTS)}")
+    dtype, S = VARIANTS[packed]
     if vals.dtype != dtype or vals.dim() != 2 or vals.shape[1] != S:
         raise TypeError(f"variant {variant!r} takes (P, {S}) {dtype} values, "
                         f"got {tuple(vals.shape)} {vals.dtype}")
     if codes.device.type == "cpu":
         if variant == "f64":
             return hist_rows_ref(codes, vals, None, n_bins)
-        if variant != "partials":
+        if variant == "vmap":
+            return hist_vmap_ref(codes, vals, n_bins)
+        if variant == "flat":
+            return hist_flat_ref(codes, vals, n_bins)
+        if packed != "partials":
             return histograms_ref(codes, vals, n_bins)
-        parts = partials_ref(codes, vals, n_bins, tile_p)
+        parts = partials_ref(codes, vals, n_bins,
+                             CHUNK if variant == "chunked" else tile_p)
     else:
+        if variant in PLAIN_VARIANTS:
+            raise ValueError(f"histsplit variant {variant!r} has no kernel on "
+                             f"the card; the card runs {sorted(VARIANTS)}")
         parts = histograms_cuda(codes, vals, n_bins, variant=variant,
                                 tile_p=tile_p)
         if variant != "partials":

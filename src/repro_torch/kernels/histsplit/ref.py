@@ -10,12 +10,26 @@ rows bitwise, as the kernel does.  The float32 variants' plain versions are
 one ``torch.bincount`` per (feature, channel): on the CPU a bincount adds
 the points in order from +0.0; on a CUDA tensor it adds with atomics, in no
 fixed order.
+
+``hist_vmap_ref`` and ``hist_flat_ref`` are the plain versions of the
+reference's two plain-float32 XLA lowerings (``src/repro/ops/backends.py``,
+``variant="vmap"`` and ``"flat"``): one ``index_add_`` a feature, or one
+over F * n_bins fused ids.  Its compensated ``"chunked"`` lowering sums
+8192-point chunks of the six (hi, lo) channels, which is ``partials_ref``
+at ``tile_p=8192`` (the reference pads the last chunk with zero weights in
+bin 0, which adds nothing).
 """
 from __future__ import annotations
 
 import torch
 
-__all__ = ["hist_rows_ref", "histograms_ref", "partials_ref", "split_hi_lo"]
+from ..sat2d.ref import split_hi_lo
+
+__all__ = ["hist_rows_ref", "histograms_ref", "partials_ref", "split_hi_lo",
+           "hist_vmap_ref", "hist_flat_ref", "CHUNK"]
+
+# the reference's compensated XLA lowering sums chunks of this many points
+CHUNK = 8192
 
 
 def hist_rows_ref(codes: torch.Tensor, vals: torch.Tensor,
@@ -85,9 +99,24 @@ def partials_ref(codes: torch.Tensor, vals: torch.Tensor, n_bins: int,
     return out
 
 
-def split_hi_lo(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """Split a float64 tensor into a float32 pair with ``hi + lo == x`` to
-    float32-pair precision (~2^-48 relative)."""
-    x = x.to(torch.float64)
-    hi = x.to(torch.float32)
-    return hi, (x - hi.to(torch.float64)).to(torch.float32)
+def hist_vmap_ref(codes: torch.Tensor, vals: torch.Tensor,
+                  n_bins: int) -> torch.Tensor:
+    """(F, n_bins, S) sums in ``vals``' dtype, one scatter a feature."""
+    F, S = codes.shape[1], vals.shape[1]
+    out = torch.zeros((F, n_bins, S), dtype=vals.dtype, device=vals.device)
+    for f in range(F):
+        out[f].index_add_(0, codes[:, f].long(), vals)
+    return out
+
+
+def hist_flat_ref(codes: torch.Tensor, vals: torch.Tensor,
+                  n_bins: int) -> torch.Tensor:
+    """(F, n_bins, S) sums in ``vals``' dtype, one scatter over the F *
+    n_bins fused (feature, bin) ids."""
+    P, F = codes.shape
+    S = vals.shape[1]
+    ids = codes.long() + torch.arange(F, device=codes.device) * n_bins
+    out = torch.zeros((F * n_bins, S), dtype=vals.dtype, device=vals.device)
+    out.index_add_(0, ids.reshape(-1),
+                   vals[:, None, :].expand(P, F, S).reshape(P * F, S))
+    return out.view(F, n_bins, S)

@@ -11,24 +11,29 @@ The same six op names and public signatures as ``repro.ops``:
   ``streaming_compress(coresets)``       merge-reduce recompress
 
 Each dispatches through the backend registry (numpy oracle / plain torch
-on the CPU / CUDA kernel) by the rules in ``registry.py``; every op has all
-three backends.
+on the CPU / CUDA kernel) by the rules in ``registry.py``, at the problem
+size the reference's wrappers give it (``size=``: what the autotune cache
+is keyed by, and what the profile hooks and the dispatch span see); every
+op has all three backends.  Each takes ``config=``, the tuning
+configuration (``backends.py``), where ``None`` asks the autotune cache.
 """
 from __future__ import annotations
 
 import numpy as np
 
+from . import autotune  # noqa: F401  (tuning cache + precision promotion)
 from . import backends as _backends  # noqa: F401  (registers implementations)
-from .registry import (BACKENDS, ENV_VAR, OPS, BackendError,
+from .registry import (BACKENDS, ENV_VAR, OPS, PINNED_OPS, BackendError,
                        available_backends, backend_override, bind, dispatch,
                        dispatch_counts, dispatch_seconds, register,
-                       reset_dispatch_counts, resolve, select_backend)
+                       reset_dispatch_counts, resolve, select_backend,
+                       snapshot)
 
 __all__ = [
-    "OPS", "BACKENDS", "ENV_VAR", "BackendError",
+    "OPS", "BACKENDS", "ENV_VAR", "PINNED_OPS", "BackendError", "autotune",
     "available_backends", "backend_override", "bind", "dispatch",
     "dispatch_counts", "dispatch_seconds", "register",
-    "reset_dispatch_counts", "resolve",
+    "reset_dispatch_counts", "resolve", "snapshot",
     "select_backend", "selected_backend", "sat_moments", "delta_sat",
     "fitting_loss",
     "fitting_loss_batched", "hist_split", "streaming_compress",
@@ -39,11 +44,12 @@ __all__ = [
 
 def sat_moments(y, *, backend: str | None = None, **kw) -> np.ndarray:
     """(3, n, m) integral images of (1, y, y^2) for a 2-D signal; float64
-    unless ``dtype=np.float32`` asks for the reference TPU kernel's type."""
+    unless ``config={"dtype": "float32"}`` asks for the reference TPU
+    kernel's type."""
     y = np.asarray(y)
     if y.ndim != 2:
         raise ValueError(f"signal must be 2D, got shape {y.shape}")
-    return dispatch("sat_moments", y, backend=backend, **kw)
+    return dispatch("sat_moments", y, backend=backend, size=3 * y.size, **kw)
 
 
 def delta_sat(carry, tail, *, backend: str | None = None, **kw) -> np.ndarray:
@@ -52,8 +58,8 @@ def delta_sat(carry, tail, *, backend: str | None = None, **kw) -> np.ndarray:
     ``carry`` (3, m) is the integral-image row just above the first changed
     row (zeros when patching from row 0); ``tail`` (b, m) holds the raw
     signal rows from the first changed row to the (new) end of the signal.
-    Float64 unless ``dtype=np.float32`` asks for the reference TPU kernel's
-    type; in float64 every backend continues the ``sat_moments`` recurrence
+    Float64 unless ``config={"dtype": "float32"}`` asks for the reference
+    TPU kernel's type; in float64 every backend continues the ``sat_moments`` recurrence
     with numpy's additions, so chained patches are bitwise equal to a
     from-scratch build."""
     carry = np.asarray(carry)
@@ -63,7 +69,8 @@ def delta_sat(carry, tail, *, backend: str | None = None, **kw) -> np.ndarray:
     if carry.shape != (3, tail.shape[1]):
         raise ValueError(f"carry must have shape (3, {tail.shape[1]}), "
                          f"got {carry.shape}")
-    return dispatch("delta_sat", carry, tail, backend=backend, **kw)
+    return dispatch("delta_sat", carry, tail, backend=backend,
+                    size=3 * tail.size, **kw)
 
 
 def streaming_compress(coresets, k: int | None = None,
@@ -74,13 +81,13 @@ def streaming_compress(coresets, k: int | None = None,
     One dispatch recompresses every bucket in ``coresets`` (the dirty
     buckets of a merge-reduce level); the torch and cuda backends integrate
     all their moment rasters in one ``sat_stack`` call, in float64 bitwise
-    as the numpy oracle does, or with ``dtype=np.float32`` in the reference
-    TPU kernel's type and order."""
+    as the numpy oracle does, or with ``config={"dtype": "float32"}`` in
+    the reference TPU kernel's type and order."""
     coresets = list(coresets)
     if not coresets:
         return []
     return dispatch("streaming_compress", coresets, k, eps, backend=backend,
-                    **kw)
+                    size=lambda: streaming_compress_size(coresets), **kw)
 
 
 def streaming_compress_size(coresets) -> int:
@@ -108,7 +115,8 @@ def fitting_loss(cs, seg_rects, seg_labels, *,
     sl = np.asarray(seg_labels, np.float64).ravel()
     if sr.shape[0] != sl.shape[0]:
         raise ValueError("rects/labels length mismatch")
-    return dispatch("fitting_loss", cs, sr, sl, backend=backend, **kw)
+    return dispatch("fitting_loss", cs, sr, sl, backend=backend,
+                    size=lambda: fitting_loss_size(cs, sr), **kw)
 
 
 def fitting_loss_batched(cs, seg_rects, seg_labels, *,
@@ -120,21 +128,23 @@ def fitting_loss_batched(cs, seg_rects, seg_labels, *,
         raise ValueError("batch rects must have shape (T, K, 4)")
     if sl.shape != sr.shape[:2]:
         raise ValueError("batch labels must have shape (T, K)")
-    return dispatch("fitting_loss_batched", cs, sr, sl, backend=backend, **kw)
+    return dispatch("fitting_loss_batched", cs, sr, sl, backend=backend,
+                    size=lambda: fitting_loss_batched_size(cs, sr), **kw)
 
 
 def hist_split(codes, w, wy, wy2, n_bins: int, *,
                backend: str | None = None, **kw) -> np.ndarray:
     """(F, n_bins, 3) float64 per-(feature, bin) sums of (w, wy, wy2);
     codes (P, F) integer bin ids.  The torch and cuda backends take
-    ``variant="f64"|"fused"|"legacy"|"partials"`` and ``tile_p``."""
+    ``config={"variant": ..., "tile_p": ...}`` (``backends.py``)."""
     codes = np.asarray(codes)
     if codes.ndim != 2:
         raise ValueError(f"codes must be (P, F), got shape {codes.shape}")
     return dispatch("hist_split", codes, w, wy, wy2, int(n_bins),
-                    backend=backend, **kw)
+                    backend=backend, size=codes.size, **kw)
 
 
-def selected_backend(op: str, backend: str | None = None) -> str:
-    """The backend name a dispatch of ``op`` would use."""
-    return backend or select_backend(op)
+def selected_backend(op: str, size: int | None = None,
+                     backend: str | None = None) -> str:
+    """The backend name a dispatch of ``op`` at ``size`` would use."""
+    return backend or select_backend(op, size)

@@ -13,13 +13,21 @@ Selection order:
   3. the ``REPRO_TORCH_OPS_BACKEND`` environment variable: one backend name
      for every op, or a comma list of ``op=backend`` pairs with an optional
      bare default (``REPRO_TORCH_OPS_BACKEND=torch,fitting_loss=numpy``);
-  4. ``cuda`` when ``torch.cuda.is_available()``;
-  5. otherwise raise: there is no silent CPU path, the caller pins ``numpy``
+  4. the autotune cache (``autotune.py``): a measured winner for this (op,
+     device, size bucket) that beat the numpy oracle at tune time, and for
+     the precision-pinned ops (``PINNED_OPS``) only with a parity
+     certificate;
+  5. ``cuda`` when ``torch.cuda.is_available()``, as the reference takes
+     ``pallas`` on a TPU;
+  6. otherwise raise: there is no silent CPU path, the caller pins ``numpy``
      or ``torch`` to run on the CPU.
 
-The reference's size threshold and autotune cache have no counterpart here.
-Implementations are registered as factories resolved on first use, so
-importing ``repro_torch.ops`` builds no kernel.
+The reference's size threshold has no counterpart here.  Every dispatch
+crosses one seam that opens an ``ops.dispatch`` span (``repro_torch.obs``)
+and feeds the profile hooks, as the reference's does, and counts its calls
+and host seconds per (op, backend).  Implementations are registered as
+factories resolved on first use, so importing ``repro_torch.ops`` builds no
+kernel.
 """
 from __future__ import annotations
 
@@ -30,17 +38,25 @@ import threading
 import time
 from typing import Callable
 
+from repro_torch.obs import profile as _profile
+from repro_torch.obs import trace as _trace
+
 __all__ = [
-    "OPS", "BACKENDS", "ENV_VAR", "BackendError", "register",
+    "OPS", "BACKENDS", "ENV_VAR", "PINNED_OPS", "BackendError", "register",
     "available_backends", "select_backend", "resolve", "dispatch", "bind",
     "backend_override", "dispatch_counts", "dispatch_seconds",
-    "reset_dispatch_counts",
+    "reset_dispatch_counts", "snapshot",
 ]
 
 OPS = ("sat_moments", "delta_sat", "fitting_loss", "fitting_loss_batched",
        "hist_split", "streaming_compress")
 BACKENDS = ("numpy", "torch", "cuda")
 ENV_VAR = "REPRO_TORCH_OPS_BACKEND"
+# the reference's precision-pinned ops (its XLA_SIZE_THRESHOLD is None): they
+# feed the variance identity S2 - S1^2/S0, so a tuned float32 path takes them
+# off the float64 oracle only with a parity certificate (autotune._allowed)
+PINNED_OPS = frozenset({"sat_moments", "delta_sat", "hist_split",
+                        "streaming_compress"})
 
 
 class BackendError(KeyError):
@@ -100,8 +116,16 @@ def _env_choice(op: str) -> str | None:
     return choice
 
 
-def select_backend(op: str) -> str:
-    """The backend :func:`dispatch` would use for ``op``."""
+def _size(size):
+    """A dispatch's problem size: an int, None, or a zero-argument callable
+    that gives it, read only where it is needed (a warm cache, a trace, a
+    profile hook), so that a dispatch that selection refuses never touches
+    its arguments."""
+    return size() if callable(size) else size
+
+
+def select_backend(op: str, size=None) -> str:
+    """The backend :func:`dispatch` would use for ``op`` at ``size``."""
     if op not in OPS:
         raise BackendError(f"unknown op {op!r}; ops are {OPS}")
     if _OVERRIDE:
@@ -109,6 +133,10 @@ def select_backend(op: str) -> str:
     env = _env_choice(op)
     if env is not None:
         return env
+    from . import autotune
+    tuned = autotune.tuned_backend(op, size)
+    if tuned is not None:
+        return tuned
     import torch
     if torch.cuda.is_available():
         return "cuda"
@@ -117,9 +145,10 @@ def select_backend(op: str) -> str:
         f"(argument, ops.backend_override or {ENV_VAR}) to run on the CPU")
 
 
-def resolve(op: str, backend: str | None = None) -> tuple[str, Callable]:
+def resolve(op: str, backend: str | None = None,
+            size=None) -> tuple[str, Callable]:
     """(backend name, callable) after selection + lazy factory resolution."""
-    name = backend or select_backend(op)
+    name = backend or select_backend(op, size)
     key = (op, name)
     fn = _RESOLVED.get(key)
     if fn is None:
@@ -135,9 +164,12 @@ def resolve(op: str, backend: str | None = None) -> tuple[str, Callable]:
     return name, fn
 
 
-def _counted(op: str, name: str, fn: Callable, args, kw, count: int = 1):
+def _counted(op: str, name: str, size, fn: Callable, args, kw, count: int = 1):
+    # the observability seam: outside a trace the span is the NOOP singleton
+    # and with no hooks installed the profile branch is one falsy check
     with _LOCK:
         _DISPATCHES[(op, name)] += count
+    span = _trace.TRACER.child_span("ops.dispatch")
     t0 = time.perf_counter()
     try:
         return fn(*args, **kw)
@@ -145,23 +177,38 @@ def _counted(op: str, name: str, fn: Callable, args, kw, count: int = 1):
         dt = time.perf_counter() - t0
         with _LOCK:
             _SECONDS[(op, name)] += dt
+        if span or _profile._HOOKS:
+            size = _size(size)
+            if span:
+                span.set_attr("op", op)
+                span.set_attr("backend", name)
+                span.set_attr("size", size)
+                span.set_attr("shape_bucket", _profile.shape_bucket(size))
+                span.end()
+            if _profile._HOOKS:
+                _profile.record(op, name, size, dt)
 
 
-def dispatch(op: str, *args, backend: str | None = None, **kw):
-    name, fn = resolve(op, backend)
-    return _counted(op, name, fn, args, kw)
+def dispatch(op: str, *args, backend: str | None = None, size=None, **kw):
+    name, fn = resolve(op, backend, size)
+    return _counted(op, name, size, fn, args, kw)
 
 
 def bind(op: str, *args, backend: str | None = None, **kw) -> Callable:
-    """Resolve ``op``'s backend once and bind its leading arguments there
+    """Resolve ``op``'s backend once, at the size of its first argument (a
+    tree's codes for ``hist_split``), and bind its leading arguments there
     (the backend's ``fn.bind``: ``hist_split`` keeps a tree's data on the
-    device).  Each call of the result counts as one dispatch of ``op``; the
+    device, or runs the tuned variant on each node's rows).  Each call of
+    the result counts as one dispatch of ``op`` at the node's size (its
+    rows times the codes' features); the
     binding's host seconds (its upload) count toward ``op``'s seconds."""
-    name, fn = resolve(op, backend)
-    bound = _counted(op, name, fn.bind, args, kw, count=0)
+    size = getattr(args[0], "size", None) if args else None
+    name, fn = resolve(op, backend, size)
+    bound = _counted(op, name, size, fn.bind, args, kw, count=0)
 
-    def call(*a, **k):
-        return _counted(op, name, bound, a, k)
+    def call(rows, *a, **k):
+        return _counted(op, name, lambda: len(rows) * args[0].shape[1], bound,
+                        (rows, *a), k)
     return call
 
 
@@ -195,3 +242,19 @@ def backend_override(backend: str):
         yield
     finally:
         _OVERRIDE.pop()
+
+
+def snapshot() -> dict:
+    """Selection state per op: its backends, the backend a dispatch with no
+    size would take (None where selection raises: no card and no pin), the
+    environment pin and whether the op is precision-pinned."""
+    out = {}
+    for op in OPS:
+        try:
+            selected = select_backend(op)
+        except RuntimeError:
+            selected = None
+        out[op] = {"available": list(available_backends(op)),
+                   "selected": selected, "env_override": _env_choice(op),
+                   "pinned": op in PINNED_OPS}
+    return out

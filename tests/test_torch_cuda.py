@@ -341,8 +341,8 @@ def test_hist_partials_match_plain_and_certificate(cuda, P, F, B):
     np.testing.assert_allclose(parts.cpu().numpy(), want_parts.numpy(),
                                rtol=2e-4, atol=2e-4)
     oracle = ops.hist_split(*args, B, backend="numpy")
-    got = ops.hist_split(*args, B, backend="cuda", variant="partials",
-                         tile_p=256)
+    got = ops.hist_split(*args, B, backend="cuda",
+                         config={"variant": "partials", "tile_p": 256})
     scale = np.abs(oracle).max(axis=(0, 1))
     assert (np.abs(got - oracle).max(axis=(0, 1)) <= 1e-6 * scale).all()
 
@@ -594,7 +594,8 @@ def _bits(a):
 
 
 def _numpy_delta(carry, tail, dtype):
-    return ops.delta_sat(carry, tail, backend="numpy", dtype=dtype)
+    return ops.delta_sat(carry, tail, backend="numpy",
+                         config={"dtype": np.dtype(dtype).name})
 
 
 @pytest.mark.parametrize("n,r0,m", DELTA_SHAPES)
@@ -766,7 +767,8 @@ def _with_neg0(shape, places, seed=0):
 
 
 def _numpy_moments(y, dtype):
-    return ops.sat_moments(y, backend="numpy", dtype=dtype)
+    return ops.sat_moments(y, backend="numpy",
+                           config={"dtype": np.dtype(dtype).name})
 
 
 @pytest.mark.parametrize("dtype", [np.float64, np.float32])
@@ -1046,3 +1048,79 @@ def _to_cpu(tree):
     if isinstance(tree, list):
         return [_to_cpu(v) for v in tree]
     return tree.cpu()
+
+
+# ------------------------------------------ the tuner's cuda search space
+def _tuning_calls():
+    """A small problem of every op, called through ``ops`` as the tuner
+    calls it: a float64 config must equal numpy bitwise, a compensated one
+    lie within the certificate (1e-6 scaled), a float32 one within its
+    kernel's bar."""
+    rng = np.random.default_rng(6)
+    y = rng.normal(size=(70, 130)) + 10.0
+    carry = ops.sat_moments(y[:1], backend="numpy")[:, 0, :]
+    codes, w, wy, wy2 = _hist_inputs(5000, 3, 64, seed=6)
+    with ops.backend_override("numpy"):
+        cs = signal_coreset(piecewise_signal(48, 40, 4, seed=6), 4, 0.3)
+    segs = [random_tree_segmentation(48, 40, 6, rng) for _ in range(5)]
+    sr = np.stack([s.rects for s in segs]).astype(np.float64)
+    sl = np.stack([s.labels for s in segs])
+    return {
+        "sat_moments": lambda **kw: ops.sat_moments(y, **kw),
+        "delta_sat": lambda **kw: ops.delta_sat(carry, y[1:], **kw),
+        "hist_split": lambda **kw: ops.hist_split(codes, w, wy, wy2, 64, **kw),
+        "fitting_loss": lambda **kw: ops.fitting_loss(cs, sr[0], sl[0], **kw),
+        "fitting_loss_batched": lambda **kw: ops.fitting_loss_batched(cs, sr, sl, **kw),
+        "streaming_compress": lambda **kw: np.array(
+            [c.total_mass() for c in ops.streaming_compress([cs, cs], 3, 0.5, **kw)]),
+    }
+
+
+def _cuda_search_space():
+    from repro_torch.ops import autotune
+    return [(op, cfg) for op, per in autotune.SEARCH_SPACE.items()
+            for cfg in per["cuda"]]
+
+
+@pytest.mark.parametrize("op,config", _cuda_search_space(),
+                         ids=lambda v: v if isinstance(v, str) else
+                         "-".join(f"{k}={x}" for k, x in v.items()) or "default")
+def test_every_cuda_search_config_runs_at_a_small_shape(cuda, op, config):
+    from repro_torch.ops import autotune
+    call = _tuning_calls()[op]
+    got, want = call(backend="cuda", config=config), call(backend="numpy")
+    err = autotune._scaled_rel_err(got, want)
+    if config.get("dtype") == "float64" or config.get("variant") == "f64":
+        assert np.array_equal(got, want)
+    elif config.get("compensated"):
+        assert err <= autotune.PARITY_RTOL
+    elif op in ("sat_moments", "delta_sat"):
+        assert err <= 5e-4                 # chip_smoke's float32 scan bar
+    elif op.startswith("fitting_loss"):    # chip_smoke's served-loss bar
+        np.testing.assert_allclose(got, want, rtol=1e-3)
+    else:                                  # float32 sums: the reference's bar
+        np.testing.assert_allclose(got, want, rtol=2e-4, atol=2e-4)
+
+
+def test_tuned_cuda_plan_reaches_the_kernel(cuda, tmp_path, monkeypatch):
+    # a planted float32 plan at a bucket: dispatch with config=None runs it
+    # in fast mode, and holds the pinned op to float64 in the default mode
+    from repro_torch.ops import autotune
+    monkeypatch.setenv(autotune.CACHE_ENV_VAR, str(tmp_path / "autotune.json"))
+    monkeypatch.delenv(autotune.PRECISION_ENV_VAR, raising=False)
+    autotune.reset_cache()
+    try:
+        y = np.random.default_rng(7).normal(size=(64, 96))
+        autotune.get_cache().put("sat_moments", "cuda",
+                                 autotune.shape_bucket(3 * y.size),
+                                 {"config": {"dtype": "float32"}, "us": 1.0,
+                                  "numpy_us": 2.0, "rel_err": 1e-8})
+        f32, f64 = sat_kernel.SAT_MOMENTS_F32, sat_kernel.SAT_MOMENTS_F64
+        before = (f32.launches, f64.launches)
+        assert np.array_equal(ops.sat_moments(y, backend="cuda"), _numpy_sat(y))
+        assert (f32.launches, f64.launches) == (before[0], before[1] + 1)
+        monkeypatch.setenv(autotune.PRECISION_ENV_VAR, "fast")
+        assert ops.sat_moments(y, backend="cuda").dtype == np.float32
+        assert f32.launches == before[0] + 1
+    finally:
+        autotune.reset_cache()

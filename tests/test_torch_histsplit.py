@@ -61,8 +61,8 @@ def test_f32_within_reference_interpret_kernel(variant, P, F, B):
     got = hist_ops.histograms(*_tensors(*args), B, variant=variant, tile_p=256)
     assert got.dtype == torch.float32
     np.testing.assert_allclose(got.numpy(), want, rtol=F32_TOL, atol=F32_TOL)
-    via_op = ops.hist_split(*args, B, backend="torch", variant=variant,
-                            tile_p=256)
+    via_op = ops.hist_split(*args, B, backend="torch",
+                            config={"variant": variant, "tile_p": 256})
     np.testing.assert_array_equal(via_op, got.numpy().astype(np.float64))
 
 
@@ -72,8 +72,8 @@ def test_partials_combined_within_certificate(tile_p, P, F, B):
     # the compensated path's bar: 1e-6 of the channel's scale
     args = _inputs(P, F, B, seed=3)
     oracle = ref_ops.hist_split(*args, B, backend="numpy")
-    got = ops.hist_split(*args, B, backend="torch", variant="partials",
-                         tile_p=tile_p)
+    got = ops.hist_split(*args, B, backend="torch",
+                         config={"variant": "partials", "tile_p": tile_p})
     scale = np.abs(oracle).max(axis=(0, 1))
     assert (np.abs(got - oracle).max(axis=(0, 1)) <= 1e-6 * scale).all()
     ref = np.asarray(ref_hist.histograms(*args, B, tile_p=tile_p,

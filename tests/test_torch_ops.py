@@ -194,3 +194,137 @@ def test_cuda_kernel_is_safe_under_threads(monkeypatch):
     assert not any(t.is_alive() for t in pool)
     assert lookups == ["fake_launch"]
     assert kern.launches == threads * calls
+
+
+# ------------------------------------------- the dispatch seam and config=
+@pytest.fixture
+def tune_cache(tmp_path, monkeypatch):
+    """A private, cold autotune cache."""
+    from repro_torch.ops import autotune
+    monkeypatch.setenv(autotune.CACHE_ENV_VAR, str(tmp_path / "autotune.json"))
+    monkeypatch.delenv(autotune.DISABLE_ENV_VAR, raising=False)
+    autotune.reset_cache()
+    yield autotune
+    autotune.reset_cache()
+
+
+def _coreset():
+    from repro_torch.core import random_tree_segmentation, signal_coreset
+    from repro_torch.data import piecewise_signal
+    with ops.backend_override("numpy"):
+        cs = signal_coreset(piecewise_signal(40, 36, 4, seed=0), 4, 0.3)
+    segs = [random_tree_segmentation(40, 36, 5, np.random.default_rng(i))
+            for i in range(3)]
+    return (cs, np.stack([s.rects for s in segs]).astype(np.float64),
+            np.stack([s.labels for s in segs]))
+
+
+def test_size_reaches_profile_hooks_and_the_dispatch_span(tune_cache):
+    from repro_torch import obs
+    seen = []
+
+    def hook(op, backend, size, seconds):
+        seen.append((op, backend, size))
+    y = np.ones((5, 7))
+    cs, sr, sl = _coreset()
+    obs.profile.add_hook(hook)
+    root = obs.TRACER.start_trace("req")
+    try:
+        with obs.TRACER.attach(root):
+            ops.sat_moments(y, backend="numpy")
+            ops.fitting_loss_batched(cs, sr, sl, backend="torch")
+    finally:
+        root.end()
+        obs.profile.remove_hook(hook)
+    fl_size = ops.fitting_loss_batched_size(cs, sr)
+    assert seen == [("sat_moments", "numpy", 105),
+                    ("fitting_loss_batched", "torch", fl_size)]
+    spans = [s for s in obs.TRACER.get(root.trace_id)["spans"]
+             if s["name"] == "ops.dispatch"]
+    assert [s["attrs"] for s in spans] == [
+        {"op": "sat_moments", "backend": "numpy", "size": 105,
+         "shape_bucket": "le_2^7"},
+        {"op": "fitting_loss_batched", "backend": "torch", "size": fl_size,
+         "shape_bucket": obs.profile.shape_bucket(fl_size)}]
+    assert all(s["parent_id"] == root.span_id for s in spans)
+
+
+def test_snapshot(no_card, monkeypatch):
+    monkeypatch.setenv(ops.ENV_VAR, "torch,hist_split=numpy")
+    snap = ops.snapshot()
+    assert list(snap) == list(ops.OPS)
+    assert snap["hist_split"] == {"available": ["numpy", "torch", "cuda"],
+                                  "selected": "numpy", "env_override": "numpy",
+                                  "pinned": True}
+    assert snap["fitting_loss"]["selected"] == "torch"
+    assert not snap["fitting_loss"]["pinned"]
+    assert {op for op, s in snap.items() if s["pinned"]} == ops.PINNED_OPS == {
+        "sat_moments", "delta_sat", "hist_split", "streaming_compress"}
+    monkeypatch.delenv(ops.ENV_VAR)
+    assert ops.snapshot()["sat_moments"]["selected"] is None   # would raise
+
+
+def _all_ops_calls():
+    rng = np.random.default_rng(4)
+    y = rng.normal(size=(33, 21))
+    carry = ops.sat_moments(y[:1], backend="numpy")[:, 0, :]
+    codes = rng.integers(0, 16, size=(300, 3)).astype(np.uint8)
+    w = rng.uniform(0.5, 1.5, 300)
+    cs, sr, sl = _coreset()
+    return {
+        "sat_moments": lambda **kw: ops.sat_moments(y, **kw),
+        "delta_sat": lambda **kw: ops.delta_sat(carry, y[1:], **kw),
+        "fitting_loss": lambda **kw: ops.fitting_loss(cs, sr[0], sl[0], **kw),
+        "fitting_loss_batched": lambda **kw: ops.fitting_loss_batched(cs, sr, sl, **kw),
+        "hist_split": lambda **kw: ops.hist_split(codes, w, w * 2, w * 4, 16, **kw),
+        "streaming_compress": lambda **kw: np.concatenate([
+            c.moments for c in ops.streaming_compress([cs, cs], 3, 0.5, **kw)]),
+    }
+
+
+@pytest.mark.parametrize("backend", ["numpy", "torch"])
+def test_cold_cache_config_none_is_bitwise_config_empty(tune_cache, backend):
+    # and on the float64 ops it is numpy's output, bitwise
+    hits = tune_cache.counters_snapshot()["cache_hit"]
+    for op, call in _all_ops_calls().items():
+        got = call(backend=backend)
+        assert np.array_equal(got, call(backend=backend, config={})), op
+        if op not in ("fitting_loss", "fitting_loss_batched"):
+            assert np.array_equal(got, call(backend="numpy")), op
+    assert tune_cache.counters_snapshot()["cache_hit"] == hits
+
+
+def test_bind_follows_a_planted_plan_and_stays_resident_when_cold(tune_cache):
+    from repro_torch.kernels.histsplit.ops import ResidentHist
+    rng = np.random.default_rng(5)
+    codes = rng.integers(0, 16, size=(500, 3)).astype(np.uint8)
+    w = rng.uniform(0.5, 1.5, 500)
+    args = (codes, w, w * 3, w * 9, 16)
+    rows = np.flatnonzero(rng.random(500) < 0.5)
+    _, fn = registry.resolve("hist_split", "torch")
+    assert isinstance(fn.bind(*args), ResidentHist)          # cold: resident
+    want = ops.hist_split(codes[rows], w[rows], w[rows] * 3, w[rows] * 9, 16,
+                          backend="numpy")
+    ops.reset_dispatch_counts()
+    assert np.array_equal(ops.bind("hist_split", *args, backend="torch")(rows),
+                          want)
+    bucket = tune_cache.shape_bucket(codes.size)
+
+    def plant(cfg):
+        tune_cache.get_cache().put("hist_split", "torch", bucket,
+                                   {"config": cfg, "us": 1.0, "numpy_us": 2.0,
+                                    "rel_err": 1e-8})
+    # a plain float32 plan of the pinned op is held in the default mode
+    plant({"variant": "vmap", "compensated": False})
+    assert isinstance(fn.bind(*args), ResidentHist)
+    # a certified compensated plan is followed, each node on its rows
+    cfg = {"variant": "chunked", "compensated": True}
+    plant(cfg)
+    assert not isinstance(fn.bind(*args), ResidentHist)
+    node = ops.bind("hist_split", *args, backend="torch")
+    got = node(rows)
+    assert np.array_equal(got, ops.hist_split(codes[rows], w[rows], w[rows] * 3,
+                                              w[rows] * 9, 16, backend="torch",
+                                              config=cfg))
+    assert tune_cache._scaled_rel_err(got, want) <= tune_cache.PARITY_RTOL
+    assert ops.dispatch_counts() == {("hist_split", "torch"): 3}

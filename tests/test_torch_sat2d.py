@@ -59,7 +59,7 @@ def test_cuda_launcher_refuses_cpu_tensor():
 def test_dispatched_f32_matches_reference_pallas_interpret(backend):
     import jax.numpy as jnp
     y = _signal((90, 40), seed=5)
-    got = ops.sat_moments(y, backend=backend, dtype=np.float32)
+    got = ops.sat_moments(y, backend=backend, config={"dtype": "float32"})
     want = np.asarray(ref_sat.sat_moments(jnp.asarray(y, jnp.float32),
                                           interpret=True))
     assert got.dtype == np.float32
@@ -100,7 +100,8 @@ def test_delta_plain_f32_matches_reference_pallas_interpret(which):
     assert got.dtype == torch.float32
     np.testing.assert_allclose(got.numpy(), want, rtol=5e-4, atol=5e-3)
     np.testing.assert_allclose(
-        ops.delta_sat(carry, tail, backend="torch", dtype=np.float32), want,
+        ops.delta_sat(carry, tail, backend="torch", config={"dtype": "float32"}),
+        want,
         rtol=5e-4, atol=5e-3)
 
 

@@ -215,12 +215,13 @@ def test_streaming_compress_overrides_k_and_eps(backend, k, eps):
 
 
 def test_streaming_compress_f32_keeps_moments_and_losses():
-    """dtype=np.float32 (the TPU kernel's type): the block moments stay exact
+    """dtype "float32" (the TPU kernel's type): the block moments stay exact
     float64 (the rasters' sums never route through float32) and the losses
     agree with the oracle's within the reference's own 10 % bar."""
     buckets = [_carried(b) for b in _buckets()]
     ref = ops.streaming_compress(buckets, backend="numpy")
-    got = ops.streaming_compress(buckets, backend="torch", dtype=np.float32)
+    got = ops.streaming_compress(buckets, backend="torch",
+                                 config={"dtype": "float32"})
     q = random_tree_segmentation(64, 44, 5, np.random.default_rng(24))
     for g, r, b in zip(got, ref, buckets):
         assert np.isclose(g.total_mass(), b.total_mass())
