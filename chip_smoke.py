@@ -1438,14 +1438,12 @@ def _consults(autotune) -> int:
 def phase_autotune(kernels, default_cache):
     """The tuner on the card at the reference's LARGE_SHAPES into the
     temporary cache (``cold_tuning_cache``), then dispatch through the warm
-    cache.  Returns the kernels' launches during the tuning and the
-    dispatches (the tuner's candidates, not a main path)."""
+    cache, which must keep every op on the card."""
     import numpy as np
     from repro_torch import ops
     from repro_torch.ops import autotune
     path, state = default_cache
     check(autotune.cache_path() != path, "the autotune phase would use the default cache")
-    before = {name: k.launches for name, k in kernels.items()}
     t0 = time.perf_counter()
     results = autotune.tune_all(budget="full")
     tune_s = time.perf_counter() - t0
@@ -1486,6 +1484,9 @@ def phase_autotune(kernels, default_cache):
     for op in sizes:
         if op in ops.PINNED_OPS:
             check(picks["f64"][op] is None, f"f64 mode lifted the pin of {op}")
+        for mode in picks:
+            check(picks[mode][op] in (None, "cuda"),
+                  f"{mode} mode sends {op} off the card to {picks[mode][op]}")
     emit("autotune_picks", seconds=tune_s, cache=str(cache.path), entries=len(saved),
          fingerprint=doc["fingerprint"], device=autotune.device_kind(),
          tuned_backend=picks)
@@ -1495,6 +1496,7 @@ def phase_autotune(kernels, default_cache):
         call_of, size, _ = autotune._problem(op, np.random.default_rng(0), False)
         check(size == sizes[op], f"{op}: tuned at {sizes[op]}, dispatched at {size}")
         selected = ops.select_backend(op, size)
+        check(selected == "cuda", f"{op}: the warm cache selects {selected}, not the card")
         planned = autotune.plan(op, selected, size)
         consults = _consults(autotune)
         ops.reset_dispatch_counts()
@@ -1502,8 +1504,8 @@ def phase_autotune(kernels, default_cache):
         call_of(None, None)()
         launched = {name: k.launches - launched[name] for name, k in kernels.items()
                     if k.launches != launched[name]}
-        want = {_planned_kernel(op, planned)} if selected == "cuda" else set()
-        check(set(launched) == want and ops.dispatch_counts() == {(op, selected): 1},
+        check(set(launched) == {_planned_kernel(op, planned)}
+              and ops.dispatch_counts() == {(op, selected): 1},
               f"{op}: dispatch took {ops.dispatch_counts()} and launched {launched}; "
               f"the cache selects {selected} with config {planned}")
         check(_consults(autotune) == consults + 1,
@@ -1513,7 +1515,6 @@ def phase_autotune(kernels, default_cache):
     emit("autotune_dispatch", dispatched=dispatched,
          counters=autotune.counters_snapshot(), ops_snapshot=ops.snapshot())
     check(_file_state(path) == state, f"the default cache {path} changed")
-    return {name: k.launches - before[name] for name, k in kernels.items()}
 
 
 def main() -> int:

@@ -14,7 +14,9 @@ The port of ``repro.ops.autotune``.  Three parts:
   * a **dispatch consult**: ``registry.select_backend`` asks
     :func:`tuned_backend` before it falls back to the card, and each torch
     and cuda backend asks :func:`plan` for its tuned configuration at call
-    time.  A cold cache reproduces the untuned behaviour bitwise.
+    time.  A cold cache reproduces the untuned behaviour bitwise.  Where a
+    card is present only a cuda entry is promoted (torch is the CPU, and
+    dispatch never moves work off the card); where none is, never one.
 
 The port reads its own environment variables (a shared one would reach the
 reference inside every parity test): ``REPRO_TORCH_AUTOTUNE_CACHE``,
@@ -277,8 +279,8 @@ _CACHE: TuneCache | None = None
 _CACHE_KEY: str | None = None     # value of $REPRO_TORCH_AUTOTUNE_CACHE at load
 _CACHE_LOCK = threading.Lock()
 
-_DECISIONS: dict[tuple, str | None] = {}   # (op, bucket, mode) -> backend
-_MISSING = object()
+# (op, bucket, mode) -> (backend or None, whether it promotes off float64)
+_DECISIONS: dict[tuple, tuple[str | None, bool]] = {}
 
 
 def get_cache() -> TuneCache:
@@ -335,22 +337,23 @@ def tuned_backend(op: str, size) -> str | None:
 
     On the hot path (warm cache) this is a memoized dict lookup — the full
     decision below runs once per (op, bucket, precision mode)."""
-    if size is None or not _enabled():
+    if size is None:
         return None
     cache = get_cache()
-    if not cache.entries:
+    if not cache.entries or not _enabled():
         return None
     pinned = op in registry.PINNED_OPS
     mode = precision_mode()
     if pinned and mode == "f64":
         return None          # the escape hatch: never lift the pin
     key = (op, shape_bucket(registry._size(size)), mode)
-    best_name = _DECISIONS.get(key, _MISSING)
-    if best_name is _MISSING:
-        best_name = _DECISIONS[key] = _decide(cache, op, key[1], pinned, mode)
+    decision = _DECISIONS.get(key)
+    if decision is None:
+        decision = _DECISIONS[key] = _decide(cache, op, key[1], pinned, mode)
+    best_name, promoted = decision
     if best_name is not None:
         _count("tuned_dispatch")
-        if pinned:
+        if promoted:
             _count("promoted_f32")
     return best_name
 
@@ -387,11 +390,15 @@ def _choice(op: str, entry: dict, mode: str) -> dict | None:
 
 
 def _decide(cache: TuneCache, op: str, bucket: str, pinned: bool,
-            mode: str) -> str | None:
-    best_name, best_us = None, None
+            mode: str) -> tuple[str | None, bool]:
+    """(the backend to promote or None, whether that pick takes a pinned op
+    off float64).  With a card only a cuda entry is a pick, since torch is
+    the CPU; without one, never a cuda entry."""
+    card = _has_card()
+    best_name, best_us, best_cfg = None, None, {}
     for backend, entry in cache.for_op(op, bucket).items():
-        if backend == "cuda" and not _has_card():
-            continue         # a cuda entry is never a pick where no card is
+        if (backend == "cuda") != card:
+            continue
         choice = _choice(op, entry, mode)
         if choice is None:
             continue         # no parity certificate: the pin holds
@@ -400,7 +407,9 @@ def _decide(cache: TuneCache, op: str, bucket: str, pinned: bool,
             continue         # the oracle won at tune time: nothing to gain
         if best_us is None or us < best_us:
             best_name, best_us = backend, us
-    return best_name
+            best_cfg = choice.get("config") or {}
+    return best_name, (best_name is not None and pinned
+                       and not _float64(best_cfg))
 
 
 def snapshot() -> dict:

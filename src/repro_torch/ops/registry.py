@@ -16,7 +16,8 @@ Selection order:
   4. the autotune cache (``autotune.py``): a measured winner for this (op,
      device, size bucket) that beat the numpy oracle at tune time, and for
      the precision-pinned ops (``PINNED_OPS``) only with a parity
-     certificate;
+     certificate; with a card only a ``cuda`` winner, so that a tuned
+     entry never sends work to the CPU;
   5. ``cuda`` when ``torch.cuda.is_available()``, as the reference takes
      ``pallas`` on a TPU;
   6. otherwise raise: there is no silent CPU path, the caller pins ``numpy``

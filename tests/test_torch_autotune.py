@@ -173,6 +173,51 @@ def test_tuned_bucket_where_numpy_won_falls_through_to_the_card(tune_cache, card
     assert ops.select_backend(_OP, _SIZE) == "cuda"
 
 
+@pytest.mark.parametrize("mode", ["f64", "compensated", "fast"])
+@pytest.mark.parametrize("op,config,rel_err", [
+    (_OP, {}, 1e-7),
+    ("sat_moments", {"compensated": True}, 2e-10),
+    ("sat_moments", {"compensated": False}, 0.0),
+    ("hist_split", {"variant": "chunked", "compensated": True}, 2e-8),
+])
+def test_torch_never_promoted_with_card(tune_cache, card, monkeypatch, mode,
+                                        op, config, rel_err):
+    # torch is the CPU: where a card is present, a torch entry that beat
+    # numpy and the card at tune time never takes dispatch off the card
+    card(True)
+    monkeypatch.setenv(autotune.PRECISION_ENV_VAR, mode)
+    size = 1 << 17
+    cuda_cfg = {"variant": "f64"} if op == "hist_split" else (
+        {"dtype": "float64"} if op in ops.PINNED_OPS else {})
+    _seed_entry(op, "torch", size, us=5.0, numpy_us=100.0, config=config,
+                rel_err=rel_err)
+    assert autotune.tuned_backend(op, size) is None
+    _seed_entry(op, "cuda", size, us=50.0, numpy_us=100.0, config=cuda_cfg,
+                rel_err=0.0)
+    assert autotune.tuned_backend(op, size) in (
+        (None,) if op in ops.PINNED_OPS and mode == "f64" else ("cuda",))
+    assert ops.select_backend(op, size) == "cuda"
+
+
+def test_promoted_f32_counts_only_float32_picks(tune_cache, card, monkeypatch):
+    # the card's float64 path of a pinned op is a tuned pick, not a float32
+    # promotion; its float32 path (fast mode) is one
+    card(True)
+    size = 1 << 17
+    counts = autotune.counters_snapshot
+    _seed_entry("sat_moments", "cuda", size, config={"dtype": "float64"},
+                rel_err=0.0)
+    before = counts()
+    assert autotune.tuned_backend("sat_moments", size) == "cuda"
+    assert counts()["tuned_dispatch"] == before["tuned_dispatch"] + 1
+    assert counts()["promoted_f32"] == before["promoted_f32"]
+    monkeypatch.setenv(autotune.PRECISION_ENV_VAR, "fast")
+    _seed_entry("sat_moments", "cuda", size, config={"dtype": "float32"},
+                rel_err=1e-7)
+    assert autotune.tuned_backend("sat_moments", size) == "cuda"
+    assert counts()["promoted_f32"] == before["promoted_f32"] + 1
+
+
 def test_override_and_env_beat_tuned(tune_cache, card, monkeypatch):
     _seed_entry(_OP, "torch", _SIZE, us=10.0, numpy_us=100.0)
     assert ops.select_backend(_OP, _SIZE) == "torch"
