@@ -8,7 +8,9 @@ the paper's §5, the signal-tree config's coreset and forests; slice 3 (the
 write path) with row patches of the slice-1 signal and a line-scan stream of
 eight 256 x 1024 frames; slice 4 (LM serving) with qwen2-0.5b at full width
 (24 layers, d_model 896, 14 query and 2 KV heads of 64, vocab 151,936) and
-random weights from a seeded generator.
+random weights from a seeded generator; the coreset server (service/,
+client/) with slice 1's signal, its trees and batches over HTTP, a 20-tree
+forest and the stream's frames.
 
 Phases, one JSON line each:
 
@@ -87,6 +89,23 @@ Phases, one JSON line each:
               of 32 tokens after 4 x 64; host seconds, tokens/s, ms a step,
               and the device's busy time (torch.profiler) in a prefill and
               a decode step
+  coreset_serve  the coreset server on the card: CoresetEngine behind the
+              HTTP API on an ephemeral port, no backend pinned, driven only
+              by the binary SDK with every kernel's count at 0 just before:
+              slice 1's signal registered as a synthetic spec, built (k 64,
+              eps 0.3), then (32, 0.4) served dominated; 4 client threads
+              each send 8 single-tree queries and 2 batches of 256 trees;
+              one single held in a longer window so that a batch joins it
+              (one scoring call for both); one uncoalesced single (the T = 1
+              kernel); a 20-tree forest fit, bitwise one fitted on numpy;
+              the stream's eight frames ingested, then built, equal to
+              StreamingBuilder's on numpy.  Every served loss within 1e-3
+              of the numpy oracle on the served coreset; /v1/stats's
+              ops_backend_cuda above 0 and the others 0; one scoring call a
+              fusion; sat_moments_f64, fitting_loss_batched and
+              hist_f64_node launched.  The build's seconds, p50 and p99 of
+              both request kinds, the dominated request's ms and each
+              kernel's launches (serving_launches in the kernel table)
   autotune    last, and the only phase with a warm tuning cache (every
               phase runs with REPRO_TORCH_AUTOTUNE_CACHE pointed at a file
               in a temporary directory, cold until here; the default cache
@@ -187,6 +206,18 @@ LM_DECODE_TOL = 2e-3
 # the bf16 kernel path may stand no farther from the float32 model's logits
 # than the bf16 plain path does, times this margin (both read ~1.5e-2)
 LM_F32_MARGIN = 1.1
+# the coreset server (service/, client/): slice 1's signal registered as a
+# synthetic spec (generated server-side, nothing uploaded), built, then a
+# weaker (k, eps) that the cache must serve dominated; SERVE_CLIENTS threads
+# of the binary SDK each send SERVE_SINGLES single-tree queries and
+# SERVE_BATCHES batches of SERVE_T trees (trees of 64 leaves, rng seed 1),
+# a SERVE_FOREST-tree fit, and the stream's frames ingested into a second
+# signal.  The fusion probe holds one single in a window of SERVE_PROBE_S so
+# that a batch joins it.  Losses are held to the serve phase's bar
+SERVE_SIGNAL = {"kind": "piecewise", "n": 4096, "m": 4096, "k": 64, "seed": 0}
+SERVE_K, SERVE_EPS, SERVE_DOMINATED = 64, 0.3, (32, 0.4)
+SERVE_CLIENTS, SERVE_SINGLES, SERVE_BATCHES, SERVE_T = 4, 8, 2, 256
+SERVE_FOREST, SERVE_PROBE_S, SERVE_TOL = 20, 0.5, 1e-3
 
 
 class CheckFailed(Exception):
@@ -1374,6 +1405,277 @@ def phase_lm_serve(kernels, fa_rows):
             "flash_attention_f32": f32_launches}
 
 
+def _pct(xs, q) -> float:
+    import numpy as np
+    return float(np.percentile(np.asarray(xs) * 1e3, q))
+
+
+def serve_split(answers) -> dict:
+    """p50 of each part of the requests' time, in ms, from the server's
+    own traces (``repro_torch.obs``): the client's wall clock, the server's
+    root span (decode to reply), the query's time from enqueue to answer
+    (the batching window and the fused dispatch), and the fused dispatch's
+    ``ops.dispatch`` span (upload, kernel, copy back)."""
+    import numpy as np
+    from repro_torch import obs
+    parts = {"wall": [], "server": [], "queued": [], "dispatch": []}
+    for _, dt, _, tid in answers:
+        doc = obs.TRACER.get(tid, wait_s=1.0)
+        if doc is None:
+            continue
+        spans = doc["spans"] + [sp for t in doc.get("linked_traces", ())
+                                for sp in t["spans"]]
+        by_name = {sp["name"]: sp["duration_us"] / 1e3 for sp in spans}
+        parts["wall"].append(dt * 1e3)
+        parts["server"].append(doc["duration_us"] / 1e3)
+        parts["queued"].append(by_name.get("query.scheduler_wait", 0.0))
+        parts["dispatch"].append(by_name.get("ops.dispatch", 0.0))
+    return {k: float(np.median(v)) if v else None
+            for k, v in parts.items()} | {"traced": len(parts["wall"])}
+
+
+def phase_coreset_serve(kernels, smi):
+    """The coreset server on the card: ``repro_torch.service`` behind its
+    HTTP API, driven only through ``repro_torch.client`` with no backend
+    pinned, every kernel's count at 0 just before it.  Every served loss
+    against the numpy oracle on the served coreset; ``/v1/stats``'s backend
+    counters; the launches of the kernels the path runs; one scoring call a
+    fusion; the forest against one fitted on numpy; the streamed coreset
+    against StreamingBuilder's over the same frames on numpy.  Returns the
+    launches."""
+    import threading
+    import numpy as np
+    from repro_torch import ops
+    from repro_torch.client import CoresetClient
+    from repro_torch.core import StreamingBuilder, random_tree_segmentation
+    from repro_torch.launch.serve_coresets import require_backends
+    from repro_torch.service import (CoresetEngine, make_server,
+                                     serve_forever_in_thread)
+    from repro_torch.trees import RandomForestRegressor
+    t_phase = time.perf_counter()
+    backends = require_backends()
+    check(set(backends.values()) == {"cuda"},
+          f"the server would dispatch to {backends}")
+    n, m = SERVE_SIGNAL["n"], SERVE_SIGNAL["m"]
+    rng = np.random.default_rng(1)
+
+    def trees(t):
+        segs = [random_tree_segmentation(n, m, 64, rng) for _ in range(t)]
+        return (np.stack([q.rects for q in segs]),
+                np.stack([q.labels for q in segs]))
+    plan = [[("single", *[a[0] for a in trees(1)]) for _ in range(SERVE_SINGLES)]
+            for _ in range(SERVE_CLIENTS)]
+    for c in range(SERVE_CLIENTS):      # a batch after each half of the singles
+        for j in range(SERVE_BATCHES):
+            at = (j + 1) * (SERVE_SINGLES // SERVE_BATCHES) + j
+            plan[c].insert(at, ("batch", *trees(SERVE_T)))
+    probe_single, probe_batch = [a[0] for a in trees(1)], trees(SERVE_T)
+    inline = [a[0] for a in trees(1)]
+    bands, _ = stream_frames()
+
+    for kern in kernels.values():
+        kern.launches = 0
+    ops.reset_dispatch_counts()
+    engine = CoresetEngine(workers=4)
+    srv = make_server(engine)
+    try:
+        serve_forever_in_thread(srv)
+        base = f"http://127.0.0.1:{srv.server_address[1]}"
+        cl = CoresetClient(base, encoding="binary", timeout=600, retries=0)
+        t0 = time.perf_counter()
+        cl.register_signal("slice1", synthetic=SERVE_SIGNAL)
+        register_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        built = cl.build("slice1", SERVE_K, SERVE_EPS)
+        build_s = time.perf_counter() - t0
+        check(built.served_from == "built", f"first build {built.served_from}")
+        t0 = time.perf_counter()
+        dom = cl.build("slice1", *SERVE_DOMINATED)
+        dominated_s = time.perf_counter() - t0
+        check(dom.served_from == "dominated" and dom.fingerprint == built.fingerprint,
+              f"({SERVE_DOMINATED}) served {dom.served_from}")
+
+        answers = [[] for _ in range(SERVE_CLIENTS)]
+        errors = []
+        barrier = threading.Barrier(SERVE_CLIENTS)
+
+        def client(c):
+            mine = CoresetClient(base, encoding="binary", timeout=600, retries=0)
+            try:
+                barrier.wait(60)
+                for kind, rects, labels in plan[c]:
+                    t0 = time.perf_counter()
+                    if kind == "single":
+                        r = mine.query_loss("slice1", rects, labels,
+                                            k=SERVE_K, eps=SERVE_EPS)
+                    else:
+                        r = mine.query_loss_batch("slice1", rects, labels,
+                                                  k=SERVE_K, eps=SERVE_EPS)
+                    answers[c].append((kind, time.perf_counter() - t0, r,
+                                       mine.last_trace_id))
+            except Exception as exc:  # noqa: BLE001 - reported, then failed
+                errors.append(f"client {c}: {type(exc).__name__}: {exc}")
+        threads = [threading.Thread(target=client, args=(c,))
+                   for c in range(SERVE_CLIENTS)]
+        t_traffic = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(900)
+        traffic_s = time.perf_counter() - t_traffic
+        check(not errors and all(not t.is_alive() for t in threads),
+              f"query traffic failed: {errors}")
+        # the same singles from one client, one at a time
+        alone_lat = []
+        for kind, rects, labels in plan[0]:
+            if kind == "single":
+                t0 = time.perf_counter()
+                cl.query_loss("slice1", rects, labels, k=SERVE_K, eps=SERVE_EPS)
+                alone_lat.append(time.perf_counter() - t0)
+        split = {kind: serve_split([a for c in answers for a in c if a[0] == kind])
+                 for kind in ("single", "batch")}
+
+        # the fusion probe: one single held in a longer window, then a batch
+        # that pops its bucket (the bucket is full at max_fuse trees)
+        calls0 = engine.metrics.get("loss_scoring_calls")
+        engine.queries.window = SERVE_PROBE_S
+        held = {}
+        probe = threading.Thread(target=lambda: held.update(r=cl.query_loss(
+            "slice1", *probe_single, k=SERVE_K, eps=SERVE_EPS)))
+        probe.start()
+        t_end = time.perf_counter() + SERVE_PROBE_S
+        while engine.queries.in_flight() < 1 and time.perf_counter() < t_end:
+            time.sleep(0.0005)
+        fused = CoresetClient(base, encoding="binary", timeout=600,
+                              retries=0).query_loss_batch(
+            "slice1", *probe_batch, k=SERVE_K, eps=SERVE_EPS)
+        probe.join(60)
+        engine.queries.window = 0.002
+        check(fused.fused_batch_size == SERVE_T + 1 and
+              held["r"].fused_batch_size == SERVE_T + 1,
+              f"the probe's batch rode with {fused.fused_batch_size} trees")
+        check(engine.metrics.get("loss_scoring_calls") - calls0 == 1,
+              "the probe's fusion took more than one scoring call")
+        t0 = time.perf_counter()
+        alone = cl.query_loss("slice1", *inline, k=SERVE_K, eps=SERVE_EPS,
+                              coalesce=False)
+        inline_s = time.perf_counter() - t0
+
+        t0 = time.perf_counter()
+        fit = cl.fit("slice1", SERVE_K, SERVE_EPS, n_estimators=SERVE_FOREST,
+                     predict=[[1, 1], [n // 2, m // 3], [n - 2, m - 2]])
+        fit_s = time.perf_counter() - t0
+
+        t0 = time.perf_counter()
+        for b in bands:
+            cl.ingest("stream", band=b)
+        ingest_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        streamed = cl.build("stream", STREAM_K, STREAM_EPS)
+        stream_build_s = time.perf_counter() - t0
+        stats = cl.stats()
+        launches = {name: kern.launches for name, kern in kernels.items()}
+        dispatches = {f"{o}/{b}": c for (o, b), c in ops.dispatch_counts().items()}
+        cs, _, how = engine.get_coreset("slice1", SERVE_K, SERVE_EPS)
+        check(how == "exact" and cs.fingerprint() == built.fingerprint,
+              "the served coreset left the cache")
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        engine.close()
+
+    # ------------------------------------------------------------- checks
+    counters = stats["metrics"]["counters"]
+    by_backend = {b: counters.get(f"ops_backend_{b}", 0) for b in ops.BACKENDS}
+    check(by_backend["cuda"] > 0 and by_backend["torch"] == 0
+          and by_backend["numpy"] == 0, f"loss scoring by backend {by_backend}")
+    check(counters["loss_scoring_calls"]
+          == counters["query_fused_dispatches"] + 1,
+          f"{counters['loss_scoring_calls']} scoring calls for "
+          f"{counters['query_fused_dispatches']} fusions and one inline query")
+    for name in ("sat_moments_f64", "fitting_loss_batched", "hist_f64_node"):
+        check(launches[name] > 0, f"kernel {name} was not launched by the server")
+    served = [(kind, rects, labels, dt, r) for c in range(SERVE_CLIENTS)
+              for (kind, rects, labels), (_, dt, r, _) in zip(plan[c], answers[c])]
+    served += [("single", *probe_single, None, held["r"]),
+               ("batch", *probe_batch, None, fused),
+               ("single", *inline, inline_s, alone)]
+    t0 = time.perf_counter()
+    worst = 0.0
+    for kind, rects, labels, _, r in served:
+        check(r.fingerprint == built.fingerprint and r.eps_eff == built.eps_eff,
+              "a query was served from another coreset")
+        if kind == "single":
+            check(r.backend == "cuda", f"a single query scored on {r.backend}")
+            got = np.array([r.loss])
+            want = ops.fitting_loss_batched(cs, rects[None], labels[None],
+                                            backend="numpy")
+        else:
+            got = r.losses
+            want = ops.fitting_loss_batched(cs, rects, labels, backend="numpy")
+        check(got.shape == want.shape and np.isfinite(got).all(),
+              "served losses not finite or of the wrong shape")
+        worst = max(worst, float(rel_err(got, want).max()))
+    oracle_s = time.perf_counter() - t0
+    check(worst <= SERVE_TOL, f"served losses vs the numpy oracle: {worst}")
+    check(np.isfinite(fit.predictions).all() and fit.model_cache == "fit",
+          "forest predictions not finite")
+    X, y, w = cs.as_points()
+    forest = RandomForestRegressor(n_estimators=SERVE_FOREST, max_leaves=SERVE_K,
+                                   random_state=0, hist_backend="numpy")
+    want_pred = forest.fit(X, y, sample_weight=w).predict(
+        np.array([[1, 1], [n // 2, m // 3], [n - 2, m - 2]], np.float64))
+    check(np.array_equal(fit.predictions, want_pred),
+          "the served forest differs from the one fitted on numpy")
+    with ops.backend_override("numpy"):
+        sb = StreamingBuilder(m=STREAM_M, k=STREAM_K, eps=STREAM_EPS)
+        for b in bands:
+            sb.insert_band(b)
+        one_shot = sb.result()
+    check(streamed.served_from == "built"
+          and streamed.fingerprint == one_shot.fingerprint(),
+          "the streamed coreset differs from StreamingBuilder's on numpy")
+
+    lat = {"single": [dt for c in answers for kind, dt, _, _ in c if kind == "single"],
+           "batch": [dt for c in answers for kind, dt, _, _ in c if kind == "batch"]}
+    naturally_fused = sum(r.fused_batch_size > SERVE_T for c in answers
+                          for kind, _, r, _ in c if kind == "batch")
+    emit("coreset_serve", signal=SERVE_SIGNAL, k=SERVE_K, eps=SERVE_EPS,
+         blocks=built.blocks, fingerprint=built.fingerprint,
+         register_s=register_s, build_s=build_s,
+         server_build_seconds=built.build_seconds,
+         dominated={"k_eps": list(SERVE_DOMINATED), "ms": dominated_s * 1e3},
+         traffic={"clients": SERVE_CLIENTS, "seconds": traffic_s,
+                  "single": {"requests": len(lat["single"]),
+                             "p50_ms": _pct(lat["single"], 50),
+                             "p99_ms": _pct(lat["single"], 99),
+                             "max_ms": max(lat["single"]) * 1e3,
+                             "split_p50_ms": split["single"]},
+                  "batch": {"requests": len(lat["batch"]), "trees": SERVE_T,
+                            "p50_ms": _pct(lat["batch"], 50),
+                            "p99_ms": _pct(lat["batch"], 99),
+                            "max_ms": max(lat["batch"]) * 1e3,
+                            "fused_with_singles": naturally_fused,
+                            "split_p50_ms": split["batch"]},
+                  "single_alone": {"requests": len(alone_lat),
+                                   "p50_ms": _pct(alone_lat, 50),
+                                   "p99_ms": _pct(alone_lat, 99)}},
+         inline_single_ms=inline_s * 1e3,
+         probe={"fused_batch_size": fused.fused_batch_size},
+         max_rel_err=worst, oracle_s=oracle_s,
+         fit={"trees": SERVE_FOREST, "seconds": fit_s,
+              "train_size": fit.train_size, "bitwise_numpy": True},
+         stream={"frames": len(bands), "ingest_s": ingest_s,
+                 "build_s": stream_build_s, "blocks": streamed.blocks,
+                 "eps_eff": streamed.eps_eff, "fingerprint": streamed.fingerprint},
+         ops_backend=by_backend,
+         scoring_calls=counters["loss_scoring_calls"],
+         fused_dispatches=counters["query_fused_dispatches"],
+         dispatches=dispatches, launches=launches, device=smi,
+         seconds=time.perf_counter() - t_phase)
+    return launches
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -1740,6 +2042,9 @@ def run(default_cache) -> int:
     lm_counts = phase_lm_serve(kernels, {r["name"]: r for r in fa_rows})
     counts.update(lm_counts)
 
+    # ------------------------------------------------- the coreset server
+    serve_counts = phase_coreset_serve(kernels, smi)
+
     # ------------------------------------ the op layer's tuning contract
     phase_autotune(kernels, default_cache)
 
@@ -1768,6 +2073,7 @@ def run(default_cache) -> int:
                       "source": f"src/repro_torch/csrc/{sources[r['name'][:3]]}.cu",
                       "replaces": replaces[r["name"]],
                       "launches": counts[r["name"]],
+                      "serving_launches": serve_counts[r["name"]],
                       "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                       "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                       "bound_by": r["bound_by"], "library_ms": r["library_ms"],

@@ -12,7 +12,8 @@ from .caratheodory import block_representatives, caratheodory_reduce
 from .coreset import SignalCoreset, signal_coreset, signal_coreset_to_size
 from .streaming import (StreamingBuilder, compose, recompress,
                         weighted_signal_coreset)
-from .sharded import band_bounds, shared_tolerance, sharded_coreset
+from .sharded import (band_bounds, fitting_loss_batched, shared_tolerance,
+                      sharded_coreset)
 from .fitting_loss import fitting_loss, true_loss, overlap_counts
 from .segmentation import (Segmentation, greedy_tree, optimal_labels,
                            optimal_tree_dp, random_tree_segmentation,
@@ -24,7 +25,7 @@ __all__ = [
     "block_representatives", "caratheodory_reduce", "SignalCoreset",
     "signal_coreset", "signal_coreset_to_size", "StreamingBuilder",
     "compose", "recompress", "weighted_signal_coreset", "band_bounds",
-    "shared_tolerance", "sharded_coreset", "fitting_loss", "true_loss",
-    "overlap_counts", "Segmentation", "greedy_tree", "optimal_labels",
+    "shared_tolerance", "sharded_coreset", "fitting_loss_batched",
+    "fitting_loss", "true_loss", "overlap_counts", "Segmentation", "greedy_tree", "optimal_labels",
     "optimal_tree_dp", "random_tree_segmentation", "segment_1d_dp",
 ]

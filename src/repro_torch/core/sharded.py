@@ -9,8 +9,11 @@ Here the per-band builds run on a thread pool (NumPy releases the GIL in the
 hot loops), and each band's integral images dispatch ``sat_moments`` to the
 card, several threads at once.
 
-The multi-device half of the reference module (the row-sharded integral
-images and the mesh-sharded batched loss) comes with the multi-device slice.
+``fitting_loss_batched`` is the serving engine's batched scorer: the
+dispatched ``repro_torch.ops.fitting_loss_batched``.  The multi-device half
+of the reference module (the row-sharded integral images and the
+mesh-sharded batched loss) is ROADMAP.md queue 1 item 3: ``mesh=`` takes
+only ``None`` until then.
 """
 from __future__ import annotations
 
@@ -24,7 +27,8 @@ from .segmentation import greedy_tree
 from .stats import PrefixStats
 from .streaming import compose, recompress
 
-__all__ = ["sharded_coreset", "shared_tolerance", "band_bounds"]
+__all__ = ["sharded_coreset", "shared_tolerance", "band_bounds",
+           "fitting_loss_batched"]
 
 
 def shared_tolerance(values: np.ndarray, k: int, eps: float,
@@ -76,3 +80,23 @@ def sharded_coreset(values: np.ndarray, k: int, eps: float, num_bands: int,
         parts = list(ex.map(lambda b: signal_coreset(y[b[0]:b[1]], k, eps, **kw), bands))
     cs = compose(parts, [b[0] for b in bands], n_total=n)
     return recompress(cs) if recompress_result else cs
+
+
+def fitting_loss_batched(cs: SignalCoreset, seg_rects: np.ndarray,
+                         seg_labels: np.ndarray, *, backend: str | None = None,
+                         mesh=None) -> np.ndarray:
+    """Evaluate T candidate segmentations at once: seg_rects (T, K, 4),
+    seg_labels (T, K).  Returns (T,).
+
+    The dispatched ``repro_torch.ops.fitting_loss_batched`` (numpy oracle,
+    plain torch on the CPU, or the batched CUDA kernel, by the selection
+    rules or the explicit ``backend=``).  A ``mesh`` raises: the
+    mesh-sharded scorer is not ported yet, and running it on one device
+    instead would hide that."""
+    if mesh is not None:
+        raise NotImplementedError(
+            "fitting_loss_batched(mesh=...) is not ported: the mesh-sharded "
+            "scorer is ROADMAP.md queue 1 item 3")
+    from repro_torch import ops
+    return ops.fitting_loss_batched(cs, np.asarray(seg_rects),
+                                    np.asarray(seg_labels), backend=backend)

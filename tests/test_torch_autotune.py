@@ -551,3 +551,22 @@ def test_comp_cumsum_is_an_inclusive_two_float_scan():
         hi, lo = comp_cumsum(*split_hi_lo(torch.as_tensor(x)), dim=1)
         got = hi.double().numpy() + lo.double().numpy()
         assert _rel(got, np.cumsum(x, axis=1)) <= 1e-12
+
+
+# ------------------------------------------------------------ service plane
+def test_engine_stats_surface_autotune(tune_cache):
+    from repro_torch.service.engine import CoresetEngine
+    _seed_entry(_OP, "torch", _SIZE, us=10.0, numpy_us=100.0)
+    assert ops.select_backend(_OP, _SIZE) == "torch"   # bump tuned_dispatch
+    eng = CoresetEngine(cache_bytes=1 << 20, workers=1)
+    try:
+        st = eng.stats()
+        assert st["ops_autotune"]["entries"] == 1
+        assert st["ops_autotune"]["enabled"] is True
+        counters = st["metrics"]["counters"]
+        assert counters.get("ops_autotune_tuned_dispatch", 0) >= 1
+        # render must expose the family for Prometheus scrapes
+        eng.sync_autotune_metrics()
+        assert "ops_autotune_tuned_dispatch" in eng.metrics.render()
+    finally:
+        eng.close()

@@ -1,9 +1,10 @@
 """repro_torch stands alone: it imports neither jax nor the reference
 package, at run time (a fresh interpreter running the CPU slices: a
 build, a loss query, a tune_k sweep, a row patch, a stream with a band
-replacement, a band-parallel build, and a reduced qwen2 prefill and greedy
-generation pinned to the plain attention) or anywhere in its source and in
-chip_smoke.py."""
+replacement, a band-parallel build, a reduced qwen2 prefill and greedy
+generation pinned to the plain attention, and the coreset server booted on
+an ephemeral port answering a loss query and a batch through the SDK) or
+anywhere in its source and in chip_smoke.py."""
 import ast
 import json
 import os
@@ -58,6 +59,25 @@ prompts = np.random.default_rng(3).integers(0, lm.vocab, size=(2, 5)).astype(np.
 logits, _ = prefill(lm, lm_params, {"tokens": torch.as_tensor(prompts)},
                     attn_impl="torch")
 tokens = generate(lm, lm_params, prompts, 3, greedy=True)
+from repro_torch.client import CoresetClient
+from repro_torch.service import CoresetEngine, make_server, serve_forever_in_thread
+with ops.backend_override("numpy"):
+    engine = CoresetEngine(workers=2)
+    srv = make_server(engine, port=0)
+    try:
+        serve_forever_in_thread(srv)
+        cl = CoresetClient(f"http://127.0.0.1:{srv.server_address[1]}",
+                           timeout=60, retries=0)
+        cl.register_signal("s", synthetic={"kind": "piecewise", "n": 48,
+                                           "m": 32, "k": 4, "seed": 1})
+        q = random_tree_segmentation(48, 32, 4, np.random.default_rng(2))
+        served = cl.query_loss("s", q.rects, q.labels, eps=0.3)
+        batch = cl.query_loss_batch("s", q.rects[None].repeat(3, 0),
+                                    q.labels[None].repeat(3, 0), eps=0.3)
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        engine.close()
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "repro"))
 print(json.dumps({"loss": loss, "blocks": cs.num_blocks, "bad": bad,
@@ -66,7 +86,9 @@ print(json.dumps({"loss": loss, "blocks": cs.num_blocks, "bad": bad,
                   "write_ops": write_ops,
                   "logits": list(logits.shape),
                   "finite": bool(torch.isfinite(logits.float()).all()),
-                  "tokens": list(tokens.shape)}))
+                  "tokens": list(tokens.shape),
+                  "served": [served.loss, served.backend, served.served_from],
+                  "batch": batch.losses.tolist()}))
 """
 
 
@@ -84,6 +106,9 @@ def test_cpu_slice_runs_without_jax_or_reference():
     assert {"delta_sat", "streaming_compress"} <= set(res["write_ops"])
     assert res["logits"] == [2, 5, 512] and res["finite"]
     assert res["tokens"] == [2, 8]
+    loss, backend, served_from = res["served"]
+    assert loss > 0 and backend == "numpy" and served_from == "built"
+    assert res["batch"] == [loss] * 3
 
 
 def _imported_roots(path):
