@@ -113,8 +113,16 @@ def _same_payload(a, b):
             assert pa[k] == pb[k], k
 
 
+def _own_messages(mod):
+    """The messages the protocol module defines (other modules of a
+    package, such as the reference's cluster RPC, register more once they
+    are imported)."""
+    return sorted(k for k, cls in mod._REGISTRY.items()
+                  if cls.__module__ == mod.__name__)
+
+
 def test_the_same_messages_and_fields():
-    assert sorted(RP._REGISTRY) == sorted(P._REGISTRY) == KINDS
+    assert _own_messages(RP) == _own_messages(P) == KINDS
     for kind in KINDS:
         ref_fields = [(f.name, f.default) for f in
                       RP.dataclasses.fields(RP._REGISTRY[kind])]
