@@ -10,7 +10,8 @@ eight 256 x 1024 frames; slice 4 (LM serving) with qwen2-0.5b at full width
 (24 layers, d_model 896, 14 query and 2 KV heads of 64, vocab 151,936) and
 random weights from a seeded generator; the coreset server (service/,
 client/) with slice 1's signal, its trees and batches over HTTP, a 20-tree
-forest and the stream's frames.
+forest and the stream's frames; the distributed serving plane (cluster/)
+with slice 1's signal over four worker processes on the one card.
 
 Phases, one JSON line each:
 
@@ -106,6 +107,30 @@ Phases, one JSON line each:
               hist_f64_node launched.  The build's seconds, p50 and p99 of
               both request kinds, the dominated request's ms and each
               kernel's launches (serving_launches in the kernel table)
+  coreset_cluster  the distributed serving plane on the card: 4 processes
+              of serve_coresets --role worker (unpinned, each boot line
+              "ops on ['cuda']", each in a session of its own, stopped in a
+              finally) and a ClusterEngine coordinator in this process
+              behind the HTTP API, one band a worker, every kernel's count
+              at 0 just before: slice 1's signal registered as the
+              synthetic spec (four 1024 x 4096 bands scattered), built at
+              (64, 0.3): fingerprint-equal to coreset_serve's, one gather,
+              no degraded build, each worker's worker_band_builds 1;
+              coreset_serve's query traffic and one uncoalesced single,
+              every loss within 1e-3 of the numpy oracle, ops_backend_cuda
+              every scoring call; rows 960-1215 replaced (two workers take
+              a band:delta, the re-cache gather heals nothing), the rebuild
+              equal to single-host sharded_coreset of the patched signal on
+              the card; a worker terminated (the same coreset, one degraded
+              build, its worker_up gauge 0) and restarted empty on its port
+              (the same coreset, one rejoin, one no_band heal, no new
+              degraded build); sat_moments_f64, sat_delta_f64,
+              fitting_loss and fitting_loss_batched launched in this
+              process (the workers' launches are in theirs, uncounted).
+              The build's, the gather's and the register's seconds beside
+              coreset_serve's, each worker's band build seconds, p50 and
+              p99 of both request kinds (cluster_launches in the kernel
+              table)
   autotune    last, and the only phase with a warm tuning cache (every
               phase runs with REPRO_TORCH_AUTOTUNE_CACHE pointed at a file
               in a temporary directory, cold until here; the default cache
@@ -218,6 +243,14 @@ SERVE_SIGNAL = {"kind": "piecewise", "n": 4096, "m": 4096, "k": 64, "seed": 0}
 SERVE_K, SERVE_EPS, SERVE_DOMINATED = 64, 0.3, (32, 0.4)
 SERVE_CLIENTS, SERVE_SINGLES, SERVE_BATCHES, SERVE_T = 4, 8, 2, 256
 SERVE_FOREST, SERVE_PROBE_S, SERVE_TOL = 20, 0.5, 1e-3
+# the distributed serving plane (cluster/): CLUSTER_WORKERS processes of
+# serve_coresets --role worker, one band each, behind a ClusterEngine in this
+# process; the delta replaces rows CLUSTER_DELTA, across the band boundary at
+# 1024, so two workers take a band:delta; worker CLUSTER_VICTIM is
+# terminated, then restarted empty on its port, and the coordinator probes a
+# down worker again CLUSTER_REPROBE_S after marking it down
+CLUSTER_WORKERS, CLUSTER_DELTA = 4, (960, 1216)
+CLUSTER_VICTIM, CLUSTER_REPROBE_S = 2, 1.0
 
 
 class CheckFailed(Exception):
@@ -1434,28 +1467,12 @@ def serve_split(answers) -> dict:
             for k, v in parts.items()} | {"traced": len(parts["wall"])}
 
 
-def phase_coreset_serve(kernels, smi):
-    """The coreset server on the card: ``repro_torch.service`` behind its
-    HTTP API, driven only through ``repro_torch.client`` with no backend
-    pinned, every kernel's count at 0 just before it.  Every served loss
-    against the numpy oracle on the served coreset; ``/v1/stats``'s backend
-    counters; the launches of the kernels the path runs; one scoring call a
-    fusion; the forest against one fitted on numpy; the streamed coreset
-    against StreamingBuilder's over the same frames on numpy.  Returns the
-    launches."""
-    import threading
+def serve_plan():
+    """Each of SERVE_CLIENTS clients' requests (SERVE_SINGLES single-tree
+    queries with a batch of SERVE_T trees after each half), and the tree
+    maker (64 leaves, rng seed 1) that drew them, for further requests."""
     import numpy as np
-    from repro_torch import ops
-    from repro_torch.client import CoresetClient
-    from repro_torch.core import StreamingBuilder, random_tree_segmentation
-    from repro_torch.launch.serve_coresets import require_backends
-    from repro_torch.service import (CoresetEngine, make_server,
-                                     serve_forever_in_thread)
-    from repro_torch.trees import RandomForestRegressor
-    t_phase = time.perf_counter()
-    backends = require_backends()
-    check(set(backends.values()) == {"cuda"},
-          f"the server would dispatch to {backends}")
+    from repro_torch.core import random_tree_segmentation
     n, m = SERVE_SIGNAL["n"], SERVE_SIGNAL["m"]
     rng = np.random.default_rng(1)
 
@@ -1469,6 +1486,104 @@ def phase_coreset_serve(kernels, smi):
         for j in range(SERVE_BATCHES):
             at = (j + 1) * (SERVE_SINGLES // SERVE_BATCHES) + j
             plan[c].insert(at, ("batch", *trees(SERVE_T)))
+    return plan, trees
+
+
+def client_traffic(base, plan):
+    """One binary SDK client a thread, each sending its part of ``plan``
+    to the server at ``base`` for ``slice1`` at (SERVE_K, SERVE_EPS), all
+    started together.  Returns each client's (kind, seconds, response,
+    trace id) and the traffic's seconds; any failure fails the run."""
+    import threading
+    from repro_torch.client import CoresetClient
+    answers = [[] for _ in plan]
+    errors = []
+    barrier = threading.Barrier(len(plan))
+
+    def client(c):
+        mine = CoresetClient(base, encoding="binary", timeout=600, retries=0)
+        try:
+            barrier.wait(60)
+            for kind, rects, labels in plan[c]:
+                t0 = time.perf_counter()
+                if kind == "single":
+                    r = mine.query_loss("slice1", rects, labels,
+                                        k=SERVE_K, eps=SERVE_EPS)
+                else:
+                    r = mine.query_loss_batch("slice1", rects, labels,
+                                              k=SERVE_K, eps=SERVE_EPS)
+                answers[c].append((kind, time.perf_counter() - t0, r,
+                                   mine.last_trace_id))
+        except Exception as exc:  # noqa: BLE001 - reported, then failed
+            errors.append(f"client {c}: {type(exc).__name__}: {exc}")
+    threads = [threading.Thread(target=client, args=(c,))
+               for c in range(len(plan))]
+    t_traffic = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(900)
+    traffic_s = time.perf_counter() - t_traffic
+    check(not errors and all(not t.is_alive() for t in threads),
+          f"query traffic failed: {errors}")
+    return answers, traffic_s
+
+
+def latencies(answers) -> dict:
+    return {kind: [dt for c in answers for k, dt, _, _ in c if k == kind]
+            for kind in ("single", "batch")}
+
+
+def served_worst(served, cs, built) -> float:
+    """Every served (kind, rects, labels, response) against the numpy
+    oracle on the served coreset ``cs``: each from ``built``'s coreset,
+    each single scored on the card, every loss finite; the largest
+    relative error, which must be within SERVE_TOL."""
+    import numpy as np
+    from repro_torch import ops
+    worst = 0.0
+    for kind, rects, labels, r in served:
+        check(r.fingerprint == built.fingerprint and r.eps_eff == built.eps_eff,
+              "a query was served from another coreset")
+        if kind == "single":
+            check(r.backend == "cuda", f"a single query scored on {r.backend}")
+            got = np.array([r.loss])
+            want = ops.fitting_loss_batched(cs, rects[None], labels[None],
+                                            backend="numpy")
+        else:
+            got = r.losses
+            want = ops.fitting_loss_batched(cs, rects, labels, backend="numpy")
+        check(got.shape == want.shape and np.isfinite(got).all(),
+              "served losses not finite or of the wrong shape")
+        worst = max(worst, float(rel_err(got, want).max()))
+    check(worst <= SERVE_TOL, f"served losses vs the numpy oracle: {worst}")
+    return worst
+
+
+def phase_coreset_serve(kernels, smi):
+    """The coreset server on the card: ``repro_torch.service`` behind its
+    HTTP API, driven only through ``repro_torch.client`` with no backend
+    pinned, every kernel's count at 0 just before it.  Every served loss
+    against the numpy oracle on the served coreset; ``/v1/stats``'s backend
+    counters; the launches of the kernels the path runs; one scoring call a
+    fusion; the forest against one fitted on numpy; the streamed coreset
+    against StreamingBuilder's over the same frames on numpy.  Returns the
+    launches and the build's fingerprint and seconds, for the cluster."""
+    import threading
+    import numpy as np
+    from repro_torch import ops
+    from repro_torch.client import CoresetClient
+    from repro_torch.core import StreamingBuilder
+    from repro_torch.launch.serve_coresets import require_backends
+    from repro_torch.service import (CoresetEngine, make_server,
+                                     serve_forever_in_thread)
+    from repro_torch.trees import RandomForestRegressor
+    t_phase = time.perf_counter()
+    backends = require_backends()
+    check(set(backends.values()) == {"cuda"},
+          f"the server would dispatch to {backends}")
+    n, m = SERVE_SIGNAL["n"], SERVE_SIGNAL["m"]
+    plan, trees = serve_plan()
     probe_single, probe_batch = [a[0] for a in trees(1)], trees(SERVE_T)
     inline = [a[0] for a in trees(1)]
     bands, _ = stream_frames()
@@ -1495,36 +1610,7 @@ def phase_coreset_serve(kernels, smi):
         check(dom.served_from == "dominated" and dom.fingerprint == built.fingerprint,
               f"({SERVE_DOMINATED}) served {dom.served_from}")
 
-        answers = [[] for _ in range(SERVE_CLIENTS)]
-        errors = []
-        barrier = threading.Barrier(SERVE_CLIENTS)
-
-        def client(c):
-            mine = CoresetClient(base, encoding="binary", timeout=600, retries=0)
-            try:
-                barrier.wait(60)
-                for kind, rects, labels in plan[c]:
-                    t0 = time.perf_counter()
-                    if kind == "single":
-                        r = mine.query_loss("slice1", rects, labels,
-                                            k=SERVE_K, eps=SERVE_EPS)
-                    else:
-                        r = mine.query_loss_batch("slice1", rects, labels,
-                                                  k=SERVE_K, eps=SERVE_EPS)
-                    answers[c].append((kind, time.perf_counter() - t0, r,
-                                       mine.last_trace_id))
-            except Exception as exc:  # noqa: BLE001 - reported, then failed
-                errors.append(f"client {c}: {type(exc).__name__}: {exc}")
-        threads = [threading.Thread(target=client, args=(c,))
-                   for c in range(SERVE_CLIENTS)]
-        t_traffic = time.perf_counter()
-        for t in threads:
-            t.start()
-        for t in threads:
-            t.join(900)
-        traffic_s = time.perf_counter() - t_traffic
-        check(not errors and all(not t.is_alive() for t in threads),
-              f"query traffic failed: {errors}")
+        answers, traffic_s = client_traffic(base, plan)
         # the same singles from one client, one at a time
         alone_lat = []
         for kind, rects, labels in plan[0]:
@@ -1595,29 +1681,14 @@ def phase_coreset_serve(kernels, smi):
           f"{counters['query_fused_dispatches']} fusions and one inline query")
     for name in ("sat_moments_f64", "fitting_loss_batched", "hist_f64_node"):
         check(launches[name] > 0, f"kernel {name} was not launched by the server")
-    served = [(kind, rects, labels, dt, r) for c in range(SERVE_CLIENTS)
-              for (kind, rects, labels), (_, dt, r, _) in zip(plan[c], answers[c])]
-    served += [("single", *probe_single, None, held["r"]),
-               ("batch", *probe_batch, None, fused),
-               ("single", *inline, inline_s, alone)]
+    served = [(kind, rects, labels, r) for c in range(SERVE_CLIENTS)
+              for (kind, rects, labels), (_, _, r, _) in zip(plan[c], answers[c])]
+    served += [("single", *probe_single, held["r"]),
+               ("batch", *probe_batch, fused),
+               ("single", *inline, alone)]
     t0 = time.perf_counter()
-    worst = 0.0
-    for kind, rects, labels, _, r in served:
-        check(r.fingerprint == built.fingerprint and r.eps_eff == built.eps_eff,
-              "a query was served from another coreset")
-        if kind == "single":
-            check(r.backend == "cuda", f"a single query scored on {r.backend}")
-            got = np.array([r.loss])
-            want = ops.fitting_loss_batched(cs, rects[None], labels[None],
-                                            backend="numpy")
-        else:
-            got = r.losses
-            want = ops.fitting_loss_batched(cs, rects, labels, backend="numpy")
-        check(got.shape == want.shape and np.isfinite(got).all(),
-              "served losses not finite or of the wrong shape")
-        worst = max(worst, float(rel_err(got, want).max()))
+    worst = served_worst(served, cs, built)
     oracle_s = time.perf_counter() - t0
-    check(worst <= SERVE_TOL, f"served losses vs the numpy oracle: {worst}")
     check(np.isfinite(fit.predictions).all() and fit.model_cache == "fit",
           "forest predictions not finite")
     X, y, w = cs.as_points()
@@ -1636,8 +1707,7 @@ def phase_coreset_serve(kernels, smi):
           and streamed.fingerprint == one_shot.fingerprint(),
           "the streamed coreset differs from StreamingBuilder's on numpy")
 
-    lat = {"single": [dt for c in answers for kind, dt, _, _ in c if kind == "single"],
-           "batch": [dt for c in answers for kind, dt, _, _ in c if kind == "batch"]}
+    lat = latencies(answers)
     naturally_fused = sum(r.fused_batch_size > SERVE_T for c in answers
                           for kind, _, r, _ in c if kind == "batch")
     emit("coreset_serve", signal=SERVE_SIGNAL, k=SERVE_K, eps=SERVE_EPS,
@@ -1673,6 +1743,298 @@ def phase_coreset_serve(kernels, smi):
          fused_dispatches=counters["query_fused_dispatches"],
          dispatches=dispatches, launches=launches, device=smi,
          seconds=time.perf_counter() - t_phase)
+    return launches, {"fingerprint": built.fingerprint, "build_s": build_s,
+                      "register_s": register_s,
+                      **{kind: {"p50_ms": _pct(lat[kind], 50),
+                                "p99_ms": _pct(lat[kind], 99)}
+                         for kind in ("single", "batch")}}
+
+
+class RoleProcess:
+    """A ``serve_coresets --role ...`` process in a session of its own,
+    with no backend pin in its environment; a thread drains its output and
+    reads ``url`` and ``ops`` off its boot line."""
+
+    def __init__(self, args):
+        import re
+        import threading
+        self._boot_re = re.compile(
+            r"listening on (http://[\d.]+:\d+).*ops on (\[[^\]]*\])")
+        env = {k: v for k, v in os.environ.items()
+               if k not in ("PYTHONPATH", "REPRO_TORCH_OPS_BACKEND")}
+        env["PYTHONPATH"] = str(ROOT / "src")
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.serve_coresets", *args],
+            cwd=ROOT, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True, bufsize=1,
+            start_new_session=True)
+        self.lines, self.url, self.ops = [], None, None
+        self._booted = threading.Event()
+        threading.Thread(target=self._drain, daemon=True).start()
+
+    def _drain(self):
+        for line in self.proc.stdout:
+            self.lines.append(line)
+            m = self._boot_re.search(line)
+            if m and self.url is None:
+                self.url, self.ops = m.group(1), m.group(2)
+                self._booted.set()
+        self._booted.set()
+
+    def wait(self, timeout: float) -> str:
+        self._booted.wait(timeout)
+        check(self.url is not None,
+              f"a role process did not boot (exit {self.proc.poll()}):\n"
+              + "".join(self.lines[-40:]))
+        return self.url
+
+    def stop(self) -> None:
+        """SIGTERM to its session, SIGKILL after 10 s."""
+        import signal
+        for sig in (signal.SIGTERM, signal.SIGKILL):
+            if self.proc.poll() is not None:
+                break
+            with contextlib.suppress(ProcessLookupError):
+                os.killpg(self.proc.pid, sig)
+            with contextlib.suppress(subprocess.TimeoutExpired):
+                self.proc.wait(10)
+        check(self.proc.poll() is not None, "a role process outlived SIGKILL")
+
+
+def worker_metrics(url: str) -> dict:
+    """A worker's unlabelled series from its ``/v1/metrics``."""
+    import urllib.request
+    with urllib.request.urlopen(url + "/v1/metrics", timeout=60) as resp:
+        text = resp.read().decode()
+    out = {}
+    for line in text.splitlines():
+        name, _, value = line.partition(" ")
+        if line and not line.startswith("#") and "{" not in name:
+            out[name] = float(value)
+    return out
+
+
+def _hist_sum(metrics, name: str) -> float:
+    h = metrics.snapshot()["latency"].get(name)
+    return h["count"] * h["mean_s"] if h else 0.0
+
+
+def phase_coreset_cluster(kernels, smi, serve):
+    """The distributed serving plane on the card: CLUSTER_WORKERS worker
+    processes (``serve_coresets --role worker``, unpinned, each on an
+    ephemeral port) and a ``ClusterEngine`` coordinator in this process
+    behind the HTTP API, one band a worker, driven through the binary SDK
+    with every kernel's count at 0 just before it.  Slice 1's signal is
+    registered as the synthetic spec (the coordinator scatters the bands)
+    and built; the coreset must be ``coreset_serve``'s (``serve``: its
+    fingerprint, build seconds and latencies).  Then ``coreset_serve``'s
+    query traffic and one uncoalesced single, each loss against the numpy
+    oracle; a delta across a band boundary, forwarded to the two workers
+    it touches, the rebuild equal to single-host ``sharded_coreset`` of the
+    patched signal on the card; a worker terminated (the same coreset from
+    a degraded build) and restarted empty on its port (the same coreset,
+    healed through no_band).  Every role process is stopped in ``finally``.
+    Returns the launches in this process (the workers' are in theirs)."""
+    import numpy as np
+    import torch
+    from repro_torch import ops
+    from repro_torch.client import CoresetClient
+    from repro_torch.cluster import ClusterEngine
+    from repro_torch.core import sharded_coreset
+    from repro_torch.service import make_server, serve_forever_in_thread
+    t_phase = time.perf_counter()
+    plan, trees = serve_plan()
+    inline = [a[0] for a in trees(1)]
+    r0, r1 = CLUSTER_DELTA
+    patch = np.random.default_rng(2).normal(size=(r1 - r0, SERVE_SIGNAL["m"]))
+    workers, engine, srv = [], None, None
+    try:
+        t0 = time.perf_counter()
+        workers = [RoleProcess(["--role", "worker", "--host", "127.0.0.1",
+                                "--port", "0", "--worker-id", f"cw{i}"])
+                   for i in range(CLUSTER_WORKERS)]
+        peers = [w.wait(600) for w in workers]
+        boot_s = time.perf_counter() - t0
+        check(all(w.ops == "['cuda']" for w in workers),
+              f"the workers dispatch to {[w.ops for w in workers]}")
+
+        for kern in kernels.values():
+            kern.launches = 0
+        ops.reset_dispatch_counts()
+        engine = ClusterEngine(peers, workers=4, reprobe_s=CLUSTER_REPROBE_S,
+                               rpc_timeout=600.0)
+        check(engine.num_bands == CLUSTER_WORKERS, "not one band a worker")
+        probe = engine.probe_workers(timeout=60)
+        check(all(h.get("role") == "worker" for h in probe.values()),
+              f"worker probe: {probe}")
+        srv = make_server(engine)
+        serve_forever_in_thread(srv)
+        base = f"http://127.0.0.1:{srv.server_address[1]}"
+        cl = CoresetClient(base, encoding="binary", timeout=600, retries=0)
+        met = engine.metrics
+
+        t0 = time.perf_counter()
+        cl.register_signal("slice1", synthetic=SERVE_SIGNAL)
+        register_s = time.perf_counter() - t0
+        check(met.get("cluster_bands_scattered") == CLUSTER_WORKERS,
+              f"{met.get('cluster_bands_scattered')} bands scattered")
+        t0 = time.perf_counter()
+        built = cl.build("slice1", SERVE_K, SERVE_EPS)
+        build_s = time.perf_counter() - t0
+        gather_s = _hist_sum(met, "cluster_gather")
+        check(built.served_from == "built"
+              and built.fingerprint == serve["fingerprint"],
+              "the cluster's coreset differs from coreset_serve's")
+        check(met.get("cluster_gathers") == 1
+              and met.get("cluster_degraded_builds") == 0,
+              f"gathers {met.get('cluster_gathers')}, degraded "
+              f"{met.get('cluster_degraded_builds')}")
+        first = [worker_metrics(u) for u in peers]
+        check(all(w.get("coreset_worker_band_builds") == 1 for w in first),
+              "a worker did not build its band once")
+
+        answers, traffic_s = client_traffic(base, plan)
+        t0 = time.perf_counter()
+        alone = cl.query_loss("slice1", *inline, k=SERVE_K, eps=SERVE_EPS,
+                              coalesce=False)
+        inline_s = time.perf_counter() - t0
+        cs, _, how = engine.get_coreset("slice1", SERVE_K, SERVE_EPS)
+        check(how == "exact" and cs.fingerprint() == built.fingerprint,
+              "the served coreset left the cache")
+        y = np.array(engine.signal("slice1").dense(), copy=True)
+
+        # the write path: two workers take a band:delta, the re-cache build
+        # (the BuildScheduler's) gathers once more
+        gathers0 = _hist_sum(met, "cluster_gather")
+        t0 = time.perf_counter()
+        cl.ingest_delta("slice1", patch, row0=r0)
+        delta_s = time.perf_counter() - t0
+        t_end = time.perf_counter() + 600
+        while engine.scheduler.in_flight():
+            check(time.perf_counter() < t_end, "the re-cache build hung")
+            time.sleep(0.01)
+        recache_s = time.perf_counter() - t0
+        recache_gather_s = _hist_sum(met, "cluster_gather") - gathers0
+        check(met.get("cluster_deltas_forwarded") == 2,
+              f"{met.get('cluster_deltas_forwarded')} deltas forwarded")
+        applied = [int(worker_metrics(u).get("coreset_worker_deltas_applied",
+                                             0)) for u in peers]
+        check(applied == [1, 1, 0, 0], f"worker deltas applied: {applied}")
+        check(met.get("cluster_gathers") == 2
+              and sum(met.get(f'cluster_band_heals{{code="{c}"}}')
+                      for c in ("no_band", "stale_band")) == 0,
+              "the re-cache gather did not find every worker current")
+        rebuilt = cl.build("slice1", SERVE_K, SERVE_EPS)
+        check(rebuilt.served_from == "exact", f"rebuild {rebuilt.served_from}")
+
+        # a worker terminated: its band degrades to a local build
+        victim_url = peers[CLUSTER_VICTIM]
+        workers[CLUSTER_VICTIM].stop()
+        engine.cache.invalidate_signal("slice1", keep_version=None)
+        t0 = time.perf_counter()
+        degraded = cl.build("slice1", SERVE_K, SERVE_EPS)
+        degraded_s = time.perf_counter() - t0
+        check(degraded.fingerprint == rebuilt.fingerprint,
+              "the degraded build's coreset differs")
+        check(met.get("cluster_degraded_builds") == 1
+              and met.get_gauge("cluster_worker_up", worker=victim_url) == 0.0,
+              "the terminated worker was not degraded around")
+
+        # restarted empty on the same port: the next build after the
+        # cooldown heals it through no_band
+        fresh = RoleProcess(["--role", "worker", "--host", "127.0.0.1",
+                             "--port", victim_url.rsplit(":", 1)[1],
+                             "--worker-id", f"cw{CLUSTER_VICTIM}b"])
+        workers.append(fresh)
+        check(fresh.wait(600) == victim_url and fresh.ops == "['cuda']",
+              f"the restarted worker: {fresh.url}, ops on {fresh.ops}")
+        time.sleep(CLUSTER_REPROBE_S)
+        engine.cache.invalidate_signal("slice1", keep_version=None)
+        t0 = time.perf_counter()
+        rejoined = cl.build("slice1", SERVE_K, SERVE_EPS)
+        rejoin_s = time.perf_counter() - t0
+        check(rejoined.fingerprint == rebuilt.fingerprint,
+              "the rejoined build's coreset differs")
+        check(met.get("cluster_worker_rejoins") == 1
+              and met.get('cluster_band_heals{code="no_band"}') == 1
+              and met.get("cluster_degraded_builds") == 1
+              and met.get_gauge("cluster_worker_up", worker=victim_url) == 1.0,
+              "the restarted worker did not rejoin")
+        check(worker_metrics(fresh.url).get("coreset_worker_band_builds") == 1,
+              "the restarted worker did not build its band")
+        launches = {name: kern.launches for name, kern in kernels.items()}
+        dispatches = {f"{o}/{b}": c for (o, b), c in ops.dispatch_counts().items()}
+        counters = met.snapshot()["counters"]
+        stats = cl.stats()["cluster"]
+    finally:
+        if srv is not None:
+            srv.shutdown()
+            srv.server_close()
+        if engine is not None:
+            engine.close()
+        for w in workers:
+            w.stop()
+
+    by_backend = {b: counters.get(f"ops_backend_{b}", 0) for b in ops.BACKENDS}
+    check(by_backend["cuda"] == counters["loss_scoring_calls"] > 0
+          and by_backend["torch"] == 0 and by_backend["numpy"] == 0,
+          f"{counters['loss_scoring_calls']} scoring calls by backend "
+          f"{by_backend}")
+    for name in ("sat_moments_f64", "sat_delta_f64", "fitting_loss",
+                 "fitting_loss_batched"):
+        check(launches[name] > 0, f"kernel {name} was not launched by the "
+                                  f"coordinator")
+    served = [(kind, rects, labels, r) for c in range(SERVE_CLIENTS)
+              for (kind, rects, labels), (_, _, r, _) in zip(plan[c], answers[c])]
+    served.append(("single", *inline, alone))
+    t0 = time.perf_counter()
+    worst = served_worst(served, cs, built)
+    oracle_s = time.perf_counter() - t0
+    # the patched signal's single-host band-parallel build on the card
+    y[r0:r1] = patch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    one_host = sharded_coreset(y, SERVE_K, SERVE_EPS, num_bands=CLUSTER_WORKERS)
+    one_host_s = time.perf_counter() - t0
+    check(one_host.fingerprint() == rebuilt.fingerprint,
+          "the patched cluster build differs from single-host sharded_coreset")
+
+    lat = latencies(answers)
+    emit("coreset_cluster", signal=SERVE_SIGNAL, k=SERVE_K, eps=SERVE_EPS,
+         workers=CLUSTER_WORKERS, worker_ops=[w.ops for w in workers],
+         worker_boot_s=boot_s, blocks=built.blocks,
+         fingerprint=built.fingerprint,
+         fingerprint_equals_coreset_serve=True,
+         register_s=register_s, build_s=build_s,
+         coreset_serve_build_s=serve["build_s"],
+         coreset_serve_register_s=serve["register_s"],
+         cluster_gather_s=gather_s,
+         worker_band_build_s=[w.get("coreset_worker_band_build_seconds_sum")
+                              for w in first],
+         server_build_seconds=built.build_seconds,
+         traffic={"clients": SERVE_CLIENTS, "seconds": traffic_s,
+                  **{kind: {"requests": len(lat[kind]),
+                            "p50_ms": _pct(lat[kind], 50),
+                            "p99_ms": _pct(lat[kind], 99),
+                            "max_ms": max(lat[kind]) * 1e3,
+                            "coreset_serve_p50_ms": serve[kind]["p50_ms"],
+                            "coreset_serve_p99_ms": serve[kind]["p99_ms"]}
+                     for kind in ("single", "batch")}},
+         inline_single_ms=inline_s * 1e3, max_rel_err=worst, oracle_s=oracle_s,
+         delta={"rows": list(CLUSTER_DELTA), "request_s": delta_s,
+                "recache_s": recache_s, "recache_gather_s": recache_gather_s,
+                "forwarded": counters.get("cluster_deltas_forwarded"),
+                "worker_deltas_applied": applied,
+                "fingerprint": rebuilt.fingerprint,
+                "single_host_sharded_coreset_s": one_host_s,
+                "equals_single_host": True},
+         degraded={"worker": victim_url, "build_s": degraded_s},
+         rejoin={"build_s": rejoin_s, "fingerprint_kept": True},
+         cluster_stats=stats,
+         counters={k: v for k, v in counters.items()
+                   if k.startswith(("cluster_", "loss_scoring", "ops_backend_"))},
+         ops_backend=by_backend, dispatches=dispatches, launches=launches,
+         device=smi, seconds=time.perf_counter() - t_phase)
     return launches
 
 
@@ -2043,7 +2405,10 @@ def run(default_cache) -> int:
     counts.update(lm_counts)
 
     # ------------------------------------------------- the coreset server
-    serve_counts = phase_coreset_serve(kernels, smi)
+    serve_counts, serve = phase_coreset_serve(kernels, smi)
+
+    # ------------------------------------- the distributed serving plane
+    cluster_counts = phase_coreset_cluster(kernels, smi, serve)
 
     # ------------------------------------ the op layer's tuning contract
     phase_autotune(kernels, default_cache)
@@ -2074,6 +2439,7 @@ def run(default_cache) -> int:
                       "replaces": replaces[r["name"]],
                       "launches": counts[r["name"]],
                       "serving_launches": serve_counts[r["name"]],
+                      "cluster_launches": cluster_counts[r["name"]],
                       "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                       "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                       "bound_by": r["bound_by"], "library_ms": r["library_ms"],

@@ -12,8 +12,8 @@ card, several threads at once.
 ``fitting_loss_batched`` is the serving engine's batched scorer: the
 dispatched ``repro_torch.ops.fitting_loss_batched``.  The multi-device half
 of the reference module (the row-sharded integral images and the
-mesh-sharded batched loss) is ROADMAP.md queue 1 item 3: ``mesh=`` takes
-only ``None`` until then.
+mesh-sharded batched loss) is the mesh half of core/sharded.py
+(ROADMAP.md, modules to port): ``mesh=`` takes only ``None`` until then.
 """
 from __future__ import annotations
 
@@ -96,7 +96,8 @@ def fitting_loss_batched(cs: SignalCoreset, seg_rects: np.ndarray,
     if mesh is not None:
         raise NotImplementedError(
             "fitting_loss_batched(mesh=...) is not ported: the mesh-sharded "
-            "scorer is ROADMAP.md queue 1 item 3")
+            "scorer is the mesh half of core/sharded.py (ROADMAP.md, "
+            "modules to port)")
     from repro_torch import ops
     return ops.fitting_loss_batched(cs, np.asarray(seg_rects),
                                     np.asarray(seg_labels), backend=backend)

@@ -2,10 +2,15 @@
 
   python -m repro_torch.launch.serve_coresets --port 8787      # serve
   python -m repro_torch.launch.serve_coresets --smoke          # self-check
+  python -m repro_torch.launch.serve_coresets --role worker --port 9001
+  python -m repro_torch.launch.serve_coresets --role coordinator \
+      --peers http://127.0.0.1:9001,http://127.0.0.1:9002      # cluster
 
 The server runs its loss queries, builds and forest fits on the card.  On
 the CPU pin a backend (``REPRO_TORCH_OPS_BACKEND=numpy`` or ``torch``):
-with neither a card nor a pin it does not boot.
+with neither a card nor a pin it does not boot.  Every role (``single``,
+``worker``, ``coordinator``) boots the same way, and its boot line names
+the backends its ops dispatch to (``ops on [...]``).
 
 ``--smoke`` boots the server on an ephemeral port and drives it exclusively
 through the typed SDK (``repro_torch.client.CoresetClient`` — both the binary and
@@ -215,6 +220,23 @@ def _runtime_hygiene(backends: dict, verbose: bool = True) -> None:
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__)
+    ap.add_argument("--role", choices=("single", "worker", "coordinator"),
+                    default="single",
+                    help="single = the classic one-process engine; worker = "
+                         "a ShardWorker band server (cluster data plane); "
+                         "coordinator = ClusterEngine scattering dense "
+                         "builds to --peers behind the full v1 API")
+    ap.add_argument("--peers", default="",
+                    help="coordinator only: comma-separated worker base "
+                         "URLs, e.g. http://10.0.0.2:9001,http://10.0.0.3:9001")
+    ap.add_argument("--worker-id", default=None,
+                    help="worker only: stable id reported in acks/metrics "
+                         "(default host:port)")
+    ap.add_argument("--rpc-timeout", type=float, default=30.0,
+                    help="coordinator only: per-band-RPC deadline seconds")
+    ap.add_argument("--reprobe-s", type=float, default=1.0,
+                    help="coordinator only: cooldown before re-probing a "
+                         "down worker")
     ap.add_argument("--host", default="127.0.0.1")
     ap.add_argument("--port", type=int, default=8787)
     ap.add_argument("--cache-mb", type=int, default=256)
@@ -265,6 +287,9 @@ def main() -> None:
     ap.add_argument("--smoke", action="store_true",
                     help="self-check with concurrent SDK clients, then exit")
     args = ap.parse_args()
+    peers = [p.strip() for p in args.peers.split(",") if p.strip()]
+    if args.role == "coordinator" and not peers:
+        ap.error("--role coordinator requires --peers")
 
     backends = require_backends()
     if not args.no_runtime_hygiene:
@@ -300,13 +325,46 @@ def main() -> None:
     elif args.slow_ms is not None:
         ap.error("--slow-ms requires --access-log")
 
-    engine = CoresetEngine(cache_bytes=args.cache_mb << 20,
-                           workers=args.workers,
-                           num_bands=args.num_bands,
-                           query_window=args.query_window_ms / 1e3,
-                           query_max_fuse=args.query_max_fuse,
-                           coalesce=not args.no_coalesce,
-                           admission=admission)
+    ops_on = sorted(set(backends.values()))
+    if args.role == "worker":
+        from repro_torch.cluster import ShardWorker, make_worker_server
+        worker = ShardWorker(worker_id=args.worker_id
+                             or f"{args.host}:{args.port}")
+        srv = make_worker_server(worker, host=args.host, port=args.port)
+        print(f"[serve_coresets] worker {worker.worker_id} listening on "
+              f"http://{args.host}:{srv.server_address[1]}  "
+              f"(POST /v1/worker/band:assign band:delta band:build; "
+              f"GET /v1/healthz /v1/metrics; ops on {ops_on})", flush=True)
+        try:
+            srv.serve_forever()
+        except KeyboardInterrupt:
+            pass
+        finally:
+            srv.shutdown()
+            srv.server_close()
+        return
+
+    if args.role == "coordinator":
+        from repro_torch.cluster import ClusterEngine
+        engine = ClusterEngine(peers, rpc_timeout=args.rpc_timeout,
+                               reprobe_s=args.reprobe_s,
+                               cache_bytes=args.cache_mb << 20,
+                               workers=args.workers,
+                               query_window=args.query_window_ms / 1e3,
+                               query_max_fuse=args.query_max_fuse,
+                               coalesce=not args.no_coalesce,
+                               admission=admission)
+        up = sum("error" not in h for h in engine.probe_workers().values())
+        print(f"[serve_coresets] coordinator: {up}/{len(peers)} workers up",
+              flush=True)
+    else:
+        engine = CoresetEngine(cache_bytes=args.cache_mb << 20,
+                               workers=args.workers,
+                               num_bands=args.num_bands,
+                               query_window=args.query_window_ms / 1e3,
+                               query_max_fuse=args.query_max_fuse,
+                               coalesce=not args.no_coalesce,
+                               admission=admission)
     srv = make_server(engine, host=args.host, port=args.port,
                       access_log=access_fp, slow_ms=args.slow_ms)
     print(f"[serve_coresets] listening on http://{args.host}:"
@@ -314,8 +372,8 @@ def main() -> None:
           f"/v1/build /v1/query/loss /v1/query/loss:batch /v1/query/fit "
           f"/v1/query/compress; GET /v1/healthz /v1/stats /v1/metrics "
           f"/v1/traces:recent /v1/trace/{{id}}; "
-          f"legacy unversioned routes deprecated; ops on "
-          f"{sorted(set(backends.values()))})", flush=True)
+          f"legacy unversioned routes deprecated; ops on {ops_on})",
+          flush=True)
     try:
         srv.serve_forever()
     except KeyboardInterrupt:

@@ -270,7 +270,8 @@ class CoresetEngine:
         if mesh is not None:
             raise NotImplementedError(
                 "CoresetEngine runs on one device: mesh= takes only None "
-                "(the multi-device scorer is ROADMAP.md queue 1 item 3)")
+                "(the multi-device scorer is the mesh half of "
+                "core/sharded.py (ROADMAP.md, modules to port))")
         self.metrics = metrics or ServiceMetrics()
         # optional front-door admission control (service/admission.py):
         # consulted by the HTTP layer and the cluster coordinator, never by

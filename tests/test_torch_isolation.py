@@ -2,9 +2,10 @@
 package, at run time (a fresh interpreter running the CPU slices: a
 build, a loss query, a tune_k sweep, a row patch, a stream with a band
 replacement, a band-parallel build, a reduced qwen2 prefill and greedy
-generation pinned to the plain attention, and the coreset server booted on
-an ephemeral port answering a loss query and a batch through the SDK) or
-anywhere in its source and in chip_smoke.py."""
+generation pinned to the plain attention, the coreset server booted on
+an ephemeral port answering a loss query and a batch through the SDK, and a
+cluster coordinator gathering a build from two in-process workers) or
+anywhere in its source, in chip_smoke.py and in the port's scripts."""
 import ast
 import json
 import os
@@ -78,6 +79,25 @@ with ops.backend_override("numpy"):
         srv.shutdown()
         srv.server_close()
         engine.close()
+import threading
+from repro_torch.cluster import ClusterEngine, ShardWorker, make_worker_server
+with ops.backend_override("numpy"):
+    wsrv = [make_worker_server(ShardWorker(f"w{i}"), port=0) for i in range(2)]
+    coord = ClusterEngine([f"http://127.0.0.1:{w.server_address[1]}"
+                           for w in wsrv], workers=2)
+    try:
+        for w in wsrv:
+            threading.Thread(target=w.serve_forever, daemon=True).start()
+        z2 = piecewise_signal(64, 16, 3, seed=4)
+        coord.register_signal("s", z2)
+        gathered = coord.get_coreset("s", 3, 0.3)[0].fingerprint()
+        gathers = coord.metrics.get("cluster_gathers")
+        one = sharded_coreset(z2, 3, 0.3, 2).fingerprint()
+    finally:
+        coord.close()
+        for w in wsrv:
+            w.shutdown()
+            w.server_close()
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "repro"))
 print(json.dumps({"loss": loss, "blocks": cs.num_blocks, "bad": bad,
@@ -88,7 +108,8 @@ print(json.dumps({"loss": loss, "blocks": cs.num_blocks, "bad": bad,
                   "finite": bool(torch.isfinite(logits.float()).all()),
                   "tokens": list(tokens.shape),
                   "served": [served.loss, served.backend, served.served_from],
-                  "batch": batch.losses.tolist()}))
+                  "batch": batch.losses.tolist(),
+                  "cluster": [gathers, gathered == one]}))
 """
 
 
@@ -109,6 +130,7 @@ def test_cpu_slice_runs_without_jax_or_reference():
     loss, backend, served_from = res["served"]
     assert loss > 0 and backend == "numpy" and served_from == "built"
     assert res["batch"] == [loss] * 3
+    assert res["cluster"] == [1, True]
 
 
 def _imported_roots(path):
@@ -123,8 +145,13 @@ def _imported_roots(path):
 
 def test_sources_import_neither_jax_nor_reference():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
-    files += [ROOT / "chip_smoke.py", ROOT / "scripts" / "flash_attention_turns.py",
-              ROOT / "scripts" / "sat_delta_turns.py"]
+    scripts = sorted({*(ROOT / "scripts").glob("*_turns.py"),
+                      *(ROOT / "scripts").glob("*_torch.py")})
+    assert {p.name for p in scripts} >= {
+        "fitting_loss_turns.py", "flash_attention_turns.py",
+        "hist_f32_turns.py", "sat_delta_turns.py", "serve_turns.py",
+        "cluster_gate_torch.py"}
+    files += [ROOT / "chip_smoke.py", *scripts]
     assert len(files) > 10
     bad = [f"{p.relative_to(ROOT)}:{line} imports {mod}"
            for p in files for mod, line in _imported_roots(p)

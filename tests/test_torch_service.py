@@ -310,7 +310,8 @@ def test_server_answers_5xx_without_a_card_or_a_pin(env):
 
 # ------------------------------------------------------------------ mesh
 def test_mesh_is_refused_and_the_plain_scorer_is_the_reference_s(env):
-    with pytest.raises(NotImplementedError, match="queue 1 item 3"):
+    with pytest.raises(NotImplementedError,
+                       match="mesh half of core/sharded.py"):
         CoresetEngine(mesh=object())
     y = _signal()
     with _pinned():
@@ -321,7 +322,8 @@ def test_mesh_is_refused_and_the_plain_scorer_is_the_reference_s(env):
         want = ref_sharded.fitting_loss_batched(
             ref_signal_coreset(y, KMAX, 0.2), rects, labels)
     assert np.array_equal(got, want)
-    with pytest.raises(NotImplementedError, match="queue 1 item 3"):
+    with pytest.raises(NotImplementedError,
+                       match="mesh half of core/sharded.py"):
         sharded.fitting_loss_batched(cs, rects, labels, mesh=object(),
                                      backend="numpy")
 
