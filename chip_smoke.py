@@ -11,7 +11,10 @@ eight 256 x 1024 frames; slice 4 (LM serving) with qwen2-0.5b at full width
 random weights from a seeded generator; the coreset server (service/,
 client/) with slice 1's signal, its trees and batches over HTTP, a 20-tree
 forest and the stream's frames; the distributed serving plane (cluster/)
-with slice 1's signal over four worker processes on the one card.
+with slice 1's signal over four worker processes on the one card; the mesh
+half (core/sharded.py's sat_pjit and fitting_loss_batched(mesh=),
+CoresetEngine(mesh=)) with slice 1's signal on one NCCL rank and on four
+gloo ranks of the one card.
 
 Phases, one JSON line each:
 
@@ -131,6 +134,26 @@ Phases, one JSON line each:
               coreset_serve's, each worker's band build seconds, p50 and
               p99 of both request kinds (cluster_launches in the kernel
               table)
+  coreset_mesh  the mesh half on the card, every rank a process of this
+              script (--mesh-rank; this process starts no group), each rank
+              zeroing its kernels' counts just before its path: one NCCL
+              rank, CoresetEngine(mesh=make_local_mesh(1)) on slice 1's
+              signal (coreset_serve's fingerprint) and coreset_serve's eight
+              T = 256 batches, bitwise the engine without a mesh on the same
+              coreset and within 1e-5 of the numpy oracle, eight
+              ops_backend_cuda+all_reduce scoring calls, then sat_pjit at
+              4096 x 4096 float32 against sat_moments; two NCCL ranks on the
+              one card, which NCCL must refuse ("Duplicate GPU detected");
+              four gloo ranks on the one card (their collectives through the
+              host), the sharded scorer on the same coreset (handed over in
+              a .npz, its fingerprint checked) and batches within 1e-4 of the
+              one-device kernel and rtol 2e-3 / atol 1e-3 of the oracle, a
+              padding-only slab exactly 0 on the card, and sat_pjit with
+              1,024 rows a rank, gathered, against sat_moments.  The ranks'
+              launches summed (kernel 4 one a rank a call, kernel 2 one a
+              rank a band; mesh_launches in the kernel table); host ms of a
+              scorer call, a sat_pjit and each collective on both meshes
+              beside the one-device scorer's and sat_pjit's
   autotune    last, and the only phase with a warm tuning cache (every
               phase runs with REPRO_TORCH_AUTOTUNE_CACHE pointed at a file
               in a temporary directory, cold until here; the default cache
@@ -154,6 +177,7 @@ the repro_torch package only.
 from __future__ import annotations
 
 import contextlib
+import hashlib
 import json
 import os
 import pathlib
@@ -251,6 +275,17 @@ SERVE_FOREST, SERVE_PROBE_S, SERVE_TOL = 20, 0.5, 1e-3
 # down worker again CLUSTER_REPROBE_S after marking it down
 CLUSTER_WORKERS, CLUSTER_DELTA = 4, (960, 1216)
 CLUSTER_VICTIM, CLUSTER_REPROBE_S = 2, 1.0
+# the mesh (core/sharded.py's mesh half, CoresetEngine(mesh=)): one NCCL rank,
+# the mesh a one-card host has; MESH_RANKS gloo ranks on the one card (NCCL
+# refuses two ranks on one card, which two NCCL ranks confirm); each rank a
+# process of this script (--mesh-rank), stopped after MESH_TIMEOUT_S.  The
+# sharded scorer is held to the one-device kernel (the batched-against-dense
+# gate, scripts/ci_smoke.sh) and to the oracle at the reference mesh test's
+# bars (tests/test_ops.py); the one-rank engine's losses bitwise to the
+# engine without a mesh
+MESH_RANKS, MESH_TIMEOUT_S, MESH_REPS = 4, 300, 10
+MESH_KERNEL_RTOL, MESH_ORACLE_RTOL, MESH_ORACLE_ATOL = 1e-4, 2e-3, 1e-3
+MESH_ENGINE_TOL = 1e-5
 
 
 class CheckFailed(Exception):
@@ -2038,6 +2073,397 @@ def phase_coreset_cluster(kernels, smi, serve):
     return launches
 
 
+def rank_kernels() -> dict:
+    """The kernels a mesh rank can launch, by their table names."""
+    from repro_torch.kernels.fitting_loss import kernel as fk
+    from repro_torch.kernels.histsplit import kernel as hk
+    from repro_torch.kernels.sat2d import kernel as sk
+    return {"sat_moments_f64": sk.SAT_MOMENTS_F64,
+            "sat_moments_f32": sk.SAT_MOMENTS_F32,
+            "sat_delta_f64": sk.SAT_DELTA_F64, "sat_delta_f32": sk.SAT_DELTA_F32,
+            "sat_stack_f64": sk.SAT_STACK_F64, "sat_stack_f32": sk.SAT_STACK_F32,
+            "fitting_loss": fk.FITTING_LOSS,
+            "fitting_loss_batched": fk.FITTING_LOSS_BATCHED,
+            "hist_f64_node": hk.HIST_F64_NODE}
+
+
+def _sync_ms(fn, reps: int) -> float:
+    """Host ms of one call of ``fn`` ending in a synchronise, after one."""
+    import torch
+    return host_ms(lambda: (fn(), torch.cuda.synchronize()), reps)
+
+
+def _save_coreset(path, cs) -> None:
+    import numpy as np
+    d = cs.to_arrays()
+    d["bicriteria"] = json.dumps(d["bicriteria"])
+    np.savez(path, **d)
+
+
+def _load_coreset(path):
+    import numpy as np
+    from repro_torch.core import SignalCoreset
+    with np.load(path) as z:
+        d = {key: z[key] for key in z.files}
+    d["bicriteria"] = json.loads(str(d["bicriteria"]))
+    return SignalCoreset.from_arrays(d)
+
+
+def _batches():
+    """coreset_serve's batches: each client's T = SERVE_T trees, in order."""
+    plan, _ = serve_plan()
+    return [(rects, labels) for c in plan for kind, rects, labels in c
+            if kind == "batch"]
+
+
+def _rank_duplicate(spec) -> dict:
+    """Two NCCL ranks on the one card: the first collective must refuse."""
+    import torch
+    import torch.distributed as dist
+    t = torch.ones(4, device="cuda")
+    try:
+        dist.all_reduce(t)
+        torch.cuda.synchronize()
+    except dist.DistBackendError as exc:
+        return {"refused": True, "error": str(exc).splitlines()[-1]}
+    return {"refused": False}
+
+
+def _rank_one(spec) -> dict:
+    """One NCCL rank: CoresetEngine(mesh=make_local_mesh(1)) on
+    coreset_serve's signal and batches, then sat_pjit at the signal's size;
+    the engine without a mesh on the same cached coreset; times.  Writes
+    the coreset for the gloo ranks, and both engines' losses."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch import ops
+    from repro_torch.core import sat_pjit
+    from repro_torch.core.sharded import MESH_BACKEND, fitting_loss_batched
+    from repro_torch.data import piecewise_signal
+    from repro_torch.kernels.sat2d import kernel as sk
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.service import CoresetEngine
+    sig = SERVE_SIGNAL
+    y = piecewise_signal(sig["n"], sig["m"], sig["k"], noise=0.15, seed=sig["seed"])
+    y32 = y.astype(np.float32)
+    batches = _batches()
+    mesh = make_local_mesh(1)
+    kernels = rank_kernels()
+    for kern in kernels.values():
+        kern.launches = 0
+    engine = CoresetEngine(workers=4, mesh=mesh)
+    plain = None
+    try:
+        t0 = time.perf_counter()
+        engine.register_signal("slice1", y)
+        cs, _, how = engine.get_coreset("slice1", SERVE_K, SERVE_EPS)
+        build_s = time.perf_counter() - t0
+        results = [engine.tree_loss_batch("slice1", r, lab, k=SERVE_K, eps=SERVE_EPS)
+                   for r, lab in batches]
+        images = sat_pjit(y32, mesh=mesh)
+        torch.cuda.synchronize()
+        launches = {name: kern.launches for name, kern in kernels.items()}
+        counters = engine.metrics.snapshot()["counters"]
+        _save_coreset(spec["coreset"], cs)
+
+        # the engine without a mesh, on the same cached coreset
+        plain = CoresetEngine(workers=4)
+        plain.register_signal("slice1", y)
+        entry, _ = engine.cache.lookup("slice1", engine.signal("slice1").version,
+                                       SERVE_K, SERVE_EPS)
+        plain.cache.put(entry)
+        unmeshed = [plain.tree_loss_batch("slice1", r, lab, k=SERVE_K, eps=SERVE_EPS)
+                    for r, lab in batches]
+    finally:
+        engine.close()
+        if plain is not None:
+            plain.close()
+    got = np.stack([r["losses"] for r in results]).astype(np.float32)
+    want = np.stack([r["losses"] for r in unmeshed]).astype(np.float32)
+    np.savez(spec["losses"], mesh=got, one_device=want)
+    one_device = sk.sat_moments_cuda(torch.as_tensor(y32, device="cuda"))
+    local = images.to_local()
+    sat_err = scaled_err(local.cpu().numpy(), one_device.cpu().numpy())
+    sat_bitwise = bool(torch.equal(local, one_device))
+    del one_device, local, images
+
+    rects, labels = batches[0]
+    part = torch.zeros(SERVE_T, device="cuda")
+    return {
+        "fingerprint": cs.fingerprint(), "how": how, "blocks": int(cs.num_blocks),
+        "build_s": build_s, "launches": launches,
+        "backends": sorted({r["backend"] for r in results}),
+        "unmeshed_backends": sorted({r["backend"] for r in unmeshed}),
+        "fused": sorted({r["fused_batch_size"] for r in results}),
+        "counters": {k: v for k, v in counters.items()
+                     if k.startswith(("loss_scoring", "ops_backend_", "query_fused"))},
+        "bitwise_unmeshed": bool(np.array_equal(got, want)),
+        "sat_bitwise": sat_bitwise, "sat_scaled_err": sat_err,
+        "ms": {
+            "scorer_mesh": host_ms(lambda: fitting_loss_batched(
+                cs, rects, labels, mesh=mesh), MESH_REPS),
+            "scorer_one_device": host_ms(lambda: ops.fitting_loss_batched(
+                cs, rects, labels, backend="cuda"), MESH_REPS),
+            "all_reduce_T": _sync_ms(lambda: dist.all_reduce(
+                part, group=mesh.get_group("data")), 5 * MESH_REPS),
+            "sat_pjit_mesh": _sync_ms(lambda: sat_pjit(y32, mesh=mesh), MESH_REPS),
+            "sat_pjit_one_device": _sync_ms(lambda: sat_pjit(y32), MESH_REPS)},
+        "mesh_backend": MESH_BACKEND, "nccl": torch.cuda.nccl.version()}
+
+
+def _rank_gloo(spec) -> dict:
+    """One of MESH_RANKS gloo ranks on the one card: the sharded scorer on
+    coreset_serve's batches and sat_pjit at the signal's size, each rank's
+    kernel on the card, then the checks and times; rank 0 writes its
+    losses."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor, Shard
+    from repro_torch.core import sat_pjit
+    from repro_torch.core.sharded import fitting_loss_batched
+    from repro_torch.data import piecewise_signal
+    from repro_torch.kernels.fitting_loss.ops import fitting_loss_batched as kernel
+    from repro_torch.kernels.sat2d import kernel as sk
+    from repro_torch.launch.mesh import compat_make_mesh
+    sig = SERVE_SIGNAL
+    n, m = sig["n"], sig["m"]
+    y32 = piecewise_signal(n, m, sig["k"], noise=0.15,
+                           seed=sig["seed"]).astype(np.float32)
+    cs = _load_coreset(spec["coreset"])
+    batches = _batches()
+    mesh = compat_make_mesh((spec["world"],), ("data",))
+    rank = dist.get_rank()
+    kernels = rank_kernels()
+    for kern in kernels.values():
+        kern.launches = 0
+    got = np.stack([fitting_loss_batched(cs, r, lab, mesh=mesh) for r, lab in batches])
+    images = sat_pjit(y32, mesh=mesh)
+    torch.cuda.synchronize()
+    launches = {name: kern.launches for name, kern in kernels.items()}
+
+    out = {"rank": rank, "fingerprint": cs.fingerprint(), "launches": launches,
+           "local_rows": int(images.to_local().shape[1]),
+           "losses_sha": hashlib.sha256(got.tobytes()).hexdigest()}
+    # gloo moves host tensors only: gather the bands' host copies over a
+    # CPU mesh of the same ranks
+    host = DTensor.from_local(images.to_local().cpu(),
+                              compat_make_mesh((spec["world"],), ("data",), "cpu"),
+                              [Shard(1)], shape=images.shape,
+                              stride=(n * m, m, 1)).full_tensor()
+    del images
+    if rank == 0:
+        one_device = sk.sat_moments_cuda(torch.as_tensor(y32, device="cuda")).cpu()
+        out["sat_bitwise"] = bool(torch.equal(host, one_device))
+        out["sat_scaled_err"] = scaled_err(host.numpy(), one_device.numpy())
+        del one_device
+        np.save(spec["gloo_losses"], got)
+        # a slab of padding blocks alone adds exactly nothing on the card
+        zero = torch.zeros((1, 4), device="cuda")
+        r, lab = batches[0]
+        pad = kernel(zero, zero, zero, torch.as_tensor(r, dtype=torch.float32, device="cuda"),
+                     torch.as_tensor(lab, dtype=torch.float32, device="cuda"))
+        out["padding_only_zero"] = bool((pad == 0).all().item())
+    del host
+    dist.barrier()
+
+    rects, labels = batches[0]
+    part = torch.zeros(SERVE_T)
+    carry = torch.zeros((3, m))
+    world = spec["world"]
+
+    def chain():
+        if rank > 0:
+            dist.recv(carry, src=rank - 1)
+        if rank < world - 1:
+            dist.send(carry, dst=rank + 1)
+    ms = {}
+    for key, fn, reps in (
+            ("scorer_mesh", lambda: fitting_loss_batched(cs, rects, labels,
+                                                         mesh=mesh), MESH_REPS),
+            ("all_reduce_T_host", lambda: dist.all_reduce(part), 5 * MESH_REPS),
+            ("carry_chain", chain, 5 * MESH_REPS),
+            ("sat_pjit_mesh", lambda: sat_pjit(y32, mesh=mesh), MESH_REPS)):
+        dist.barrier()
+        ms[key] = _sync_ms(fn, reps)
+    out["ms"] = ms
+    return out
+
+
+def mesh_rank(spec: dict) -> dict:
+    """A rank of the coreset_mesh phase: its process group started from
+    ``spec`` (backend, world, rank, store), then ``spec["part"]``."""
+    import torch
+    import torch.distributed as dist
+    torch.cuda.set_device(0)
+    dist.init_process_group(spec["backend"], init_method="file://" + spec["store"],
+                            world_size=spec["world"], rank=spec["rank"])
+    try:
+        return {"duplicate": _rank_duplicate, "one": _rank_one,
+                "gloo": _rank_gloo}[spec["part"]](spec)
+    finally:
+        dist.destroy_process_group()
+
+
+def start_ranks(part: str, backend: str, world: int, tmp: pathlib.Path, **extra):
+    """``world`` processes of this script, each a rank of ``part`` in a
+    session of its own, their group's store and their output files under
+    ``tmp``."""
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("PYTHONPATH", "REPRO_TORCH_OPS_BACKEND")}
+    env["PYTHONPATH"] = str(ROOT / "src")
+    procs = []
+    for r in range(world):
+        spec = {"part": part, "backend": backend, "world": world, "rank": r,
+                "store": str(tmp / f"{part}.store"), **extra}
+        out, err = (tmp / f"{part}.{r}.out"), (tmp / f"{part}.{r}.err")
+        with out.open("w") as fo, err.open("w") as fe:
+            procs.append((subprocess.Popen(
+                [sys.executable, str(ROOT / "chip_smoke.py"), "--mesh-rank",
+                 json.dumps(spec)], cwd=ROOT, env=env, stdout=fo, stderr=fe,
+                start_new_session=True), out, err))
+    return procs
+
+
+def finish_ranks(procs, what: str) -> list[dict]:
+    """Each rank's result.  A rank that fails, or ranks that run over
+    MESH_TIMEOUT_S from now, fail the run; every rank's session is killed
+    once one has failed or all have ended."""
+    import signal
+    deadline = time.perf_counter() + MESH_TIMEOUT_S
+    try:
+        while any(p.poll() is None for p, _, _ in procs):
+            if any(p.poll() not in (None, 0) for p, _, _ in procs):
+                break
+            check(time.perf_counter() < deadline,
+                  f"the {what} ranks ran over {MESH_TIMEOUT_S} s")
+            time.sleep(0.1)
+    finally:
+        for p, _, _ in procs:
+            if p.poll() is None:
+                with contextlib.suppress(ProcessLookupError):
+                    os.killpg(p.pid, signal.SIGKILL)
+            p.wait()
+    for r, (p, _, err) in enumerate(procs):
+        check(p.returncode == 0, f"{what} rank {r} exited {p.returncode}:\n"
+                                 f"{err.read_text()[-4000:]}")
+    return [json.loads(out.read_text().strip().splitlines()[-1])
+            for _, out, _ in procs]
+
+
+def phase_coreset_mesh(smi, serve, sat_f32_ms):
+    """The mesh half on the card, every rank a process of this script (this
+    process starts no group): (a) one NCCL rank, CoresetEngine(mesh=
+    make_local_mesh(1)) on coreset_serve's signal and its eight T = 256
+    batches, then sat_pjit at 4096 x 4096 float32; beside it two NCCL ranks
+    on the one card, which NCCL must refuse; (b) MESH_RANKS gloo ranks on the
+    one card, fitting_loss_batched(mesh=) on (a)'s coreset (handed over in
+    a .npz, its fingerprint checked) and the same batches, then sat_pjit.
+    Each rank zeroes its kernels' counts just before its path and reads them
+    just after; the phase sums them.  Returns the launches by kernel."""
+    import numpy as np
+    from repro_torch import ops
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = pathlib.Path(tmp)
+        coreset = str(tmp / "coreset.npz")
+        dup = start_ranks("duplicate", "nccl", 2, tmp)
+        losses = str(tmp / "losses.npz")
+        one = start_ranks("one", "nccl", 1, tmp, coreset=coreset, losses=losses)
+        try:
+            dup = finish_ranks(dup, "duplicate-GPU")
+        finally:
+            (one,) = finish_ranks(one, "NCCL")
+        t0 = time.perf_counter()
+        gloo = start_ranks("gloo", "gloo", MESH_RANKS, tmp, coreset=coreset,
+                           gloo_losses=str(tmp / "gloo_losses.npy"))
+        try:        # the oracle while the gloo ranks run
+            cs = _load_coreset(coreset)
+            oracle = np.stack([ops.fitting_loss_batched(cs, r, lab, backend="numpy")
+                               for r, lab in _batches()])
+        finally:
+            gloo = finish_ranks(gloo, "gloo")
+        gloo_s = time.perf_counter() - t0
+        with np.load(losses) as z:
+            meshed, one_device = z["mesh"], z["one_device"]
+        sharded = np.load(tmp / "gloo_losses.npy")
+    one_oracle = float(rel_err(meshed, oracle).max())
+    gloo_kernel = float(rel_err(sharded, one_device).max())
+    gloo_oracle = float(rel_err(sharded, oracle).max())
+
+    check(all(d["refused"] and "Duplicate GPU" in d["error"] for d in dup),
+          f"two NCCL ranks on one card were not refused: {dup}")
+    # (a) one NCCL rank
+    check(one["fingerprint"] == serve["fingerprint"] and one["how"] == "built",
+          f"the mesh engine's coreset {one['fingerprint']} is not coreset_serve's")
+    check(one["bitwise_unmeshed"],
+          "the one-rank mesh engine's losses differ from the engine without a mesh")
+    check(one_oracle <= MESH_ENGINE_TOL,
+          f"the mesh engine vs the numpy oracle: {one_oracle}")
+    batches = 2 * SERVE_CLIENTS
+    check(one["backends"] == [one["mesh_backend"]] == ["cuda+all_reduce"]
+          and one["unmeshed_backends"] == ["cuda"] and one["fused"] == [SERVE_T],
+          f"backends {one['backends']} / {one['unmeshed_backends']}, fused {one['fused']}")
+    check(one["counters"] == {"loss_scoring_calls": batches,
+                              "ops_backend_cuda+all_reduce": batches},
+          f"the mesh engine's counters {one['counters']}")
+    check(one["sat_bitwise"] or one["sat_scaled_err"] <= SAT_F32_TOL,
+          f"one-rank sat_pjit vs sat_moments: {one['sat_scaled_err']}")
+    check(one["launches"]["fitting_loss_batched"] == batches
+          and one["launches"]["sat_delta_f32"] == 1,
+          f"one-rank launches {one['launches']}")
+    # (b) MESH_RANKS gloo ranks on the one card
+    lead = gloo[0]
+    rows = -(-SERVE_SIGNAL["n"] // MESH_RANKS)
+    check(all(g["fingerprint"] == serve["fingerprint"] for g in gloo),
+          "a gloo rank loaded another coreset")
+    check(len({g["losses_sha"] for g in gloo}) == 1,
+          "the gloo ranks returned different losses")
+    check(gloo_kernel <= MESH_KERNEL_RTOL,
+          f"the sharded scorer vs the one-device kernel: {gloo_kernel}")
+    check(np.allclose(sharded, oracle, rtol=MESH_ORACLE_RTOL, atol=MESH_ORACLE_ATOL),
+          f"the sharded scorer vs the oracle: {gloo_oracle}")
+    check(lead["padding_only_zero"], "a padding-only slab scored non-zero")
+    check(lead["sat_bitwise"] or lead["sat_scaled_err"] <= SAT_F32_TOL,
+          f"{MESH_RANKS}-rank sat_pjit vs sat_moments: {lead['sat_scaled_err']}")
+    for g in gloo:
+        check(g["local_rows"] == rows
+              and g["launches"]["fitting_loss_batched"] == batches
+              and g["launches"]["sat_delta_f32"] == 1,
+              f"gloo rank {g['rank']}: {g['local_rows']} rows, launches {g['launches']}")
+
+    launches = {name: one["launches"][name] + sum(g["launches"][name] for g in gloo)
+                for name in one["launches"]}
+    per_rank = {key: [g["ms"][key] for g in gloo] for key in gloo[0]["ms"]}
+    emit("coreset_mesh", signal=SERVE_SIGNAL, k=SERVE_K, eps=SERVE_EPS,
+         blocks=one["blocks"], fingerprint=one["fingerprint"],
+         duplicate_gpu={"nccl_ranks": 2, "refused": dup[0]["error"]},
+         one_rank={"backend": "nccl", "nccl": one["nccl"],
+                   "mesh": "make_local_mesh(1): (data 1, model 1)",
+                   "engine_build_s": one["build_s"], "batches": batches,
+                   "bitwise_unmeshed": True,
+                   "max_rel_err_oracle": one_oracle,
+                   "counters": one["counters"], "sat_bitwise": one["sat_bitwise"],
+                   "sat_scaled_err": one["sat_scaled_err"],
+                   "launches": one["launches"], "ms": one["ms"]},
+         gloo_ranks={"ranks": MESH_RANKS, "backend": "gloo", "card": "one, shared",
+                     "collectives_through_host": True,
+                     "mesh": f"compat_make_mesh(({MESH_RANKS},), ('data',))",
+                     "rows_a_rank": rows, "blocks_padded": -(-one["blocks"] // MESH_RANKS)
+                     * MESH_RANKS, "seconds": gloo_s,
+                     "max_rel_err_kernel": gloo_kernel,
+                     "max_rel_err_oracle": gloo_oracle,
+                     "padding_only_slab_zero": True,
+                     "sat_bitwise": lead["sat_bitwise"],
+                     "sat_scaled_err": lead["sat_scaled_err"],
+                     "launches": [g["launches"] for g in gloo],
+                     "ms_by_rank": per_rank},
+         kernel1_sat_moments_f32_device_ms=sat_f32_ms,
+         launches=launches, device=smi, seconds=time.perf_counter() - t_phase)
+    return launches
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -2183,6 +2609,9 @@ def phase_autotune(kernels, default_cache):
 
 def main() -> int:
     import torch
+    if len(sys.argv) == 3 and sys.argv[1] == "--mesh-rank":
+        print(json.dumps(mesh_rank(json.loads(sys.argv[2]))), flush=True)
+        return 0
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 2
@@ -2410,6 +2839,10 @@ def run(default_cache) -> int:
     # ------------------------------------- the distributed serving plane
     cluster_counts = phase_coreset_cluster(kernels, smi, serve)
 
+    # ------------------------------------------------------------ the mesh
+    mesh_counts = phase_coreset_mesh(
+        smi, serve, next(r["ms"] for r in rows if r["name"] == "sat_moments_f32"))
+
     # ------------------------------------ the op layer's tuning contract
     phase_autotune(kernels, default_cache)
 
@@ -2440,6 +2873,7 @@ def run(default_cache) -> int:
                       "launches": counts[r["name"]],
                       "serving_launches": serve_counts[r["name"]],
                       "cluster_launches": cluster_counts[r["name"]],
+                      "mesh_launches": mesh_counts.get(r["name"], 0),
                       "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                       "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                       "bound_by": r["bound_by"], "library_ms": r["library_ms"],

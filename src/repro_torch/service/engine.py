@@ -20,8 +20,15 @@ Every loss query dispatches through ``repro_torch.ops`` and reports the
 backend that served it (``ops_backend_cuda``, ``ops_backend_torch`` or
 ``ops_backend_numpy``): on the card the hand-written kernels, on the CPU
 only where the caller pinned ``numpy`` or ``torch``; with neither a card
-nor a pin the dispatch raises and the query fails.  The engine runs on one
-device: ``mesh=`` takes only ``None``.
+nor a pin the dispatch raises and the query fails.
+
+``mesh=`` (a ``DeviceMesh`` with a ``data`` dimension,
+``repro_torch.launch.mesh``) shards batched scoring over the mesh
+(``core.sharded.fitting_loss_batched``): each rank scores its slab of the
+coreset's blocks, one all_reduce sums them.  A mesh engine is SPMD: one
+engine a rank, and every rank's engine receives the same calls in the same
+order (a collective waits for every rank of the mesh), so batches are not
+coalesced across requests under a mesh.
 """
 from __future__ import annotations
 
@@ -35,7 +42,8 @@ import numpy as np
 from repro_torch import obs, ops
 from repro_torch.ops import autotune
 from repro_torch.core.coreset import SignalCoreset, signal_coreset, signal_coreset_to_size
-from repro_torch.core.sharded import fitting_loss_batched, sharded_coreset
+from repro_torch.core.sharded import (fitting_loss_batched, mesh_axis,
+                                      mesh_backend, sharded_coreset)
 from repro_torch.core.streaming import StreamingBuilder
 from repro_torch.trees.forest import RandomForestRegressor
 
@@ -268,10 +276,7 @@ class CoresetEngine:
                  metrics: ServiceMetrics | None = None, mesh=None,
                  admission: "AdmissionController | None" = None):
         if mesh is not None:
-            raise NotImplementedError(
-                "CoresetEngine runs on one device: mesh= takes only None "
-                "(the multi-device scorer is the mesh half of "
-                "core/sharded.py (ROADMAP.md, modules to port))")
+            mesh_axis(mesh, "data")
         self.metrics = metrics or ServiceMetrics()
         # optional front-door admission control (service/admission.py):
         # consulted by the HTTP layer and the cluster coordinator, never by
@@ -293,6 +298,7 @@ class CoresetEngine:
                                       metrics=self.metrics)
         self.coalesce_queries = bool(coalesce)
         self.num_bands = int(num_bands)
+        self.mesh = mesh   # optional DeviceMesh for sharded batch scoring
         self._signals: dict[str, SignalState] = {}
         self._lock = threading.Lock()
         # fit results are deterministic given (coreset fingerprint,
@@ -949,12 +955,13 @@ class CoresetEngine:
 
         ``seg_rects`` (T, K, 4) / ``seg_labels`` (T, K) score against ONE
         cached coreset through the dispatched batched op
-        (``core.sharded.fitting_loss_batched``, by the ``repro_torch.ops``
-        backend rules): a single engine scoring call replaces T sequential
-        ``tree_loss`` evaluations — the tuning-sweep inner loop served as
-        one request.
+        (``core.sharded.fitting_loss_batched`` — the ``repro_torch.ops``
+        backend rules when no mesh, blocks sharded over ``self.mesh`` when
+        one is configured): a single engine scoring call replaces T
+        sequential ``tree_loss`` evaluations — the tuning-sweep inner loop
+        served as one request.
 
-        With coalescing on, the batch enqueues into the SAME
+        With coalescing on (and no mesh), the batch enqueues into the SAME
         QueryScheduler fusion bucket single ``tree_loss`` queries use — a
         tuning sweep's batch and the interactive singles against the same
         hot coreset merge into one dispatch instead of two.
@@ -971,13 +978,22 @@ class CoresetEngine:
         k = int(k) if k is not None else int(seg_rects.shape[1])
         with obs.span("engine.tree_loss_batch", signal=name, k=k,
                       batch=T,
-                      coalesce=bool(coalesce and self.coalesce_queries)), \
+                      coalesce=bool(coalesce and self.coalesce_queries
+                                    and self.mesh is None)), \
                 self.metrics.timed("query_loss_batch"):
             cs, eps_eff, how = self.get_coreset(name, k, eps, timeout=timeout,
                                                 deadline=deadline)
             fp = cs.fingerprint()
             fused = T
-            if coalesce and self.coalesce_queries:
+            if self.mesh is not None:
+                # each rank's slab through the batched kernel + one
+                # all_reduce (core.sharded)
+                backend = mesh_backend(self.mesh)
+                losses = fitting_loss_batched(cs, seg_rects, seg_labels,
+                                              mesh=self.mesh)
+                self.metrics.inc("loss_scoring_calls")
+                self.metrics.inc(f"ops_backend_{backend}")
+            elif coalesce and self.coalesce_queries:
                 # same fusion key as tree_loss: backend selected at T=1 so
                 # a batch never lands in a different bucket than the singles
                 # it should fuse with (and never size-promotes co-travelling

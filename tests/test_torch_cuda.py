@@ -1124,3 +1124,113 @@ def test_tuned_cuda_plan_reaches_the_kernel(cuda, tmp_path, monkeypatch):
         assert f32.launches == before[0] + 1
     finally:
         autotune.reset_cache()
+
+
+# ------------------------------------------------------------------ the mesh
+_MESH_RANK = r'''
+import json, sys
+import numpy as np
+import torch
+import torch.distributed as dist
+backend, world, rank, store = sys.argv[1], int(sys.argv[2]), int(sys.argv[3]), sys.argv[4]
+torch.cuda.set_device(0)
+dist.init_process_group(backend, init_method="file://" + store,
+                        world_size=world, rank=rank)
+try:
+    from torch.distributed.tensor import DTensor, Shard
+    from repro_torch import ops
+    from repro_torch.core import random_tree_segmentation, sat_pjit
+    from repro_torch.core.sharded import fitting_loss_batched
+    from repro_torch.data import piecewise_signal
+    from repro_torch.kernels.fitting_loss import kernel as fk
+    from repro_torch.kernels.sat2d import kernel as sk
+    from repro_torch.launch.mesh import compat_make_mesh, make_local_mesh
+    from repro_torch.service import CoresetEngine
+    n, m, k = 300, 200, 8
+    y = piecewise_signal(n, m, k, noise=0.2, seed=0)
+    rng = np.random.default_rng(1)
+    segs = [random_tree_segmentation(n, m, 16, rng) for _ in range(64)]
+    rects = np.stack([s.rects for s in segs])
+    labels = np.stack([s.labels for s in segs])
+    out = {}
+    if world == 1:
+        mesh = make_local_mesh(1)
+        engine = CoresetEngine(workers=1, mesh=mesh)
+        plain = CoresetEngine(workers=1, coalesce=False)
+        try:
+            engine.register_signal("s", y)
+            before = fk.FITTING_LOSS_BATCHED.launches
+            r = engine.tree_loss_batch("s", rects, labels, k=k, eps=0.3)
+            out["launches"] = fk.FITTING_LOSS_BATCHED.launches - before
+            plain.register_signal("s", y)
+            st = engine.signal("s")
+            plain.cache.put(engine.cache.lookup("s", st.version, k, 0.3)[0])
+            q = plain.tree_loss_batch("s", rects, labels, k=k, eps=0.3)
+            out["bitwise"] = bool(np.array_equal(r["losses"], q["losses"]))
+            out["backends"] = [r["backend"], q["backend"]]
+            out["counter"] = engine.metrics.get("ops_backend_cuda+all_reduce")
+        finally:
+            engine.close()
+            plain.close()
+    else:
+        mesh = compat_make_mesh((world,), ("data",))
+        with ops.backend_override("numpy"):
+            from repro_torch.core import signal_coreset
+            cs = signal_coreset(y, k, 0.3)
+        got = fitting_loss_batched(cs, rects, labels, mesh=mesh)
+        one = ops.fitting_loss_batched(cs, rects, labels, backend="cuda")
+        out["rel"] = float((np.abs(got - one) / np.abs(one)).max())
+    y32 = y.astype(np.float32)
+    images = sat_pjit(y32, mesh=mesh)
+    host = images.to_local().cpu()
+    if world > 1:   # gloo gathers host tensors: over a CPU mesh of the ranks
+        host = DTensor.from_local(host, compat_make_mesh((world,), ("data",), "cpu"),
+                                  [Shard(1)], shape=images.shape,
+                                  stride=(n * m, m, 1)).full_tensor()
+    one_device = sk.sat_moments_cuda(torch.as_tensor(y32, device="cuda")).cpu()
+    out["sat_bitwise"] = bool(torch.equal(host, one_device))
+    print(json.dumps(out), flush=True)
+finally:
+    dist.destroy_process_group()
+'''
+
+
+def _mesh_ranks(backend, world, tmp_path):
+    import json
+    import os
+    import signal
+    import subprocess
+    import sys
+    from pathlib import Path
+    root = Path(__file__).resolve().parents[1]
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("PYTHONPATH", ops.ENV_VAR)}
+    env["PYTHONPATH"] = str(root / "src")
+    env["REPRO_TORCH_AUTOTUNE_CACHE"] = str(tmp_path / "tune.json")
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", _MESH_RANK, backend, str(world), str(r),
+         str(tmp_path / "store")], cwd=root, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True, start_new_session=True)
+        for r in range(world)]
+    try:
+        outs = [p.communicate(timeout=300) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                os.killpg(p.pid, signal.SIGKILL)
+            p.communicate()
+    for p, (_, err) in zip(procs, outs):
+        assert p.returncode == 0, err
+    return [json.loads(out.strip().splitlines()[-1]) for out, _ in outs]
+
+
+def test_one_nccl_rank_mesh_engine_is_the_unmeshed_engine_bitwise(cuda, tmp_path):
+    (out,) = _mesh_ranks("nccl", 1, tmp_path)
+    assert out["bitwise"] and out["launches"] == 1 and out["counter"] == 1
+    assert out["backends"] == ["cuda+all_reduce", "cuda"]
+    assert out["sat_bitwise"]
+
+
+def test_two_gloo_ranks_on_the_card_match_one_device(cuda, tmp_path):
+    outs = _mesh_ranks("gloo", 2, tmp_path)
+    assert all(o["rel"] <= 1e-4 and o["sat_bitwise"] for o in outs)

@@ -3,9 +3,11 @@ package, at run time (a fresh interpreter running the CPU slices: a
 build, a loss query, a tune_k sweep, a row patch, a stream with a band
 replacement, a band-parallel build, a reduced qwen2 prefill and greedy
 generation pinned to the plain attention, the coreset server booted on
-an ephemeral port answering a loss query and a batch through the SDK, and a
-cluster coordinator gathering a build from two in-process workers) or
-anywhere in its source, in chip_smoke.py and in the port's scripts."""
+an ephemeral port answering a loss query and a batch through the SDK, a
+cluster coordinator gathering a build from two in-process workers, and a
+CPU rank of a one-rank gloo mesh scoring and scanning over it) or anywhere
+in its source, in chip_smoke.py and in the port's scripts.  Importing the
+package loads no mesh module and starts no process group."""
 import ast
 import json
 import os
@@ -131,6 +133,62 @@ def test_cpu_slice_runs_without_jax_or_reference():
     assert loss > 0 and backend == "numpy" and served_from == "built"
     assert res["batch"] == [loss] * 3
     assert res["cluster"] == [1, True]
+
+
+_MESH_RANK = """
+import json, sys
+import numpy as np
+import torch.distributed as dist
+dist.init_process_group("gloo", init_method="file://" + sys.argv[1],
+                        world_size=1, rank=0)
+try:
+    from repro_torch import ops
+    from repro_torch.core import (random_tree_segmentation, sat_pjit,
+                                  signal_coreset)
+    from repro_torch.core.sharded import fitting_loss_batched
+    from repro_torch.data import piecewise_signal
+    from repro_torch.launch.mesh import make_local_mesh
+    mesh = make_local_mesh(device_type="cpu")
+    y = piecewise_signal(32, 24, 3, seed=0)
+    with ops.backend_override("numpy"):
+        cs = signal_coreset(y, 3, 0.3)
+    q = random_tree_segmentation(32, 24, 3, np.random.default_rng(1))
+    loss = fitting_loss_batched(cs, q.rects[None], q.labels[None], mesh=mesh)
+    images = sat_pjit(y, mesh=mesh).full_tensor()
+    bad = sorted(m for m in sys.modules
+                 if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+    print(json.dumps({"bad": bad, "loss": loss.tolist(),
+                      "images": list(images.shape)}))
+finally:
+    dist.destroy_process_group()
+"""
+
+
+def test_a_cpu_mesh_rank_runs_without_jax_or_reference(tmp_path):
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(ROOT / "src")
+    out = subprocess.run([sys.executable, "-c", _MESH_RANK,
+                          str(tmp_path / "store")], env=env, cwd=ROOT,
+                         capture_output=True, text=True, timeout=120,
+                         start_new_session=True)
+    assert out.returncode == 0, out.stderr
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    assert res["bad"] == []
+    assert len(res["loss"]) == 1 and res["loss"][0] > 0
+    assert res["images"] == [3, 32, 24]
+
+
+def test_importing_the_package_loads_no_mesh_and_starts_no_group():
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(ROOT / "src")
+    code = ("import json, sys, repro_torch, torch.distributed as dist; "
+            "print(json.dumps([m for m in ('repro_torch.launch.mesh', "
+            "'torch.distributed.tensor') if m in sys.modules] "
+            "+ [dist.is_initialized()]))")
+    out = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert json.loads(out.stdout) == [False]
 
 
 def _imported_roots(path):

@@ -310,9 +310,18 @@ def test_server_answers_5xx_without_a_card_or_a_pin(env):
 
 # ------------------------------------------------------------------ mesh
 def test_mesh_is_refused_and_the_plain_scorer_is_the_reference_s(env):
-    with pytest.raises(NotImplementedError,
-                       match="mesh half of core/sharded.py"):
+    """A ``mesh=`` that is not a DeviceMesh, or has no ``data`` dimension,
+    is refused (the meshes themselves run in tests/test_torch_mesh.py's
+    ranks); with no mesh the scorer is bitwise the reference's.  The
+    DeviceMesh here is built without a process group (``_init_backend=
+    False``), so none is started in this process."""
+    from torch.distributed.device_mesh import DeviceMesh
+    no_data = DeviceMesh("cpu", [[0]], mesh_dim_names=("pod", "model"),
+                         _init_backend=False, _rank=0)
+    with pytest.raises(TypeError, match="DeviceMesh"):
         CoresetEngine(mesh=object())
+    with pytest.raises(ValueError, match="no 'data' dimension"):
+        CoresetEngine(mesh=no_data)
     y = _signal()
     with _pinned():
         cs = signal_coreset(y, KMAX, 0.2)
@@ -322,10 +331,11 @@ def test_mesh_is_refused_and_the_plain_scorer_is_the_reference_s(env):
         want = ref_sharded.fitting_loss_batched(
             ref_signal_coreset(y, KMAX, 0.2), rects, labels)
     assert np.array_equal(got, want)
-    with pytest.raises(NotImplementedError,
-                       match="mesh half of core/sharded.py"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         sharded.fitting_loss_batched(cs, rects, labels, mesh=object(),
                                      backend="numpy")
+    with pytest.raises(ValueError, match="no 'data' dimension"):
+        sharded.fitting_loss_batched(cs, rects, labels, mesh=no_data)
 
 
 # ------------------------------------------------------ stats and hooks
