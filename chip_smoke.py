@@ -8,7 +8,9 @@ the paper's §5, the signal-tree config's coreset and forests; slice 3 (the
 write path) with row patches of the slice-1 signal and a line-scan stream of
 eight 256 x 1024 frames; slice 4 (LM serving) with qwen2-0.5b at full width
 (24 layers, d_model 896, 14 query and 2 KV heads of 64, vocab 151,936) and
-random weights from a seeded generator; the coreset server (service/,
+random weights from a seeded generator; LM training (train/, checkpoint/,
+runtime/, launch/train.py) with the same model at full width, 4 x 2048
+tokens a step; the coreset server (service/,
 client/) with slice 1's signal, its trees and batches over HTTP, a 20-tree
 forest and the stream's frames; the distributed serving plane (cluster/)
 with slice 1's signal over four worker processes on the one card; the mesh
@@ -93,6 +95,25 @@ Phases, one JSON line each:
               of 32 tokens after 4 x 64; host seconds, tokens/s, ms a step,
               and the device's busy time (torch.profiler) in a prefill and
               a decode step
+  lm_train    LM training on the card, every kernel's count at 0 before each
+              part and none launched: (a) the reduced qwen2 in float32, 3
+              make_train_step steps on the card and on the CPU from the same
+              weights and TokenStream batches (losses within 1e-4 relative,
+              weights within 1e-4), and on the card with remat (losses
+              bitwise); (b) qwen2-0.5b as configured (bf16, remat) through
+              train_loop, 6 steps at 4 x 2048: every loss and grad norm
+              finite, the first beside ln V, the median step ms of steps
+              2-6, tokens/s, peak memory, one more step's device busy
+              time, kernel count and top operations (torch.profiler), the
+              optimizer's device ms alone and one layer's plain attention
+              forward and forward + backward (CUDA events); (c) a reduced config
+              (state under ~100 MB) crashed at step 7 and resumed from the
+              checkpoint of step 5, its weights within the reference test's
+              rtol 1e-5 / atol 1e-6 of an uninterrupted run's (and whether
+              bitwise), the checkpoint's bytes and save seconds; (d)
+              python -m repro_torch.launch.train --reduced twice in one
+              checkpoint directory, the second run resuming from step 3
+              (train_launches in the kernel table)
   coreset_serve  the coreset server on the card: CoresetEngine behind the
               HTTP API on an ephemeral port, no backend pinned, driven only
               by the binary SDK with every kernel's count at 0 just before:
@@ -255,6 +276,27 @@ LM_DECODE_TOL = 2e-3
 # the bf16 kernel path may stand no farther from the float32 model's logits
 # than the bf16 plain path does, times this margin (both read ~1.5e-2)
 LM_F32_MARGIN = 1.1
+# LM training (train/, checkpoint/, runtime/, launch/train.py): (a) the
+# reduced qwen2 in float32, LM_TRAIN_XCHECK (batch, tokens, steps) on the
+# card and on the CPU from the same weights, with LM_TRAIN_OPT (warmup and
+# the clip active; an lr at which Adam's g / (|g| + eps) keeps the float32
+# roundings of near-zero gradients under the bar, tests/test_torch_train.py),
+# losses within LM_TRAIN_TOL relative and the weights within LM_TRAIN_TOL;
+# (b) qwen2-0.5b as configured (bf16, remat), train_loop for
+# LM_TRAIN_FULL (batch, tokens, steps), the serving prefill's shape; (c)
+# crash at LM_TRAIN_RESUME's fail_at and resume from save_every, on a
+# reduced config whose whole state stays under ~100 MB, held to the
+# reference test's bar (tests/test_train_infra.py); (d) the CLI
+LM_TRAIN_OPT = dict(lr=1e-3, warmup_steps=2, total_steps=10)
+LM_TRAIN_XCHECK = (4, 64, 3)
+LM_TRAIN_TOL = 1e-4
+LM_TRAIN_FULL = (4, 2048, 6)
+LM_TRAIN_SMALL = dict(n_layers=4, d_model=256, n_heads=4, n_kv_heads=2, d_ff=768,
+                      vocab=4096)
+LM_TRAIN_RESUME = dict(steps=10, batch=4, seq_len=256, save_every=5)
+LM_TRAIN_FAIL_AT = 7
+LM_TRAIN_RESUME_RTOL, LM_TRAIN_RESUME_ATOL = 1e-5, 1e-6
+LM_TRAIN_CLI_TIMEOUT_S = 300
 # the coreset server (service/, client/): slice 1's signal registered as a
 # synthetic spec (generated server-side, nothing uploaded), built, then a
 # weaker (k, eps) that the cache must serve dominated; SERVE_CLIENTS threads
@@ -1306,10 +1348,11 @@ def check_flash_attention():
     return _rows_from_shapes(rows.values())
 
 
-def device_busy(fn) -> tuple[float, list]:
+def device_busy(fn, top: int = 6) -> tuple[float, list, int]:
     """One call of ``fn`` under torch.profiler: the device's busy ms (the
-    sum of its kernels' own times, the profiler's "Self CUDA time total")
-    and the six kernels with the most time, [name, ms] each."""
+    sum of its kernels' own times, the profiler's "Self CUDA time total"),
+    the ``top`` kernels with the most time, [name, ms, calls] each, and the
+    number of device kernels it ran."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1321,8 +1364,9 @@ def device_busy(fn) -> tuple[float, list]:
             if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
     busy = sum(e.self_device_time_total for e in kern) / 1e3
     check(busy > 0, "the profiler saw no device time")
-    top = sorted(kern, key=lambda e: -e.self_device_time_total)[:6]
-    return busy, [[e.key[:100], e.self_device_time_total / 1e3] for e in top]
+    most = sorted(kern, key=lambda e: -e.self_device_time_total)[:top]
+    return (busy, [[e.key[:100], e.self_device_time_total / 1e3, e.count] for e in most],
+            sum(e.count for e in kern))
 
 
 def _rel_fro(got, want) -> float:
@@ -1350,6 +1394,7 @@ def phase_lm_serve(kernels, fa_rows):
     from repro_torch.launch.serve import generate
     from repro_torch.models import (cast_params, decode_step, init_cache,
                                     init_params, prefill)
+    from repro_torch.tree import leaves
     # float32 products in full float32 (the f32 cross-check's premise)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1395,7 +1440,7 @@ def phase_lm_serve(kernels, fa_rows):
     prefill_s = float(np.median(warm))
     kern_ms = fa_rows["flash_attention_bf16"]["at_shapes"][0]["ms"]
     # the device's busy time in one prefill, beside the host's
-    prefill_busy_ms, prefill_top = device_busy(
+    prefill_busy_ms, prefill_top, _ = device_busy(
         lambda: prefill(cfg, params, {"tokens": toks}))
 
     # float32: the same weights, prefill through the f32 kernel against
@@ -1439,10 +1484,10 @@ def phase_lm_serve(kernels, fa_rows):
     def step():
         decode_step(cfg, params, dict(cache, pos=Lp), {"tokens": step_tok})
     step()
-    step_busy_ms, step_top = device_busy(step)
+    step_busy_ms, step_top, _ = device_busy(step)
     del cache
     emit("lm_serve", arch=cfg.name, params=cfg.param_count(),
-         weights_bytes=sum(t.numel() * t.element_size() for t in _leaves(params)),
+         weights_bytes=sum(t.numel() * t.element_size() for t in leaves(params)),
          prefill={"batch": B, "tokens": L, "host_s": prefill_s, "cold_host_s": cold_s,
                   "host_s_runs": warm, "tokens_per_s": B * L / prefill_s,
                   "plain_attention_host_s": plain_warm,
@@ -1471,6 +1516,246 @@ def phase_lm_serve(kernels, fa_rows):
     torch.cuda.empty_cache()
     return {"flash_attention_bf16": launches["flash_attention_bf16"],
             "flash_attention_f32": f32_launches}
+
+
+def lm_train_flops(cfg, B: int, L: int) -> dict:
+    """A train step's floating-point work on (B, L) tokens: the matmuls
+    (2 a multiply-add) and the causal attention's visible pairs (4·hd each,
+    the QKᵀ and PV products) in the forward, the backward twice the
+    forward, and remat's recompute of the layers' forward; beside them
+    6·N·tokens, N every parameter."""
+    d, H, Hkv, hd, nl = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd, cfg.n_layers
+    tokens = B * L
+    layer = d * H * hd + 2 * d * Hkv * hd + H * hd * d + 3 * d * cfg.d_ff
+    head = 2 * tokens * d * cfg.vocab
+    layers = nl * (2 * tokens * layer + 4 * B * H * hd * visible_pairs(L, L, True))
+    forward = layers + head
+    return {"forward": forward, "step": 3 * forward,
+            "remat_recompute": layers if cfg.remat else 0}
+
+
+def _max_abs(a_tree, b_tree) -> float:
+    """The largest |a - b| over two trees of one structure, leaf by leaf."""
+    from repro_torch.tree import flatten
+    (ka, la), (kb, lb) = flatten(a_tree), flatten(b_tree)
+    check(ka == kb, f"trees of different structures: {ka[:3]}... vs {kb[:3]}...")
+    return max(float((a.detach().cpu().double() - b.detach().cpu().double()).abs().max())
+               for a, b in zip(la, lb))
+
+
+def _trees_equal(a_tree, b_tree) -> bool:
+    import torch
+    from repro_torch.tree import flatten
+    (ka, la), (kb, lb) = flatten(a_tree), flatten(b_tree)
+    return ka == kb and all(a.dtype == b.dtype and torch.equal(a.cpu(), b.cpu())
+                            for a, b in zip(la, lb))
+
+
+def phase_lm_train(kernels, smi):
+    """LM training on the card, every kernel's count at 0 before each
+    part: (a) the reduced float32 qwen2's steps on the card against the
+    CPU's from the same weights and batches, and with remat on against off;
+    (b) qwen2-0.5b at full width through train_loop, with its losses, grad
+    norms, step ms, tokens/s, peak memory and one step's device busy time;
+    (c) crash and resume against an uninterrupted run, with the
+    checkpoint's bytes and save seconds; (d) the CLI twice, the second
+    resuming.  No part may launch a kernel.  Returns the launches of every
+    kernel over (a)–(c) (the CLI's are its own processes')."""
+    import dataclasses
+    import math
+    import numpy as np
+    import torch
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import get_arch, reduced_config
+    from repro_torch.data import TokenStream
+    from repro_torch.launch.train import train_loop
+    from repro_torch.models import init_params
+    from repro_torch.models.attention import chunked_attention
+    from repro_torch.train import AdamWConfig, adamw_apply, adamw_init, make_train_step
+    from repro_torch.tree import leaves, tree_map
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t_phase = time.perf_counter()
+    for kern in kernels.values():
+        kern.launches = 0
+    launched = lambda: {n: k.launches for n, k in kernels.items() if k.launches}  # noqa: E731
+
+    # (a) the card against the CPU, and remat on against off
+    B, L, n_steps = LM_TRAIN_XCHECK
+    cfg_a = dataclasses.replace(reduced_config(get_arch(LM_ARCH)), dtype="float32",
+                                remat=False)
+    init = init_params(cfg_a, torch.Generator(device="cuda").manual_seed(0))
+    stream = TokenStream(cfg_a.vocab, B, L, seed=0)
+    runs = {}
+    for dev, remat in (("cuda", False), ("cpu", False), ("cuda", True)):
+        cfg = dataclasses.replace(cfg_a, remat=remat)
+        p = tree_map(lambda t: t.to(dev, copy=True), init)
+        o = adamw_init(p)
+        step = make_train_step(cfg, AdamWConfig(**LM_TRAIN_OPT))
+        losses = []
+        for s in range(n_steps):
+            b = {k: torch.as_tensor(v, device=dev) for k, v in stream.batch_at(s).items()}
+            p, o, m = step(p, o, b)
+            losses.append(float(m["loss"]))
+        runs[dev, remat] = (losses, p)
+    (card, card_p), (cpu, cpu_p) = runs["cuda", False], runs["cpu", False]
+    remat_losses, remat_p = runs["cuda", True]
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(card, cpu))
+    param_abs = _max_abs(card_p, cpu_p)
+    moved = _max_abs(card_p, init)
+    check(all(map(math.isfinite, card)) and loss_rel <= LM_TRAIN_TOL,
+          f"card vs CPU train losses: {card} vs {cpu}")
+    check(param_abs <= LM_TRAIN_TOL and moved > 10 * LM_TRAIN_TOL,
+          f"card vs CPU params after {n_steps} steps: {param_abs} (moved {moved})")
+    check(remat_losses == card, f"remat changed the losses: {remat_losses} vs {card}")
+    part_a = {"arch": cfg_a.name, "dtype": "float32", "batch": B, "tokens": L,
+              "steps": n_steps, "optimizer": LM_TRAIN_OPT, "card_losses": card,
+              "cpu_losses": cpu, "max_loss_rel_err": loss_rel,
+              "params_max_abs_err": param_abs, "params_moved": moved,
+              "remat_losses_bitwise": remat_losses == card,
+              "remat_params_bitwise": _trees_equal(remat_p, card_p),
+              "launches": launched()}
+    check(not part_a["launches"], f"the (a) steps launched {part_a['launches']}")
+    del init, runs, card_p, cpu_p, remat_p
+
+    # (b) full width through train_loop
+    cfg_b = get_arch(LM_ARCH)
+    B, L, n_steps = LM_TRAIN_FULL
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = train_loop(cfg_b, steps=n_steps, batch=B, seq_len=L, device="cuda",
+                       log_every=1)
+    loop_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    losses, gnorms, step_s = state["losses"], state["grad_norms"], state["step_s"]
+    check(len(losses) == n_steps and all(map(math.isfinite, losses + gnorms)),
+          f"full-width losses {losses}, grad norms {gnorms}")
+    launches_b = launched()
+    check(not launches_b, f"full-width training launched {launches_b}")
+    step_ms = float(np.median(step_s[1:])) * 1e3
+    n_params = sum(t.numel() for t in leaves(state["params"]))
+    flops = lm_train_flops(cfg_b, B, L)
+    # one more step of the same function on the trained state, under the
+    # profiler: the device's busy time in a step
+    step_fn = make_train_step(cfg_b, AdamWConfig(total_steps=n_steps))
+    batch = {k: torch.as_tensor(v, device="cuda") for k, v in
+             TokenStream(cfg_b.vocab, B, L, seed=0).batch_at(n_steps).items()}
+    busy_ms, top, n_kernels = device_busy(
+        lambda: step_fn(state["params"], state["opt"], batch), top=12)
+    check(not launched(), "the profiled step launched a kernel")
+    # where a step's device time goes: the optimizer alone (zero grads of
+    # the params' dtypes), and one layer's plain attention at the step's
+    # shape, forward and forward + backward (a step runs a layer's forward
+    # once, then with remat its forward again and its backward)
+    ocfg = AdamWConfig(total_steps=n_steps)
+    zero = tree_map(torch.zeros_like, state["params"])
+    opt_ms = device_ms(lambda: adamw_apply(ocfg, zero, state["opt"], state["params"]), 2)[0]
+    del zero
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    q, k, v = (torch.randn((B, h, L, cfg_b.hd), generator=gen, device="cuda",
+                           dtype=torch.bfloat16).requires_grad_(True)
+               for h in (cfg_b.n_heads, cfg_b.n_kv_heads, cfg_b.n_kv_heads))
+    attend = lambda: chunked_attention(  # noqa: E731
+        q, k, v, q_chunk=cfg_b.attn_q_chunk, k_chunk=cfg_b.attn_k_chunk, impl="torch")
+    attn_fwd_ms = device_ms(attend, 3)[0]
+    attn_fb_ms = device_ms(lambda: attend().backward(torch.ones_like(q)), 3)[0]
+    del q, k, v
+    check(not launched(), "the breakdown launched a kernel")
+    state_bytes = {key: sum(t.numel() * t.element_size() for t in leaves(state[key]))
+                   for key in ("params", "opt")}
+    part_b = {"arch": cfg_b.name, "dtype": cfg_b.dtype, "remat": cfg_b.remat,
+              "batch": B, "tokens": L, "steps": n_steps, "params": n_params,
+              "losses": losses, "first_loss": losses[0], "ln_vocab": math.log(cfg_b.vocab),
+              "grad_norms": gnorms, "step_s": step_s, "loop_s": loop_s,
+              "median_step_ms_2_to_last": step_ms,
+              "tokens_per_s": B * L / (step_ms / 1e3),
+              "step_flops": flops["step"], "remat_recompute_flops": flops["remat_recompute"],
+              "model_flops_6nd": 6 * n_params * B * L,
+              "bound_ms": flops["step"] / BF16_FLOP_PER_S * 1e3,
+              "model_flops_utilization": flops["step"] / (step_ms / 1e3) / BF16_FLOP_PER_S,
+              "peak_memory_bytes": peak, "state_bytes": state_bytes,
+              "profiled_step_device_busy_ms": busy_ms,
+              "device_busy_share": busy_ms / step_ms,
+              "profiled_step_device_kernels": n_kernels,
+              "device_top_ms_calls": top,
+              "optimizer_device_ms": opt_ms,
+              "attention_layer_forward_device_ms": attn_fwd_ms,
+              "attention_layer_forward_backward_device_ms": attn_fb_ms,
+              "attention_step_device_ms": cfg_b.n_layers * (
+                  attn_fwd_ms + (attn_fb_ms if cfg_b.remat else attn_fb_ms - attn_fwd_ms)),
+              "launches": launches_b}
+    del state, step_fn, batch
+    torch.cuda.empty_cache()
+
+    # (c) crash and resume against an uninterrupted run
+    cfg_c = reduced_config(get_arch(LM_ARCH), **LM_TRAIN_SMALL)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
+        tmp = pathlib.Path(tmp)
+        ref = train_loop(cfg_c, ckpt_dir=str(tmp / "ref"), device="cuda",
+                         log_every=100, **LM_TRAIN_RESUME)
+        crashy = train_loop(cfg_c, ckpt_dir=str(tmp / "crash"), fail_at=LM_TRAIN_FAIL_AT,
+                            device="cuda", log_every=100, **LM_TRAIN_RESUME)
+        close = all(torch.allclose(a.float(), b.float(), rtol=LM_TRAIN_RESUME_RTOL,
+                                   atol=LM_TRAIN_RESUME_ATOL)
+                    for a, b in zip(leaves(ref["params"]), leaves(crashy["params"])))
+        check(close and crashy["step"] == ref["step"] == LM_TRAIN_RESUME["steps"],
+              f"resumed params differ from the uninterrupted run's beyond rtol "
+              f"{LM_TRAIN_RESUME_RTOL} / atol {LM_TRAIN_RESUME_ATOL}")
+        shard = next((tmp / "crash" / f"step_{LM_TRAIN_RESUME['steps']:08d}").glob("host_0.*"))
+        final = {"params": crashy["params"], "opt": crashy["opt"], "step": crashy["step"]}
+        t0 = time.perf_counter()
+        CheckpointManager(tmp / "timed", async_save=False).save(1, final)
+        save_s = time.perf_counter() - t0
+        mgr = CheckpointManager(tmp / "async")
+        t0 = time.perf_counter()
+        mgr.save(1, final)
+        async_return_s = time.perf_counter() - t0
+        mgr.wait()
+        t0 = time.perf_counter()
+        back = mgr.restore(1, final)
+        restore_s = time.perf_counter() - t0
+        check(_trees_equal(back["params"], final["params"])
+              and _trees_equal(back["opt"], final["opt"]),
+              "a checkpoint of the card's state did not restore bitwise")
+        part_c = {"arch": cfg_c.name, "config": LM_TRAIN_SMALL, "dtype": cfg_c.dtype,
+                  "remat": cfg_c.remat, **LM_TRAIN_RESUME, "fail_at": LM_TRAIN_FAIL_AT,
+                  "losses": ref["losses"], "replayed_losses": crashy["losses"],
+                  "params_bitwise": _trees_equal(ref["params"], crashy["params"]),
+                  "opt_bitwise": _trees_equal(ref["opt"], crashy["opt"]),
+                  "params_max_abs_err": _max_abs(ref["params"], crashy["params"]),
+                  "deterministic_algorithms": torch.are_deterministic_algorithms_enabled(),
+                  "checkpoint_file": shard.name, "checkpoint_bytes": shard.stat().st_size,
+                  "state_bytes": sum(t.numel() * t.element_size() for t in
+                                     leaves([final["params"], final["opt"]])),
+                  "save_s": save_s, "async_save_return_s": async_return_s,
+                  "restore_s": restore_s, "launches": launched()}
+    check(not part_c["launches"], f"crash and resume launched {part_c['launches']}")
+    launches = {name: kern.launches for name, kern in kernels.items()}
+
+    # (d) the CLI, then again with more steps: it resumes
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(ROOT / "src")
+    cli = []
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as tmp:
+        for steps in (3, 5):
+            cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch", LM_ARCH,
+                   "--reduced", "--steps", str(steps), "--ckpt-dir", tmp]
+            t0 = time.perf_counter()
+            out = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True, text=True,
+                                 timeout=LM_TRAIN_CLI_TIMEOUT_S)
+            cli.append({"args": cmd[3:], "rc": out.returncode,
+                        "seconds": time.perf_counter() - t0,
+                        "stdout_tail": out.stdout.strip().splitlines()[-3:]})
+            check(out.returncode == 0 and "device=cuda" in out.stdout,
+                  f"the train CLI ({steps} steps) exited {out.returncode}:\n"
+                  f"{out.stdout[-2000:]}\n{out.stderr[-2000:]}")
+        check("[train] resumed from step 3" in out.stdout,
+              "the second CLI run did not resume from step 3")
+        cli_files = sorted(p.name for p in pathlib.Path(tmp).glob("step_*/host_0.*"))
+    emit("lm_train", a_card_vs_cpu=part_a, b_full_width=part_b, c_crash_resume=part_c,
+         d_cli={"runs": cli, "checkpoint_files": cli_files}, device=smi,
+         seconds=time.perf_counter() - t_phase)
+    return launches
 
 
 def _pct(xs, q) -> float:
@@ -2464,17 +2749,6 @@ def phase_coreset_mesh(smi, serve, sat_f32_ms):
     return launches
 
 
-def _leaves(tree):
-    if isinstance(tree, dict):
-        for v in tree.values():
-            yield from _leaves(v)
-    elif isinstance(tree, list):
-        for v in tree:
-            yield from _leaves(v)
-    else:
-        yield tree
-
-
 def _file_state(path: pathlib.Path):
     st = path.stat() if path.exists() else None
     return None if st is None else (st.st_size, st.st_mtime_ns)
@@ -2833,6 +3107,9 @@ def run(default_cache) -> int:
     lm_counts = phase_lm_serve(kernels, {r["name"]: r for r in fa_rows})
     counts.update(lm_counts)
 
+    # ---------------------------------------------------- LM training
+    train_counts = phase_lm_train(kernels, smi)
+
     # ------------------------------------------------- the coreset server
     serve_counts, serve = phase_coreset_serve(kernels, smi)
 
@@ -2874,6 +3151,7 @@ def run(default_cache) -> int:
                       "serving_launches": serve_counts[r["name"]],
                       "cluster_launches": cluster_counts[r["name"]],
                       "mesh_launches": mesh_counts.get(r["name"], 0),
+                      "train_launches": train_counts[r["name"]],
                       "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                       "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                       "bound_by": r["bound_by"], "library_ms": r["library_ms"],

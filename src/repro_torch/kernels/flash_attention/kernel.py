@@ -23,7 +23,8 @@ from ..common import CudaKernel, aligned, ceil_div, require_cuda
 from .ref import TILE_K
 
 __all__ = ["FLASH_ATTENTION_BF16", "FLASH_ATTENTION_F32", "HEAD_DIMS",
-           "check_inputs", "empty_row_divisor", "flash_attention_cuda"]
+           "check_inputs", "check_no_grad", "empty_row_divisor",
+           "flash_attention_cuda"]
 
 _ARGS = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
          ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
@@ -67,6 +68,18 @@ def check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
         raise ValueError(f"unsupported sizes B={B} Hq={Hq} Lq={Lq} Lk={Lk}")
 
 
+def check_no_grad(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+    """Raise if autograd is recording and q, k or v asks for a gradient:
+    the kernel writes a fresh tensor with no ``grad_fn``, so a backward
+    through it would silently stop at attention."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        raise RuntimeError(
+            "flash_attention kernel has no backward: q, k or v requires grad "
+            "while autograd is recording; pass attn_impl='torch' to train "
+            "through the plain attention (or call under torch.no_grad())")
+
+
 def empty_row_divisor(Lk: int) -> float:
     """What a row that sees no key divides its sum of V by: the Pallas
     kernel's padded key count, whole tiles of ``min(256, Lk)`` keys."""
@@ -77,7 +90,10 @@ def empty_row_divisor(Lk: int) -> float:
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          causal: bool = True) -> torch.Tensor:
     """(B, Hq, Lq, D) attention output in q's dtype, by the kernel of q's
-    dtype; raises without a card or for tensors off it."""
+    dtype; raises without a card or for tensors off it, and for inputs that
+    autograd would record: the kernel has no backward (the reference's
+    Pallas kernel has none either), so training runs the plain attention."""
+    check_no_grad(q, k, v)
     check_inputs(q, k, v)
     require_cuda(q, k, v)
     if not (q.device == k.device == v.device):

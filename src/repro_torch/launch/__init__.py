@@ -1,6 +1,7 @@
 """Launch layer: ``serve`` (``python -m repro_torch.launch.serve``), the LM
-serving entry point; ``serve_coresets``, the coreset server; ``mesh``, the
-device meshes.  The mesh constructors load on first use, so that importing
+serving entry point; ``train`` (``python -m repro_torch.launch.train``), the
+LM trainer; ``serve_coresets``, the coreset server; ``mesh``, the device
+meshes.  The mesh constructors load on first use, so that importing
 the package leaves ``torch.distributed`` alone."""
 
 __all__ = ["make_local_mesh", "make_production_mesh"]

@@ -59,7 +59,7 @@ def resolve_device(name: str | None) -> torch.device:
         return torch.device(name)
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: pass --device cpu (with --reduced) "
-                           "to serve on the CPU")
+                           "to run on the CPU")
     return torch.device("cuda")
 
 

@@ -1,11 +1,14 @@
-"""Carry the reference's parameters across: ``params_from_jax``.
+"""Carry the reference's parameters and optimizer state across:
+``params_from_jax``, ``opt_state_from_jax``.
 
 The reference's ``init_params`` tree, its leaves turned into numpy arrays
 (``jax.tree.map(np.asarray, params)``), becomes the port's tree: the
 stacked ``layers`` leaves are split along their leading L axis into one
 dict per layer, and the ``(d, H, hd)`` projection weights and ``(H, hd)``
 biases are flattened to the ``(d, H * hd)`` and ``(H * hd,)`` the port
-stores.  Takes numpy only, so the port never imports the reference.
+stores.  Any tree of the parameters' structure maps the same way (a
+gradient tree, AdamW's master, m and v), in a dtype given by the caller.
+Takes numpy only, so the port never imports the reference.
 """
 from __future__ import annotations
 
@@ -14,7 +17,7 @@ import torch
 
 from .layers import torch_dtype
 
-__all__ = ["params_from_jax"]
+__all__ = ["params_from_jax", "opt_state_from_jax"]
 
 
 def _tensor(a, dtype: torch.dtype, device) -> torch.Tensor:
@@ -39,10 +42,11 @@ def _layer(tree: dict, i: int) -> dict:
     return np.asarray(tree)[i]
 
 
-def params_from_jax(cfg, tree: dict, device="cpu") -> dict:
-    """The port's parameters, in ``cfg``'s dtype on ``device``, from the
-    reference's ``init_params(cfg, key)`` tree of numpy arrays."""
-    dt = torch_dtype(cfg)
+def params_from_jax(cfg, tree: dict, device="cpu", dtype: torch.dtype | None = None) -> dict:
+    """The port's parameters, in ``dtype`` (default ``cfg``'s) on ``device``,
+    from the reference's ``init_params(cfg, key)`` tree of numpy arrays, or
+    from any tree of that structure (its gradients, say)."""
+    dt = torch_dtype(cfg) if dtype is None else dtype
 
     def norm(p):
         return {"scale": _tensor(p["scale"], dt, device)}
@@ -61,3 +65,13 @@ def params_from_jax(cfg, tree: dict, device="cpu") -> dict:
             "head": _linear(tree["head"], dt, device),
             "layers": layers,
             "final_ln": norm(tree["final_ln"])}
+
+
+def opt_state_from_jax(cfg, opt_tree: dict, device="cpu") -> dict:
+    """The port's AdamW state from the reference's ``adamw_init`` /
+    ``adamw_apply`` state of numpy arrays: master, m and v mapped as the
+    parameters are, in float32, and the int32 step."""
+    out = {k: params_from_jax(cfg, opt_tree[k], device, torch.float32)
+           for k in ("master", "m", "v")}
+    out["step"] = torch.tensor(int(opt_tree["step"]), dtype=torch.int32, device=device)
+    return out

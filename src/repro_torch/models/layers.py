@@ -94,4 +94,8 @@ def init_embed(gen: torch.Generator, vocab: int, d: int, dtype: torch.dtype) -> 
 
 
 def embed(p: dict, tokens: torch.Tensor) -> torch.Tensor:
-    return p["table"][tokens.long()]
+    # the rows ``table[tokens]``; through ``embedding``, whose backward sums
+    # a repeated token's rows in one fixed order (indexing's backward,
+    # index_put_ with accumulate, sums them in a thread-dependent order on
+    # the CPU), so a replayed training step gives the same bits
+    return torch.nn.functional.embedding(tokens.long(), p["table"])

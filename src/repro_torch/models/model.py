@@ -4,10 +4,15 @@ decoder (qwen2, yi, phi3, granite):
   [norm -> attention -> norm -> SwiGLU] x L, final norm, logits head
 
 The reference scans one stacked layer body over a leading L axis; here the
-layers are a Python list of per-layer parameter dicts, run in a loop.  The
-KV cache keeps the reference's stacked layout ``(L, B, Hkv, S, hd)`` and is
-written in place by ``decode_step`` (the returned cache is the same object,
-its position advanced), which saves a copy of the cache per token.
+layers are a Python list of per-layer parameter dicts, run in a loop (so
+the reference's ``unroll``, a dry-run costing switch that turns its scans
+into loops, has no counterpart).  With ``cfg.remat``, a layer whose input
+autograd tracks runs through ``torch.utils.checkpoint`` (the reference's
+``jax.checkpoint`` on its scanned body); a serving prefill tracks nothing
+and runs every layer plainly, at no cost.  The KV cache keeps the
+reference's stacked layout ``(L, B, Hkv, S, hd)`` and is written in place
+by ``decode_step`` (the returned cache is the same object, its position
+advanced), which saves a copy of the cache per token.
 
 The MoE, MLA, SSM, hybrid, audio and vision branches of the reference raise
 ``NotImplementedError`` naming the slice of the port they wait for.
@@ -15,7 +20,9 @@ The MoE, MLA, SSM, hybrid, audio and vision branches of the reference raise
 from __future__ import annotations
 
 import torch
+import torch.utils.checkpoint
 
+from ..tree import tree_map
 from . import attention as attn
 from .layers import (embed, init_embed, init_linear, init_rmsnorm, init_swiglu,
                      linear, rms_norm, swiglu, torch_dtype)
@@ -59,11 +66,7 @@ def init_params(cfg, gen: torch.Generator) -> dict:
 
 def cast_params(params, dtype: torch.dtype):
     """The same parameter tree with every tensor in ``dtype``."""
-    if isinstance(params, dict):
-        return {k: cast_params(v, dtype) for k, v in params.items()}
-    if isinstance(params, list):
-        return [cast_params(v, dtype) for v in params]
-    return params.to(dtype)
+    return tree_map(lambda t: t.to(dtype), params)
 
 
 # ================================================================ embeddings
@@ -81,18 +84,28 @@ def _layer_apply(cfg, lp, x, positions, attn_impl):
     return x + swiglu(lp["mlp"], h2)
 
 
-def forward(cfg, params, batch: dict, attn_impl: str | None = None) -> tuple:
-    """-> (logits, aux_loss).
+def forward(cfg, params, batch: dict, attn_impl: str | None = None,
+            return_hidden: bool = False) -> tuple:
+    """-> (logits, aux_loss), or (hidden, aux_loss) with return_hidden=True:
+    the hidden states after the final norm, which training feeds to a
+    chunked cross-entropy so that the (B, L, V) logits never exist at once.
     ``attn_impl`` None runs the flash-attention kernel on the card and
-    raises without one; ``"torch"`` pins the plain attention."""
+    raises without one; ``"torch"`` pins the plain attention, the one that
+    trains (the kernel has no backward)."""
     attn_impl = attn.resolve_attn_impl(attn_impl)
     x = embed_inputs(cfg, params, batch)
     B, L, _ = x.shape
     positions = torch.arange(L, device=x.device)[None].expand(B, L)
     for lp in params["layers"]:
-        x = _layer_apply(cfg, lp, x, positions, attn_impl)
+        if cfg.remat and x.requires_grad:
+            x = torch.utils.checkpoint.checkpoint(
+                _layer_apply, cfg, lp, x, positions, attn_impl, use_reentrant=False)
+        else:
+            x = _layer_apply(cfg, lp, x, positions, attn_impl)
     x = rms_norm(params["final_ln"], x, cfg.norm_eps)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if return_hidden:
+        return x, aux
     return linear(params["head"], x), aux
 
 

@@ -1050,6 +1050,67 @@ def _to_cpu(tree):
     return tree.cpu()
 
 
+# ------------------------------------------------------------- LM training
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_attention_kernel_refuses_grad_on_the_card(cuda, dtype):
+    """The kernel has no backward: under autograd it raises rather than
+    hand back an output with no grad_fn; under no_grad it launches."""
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.models import forward, init_params
+    q, k, v = _qkv((1, 2, 2, 64, 64), 64, dtype, cuda)
+    kern = fa_kernel.FLASH_ATTENTION_BF16 if dtype == torch.bfloat16 \
+        else fa_kernel.FLASH_ATTENTION_F32
+    before = kern.launches
+    with pytest.raises(RuntimeError, match="no backward"):
+        fa_kernel.flash_attention_cuda(q.requires_grad_(True), k, v)
+    assert kern.launches == before
+    with torch.no_grad():
+        fa_kernel.flash_attention_cuda(q, k, v)
+    assert kern.launches == before + 1
+    cfg = _reduced_lm("float32")
+    params = init_params(cfg, torch.Generator(device=cuda).manual_seed(0))
+    params["head"]["w"].requires_grad_(True)
+    params["embed"]["table"].requires_grad_(True)
+    toks = torch.zeros((1, 8), dtype=torch.int64, device=cuda)
+    with pytest.raises(RuntimeError, match="attn_impl='torch'"):
+        forward(cfg, params, {"tokens": toks})
+
+
+def test_train_step_on_the_card_launches_no_kernel_and_matches_the_cpu(cuda):
+    import dataclasses
+    from repro_torch.data import TokenStream
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.models import init_params
+    from repro_torch.train import AdamWConfig, adamw_init, make_train_step
+    from repro_torch.tree import leaves
+    cfg = dataclasses.replace(_reduced_lm("float32"), remat=False)
+    params = init_params(cfg, torch.Generator(device=cuda).manual_seed(0))
+    step = make_train_step(cfg, AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=10))
+    stream = TokenStream(cfg.vocab, 2, 64, seed=0)
+    out = {}
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        for dev, p in (("cuda", params), ("cpu", _to_cpu(params))):
+            o = adamw_init(p)
+            before = (fa_kernel.FLASH_ATTENTION_BF16.launches,
+                      fa_kernel.FLASH_ATTENTION_F32.launches)
+            losses = []
+            for s in range(3):
+                b = {k: torch.as_tensor(v, device=dev)
+                     for k, v in stream.batch_at(s).items()}
+                p, o, m = step(p, o, b)
+                losses.append(float(m["loss"]))
+            assert (fa_kernel.FLASH_ATTENTION_BF16.launches,
+                    fa_kernel.FLASH_ATTENTION_F32.launches) == before
+            out[dev] = (losses, p)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    np.testing.assert_allclose(out["cuda"][0], out["cpu"][0], rtol=1e-4)
+    for a, b in zip(leaves(out["cuda"][1]), leaves(out["cpu"][1])):
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-4)
+
+
 # ------------------------------------------ the tuner's cuda search space
 def _tuning_calls():
     """A small problem of every op, called through ``ops`` as the tuner

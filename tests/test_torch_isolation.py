@@ -4,9 +4,12 @@ build, a loss query, a tune_k sweep, a row patch, a stream with a band
 replacement, a band-parallel build, a reduced qwen2 prefill and greedy
 generation pinned to the plain attention, the coreset server booted on
 an ephemeral port answering a loss query and a batch through the SDK, a
-cluster coordinator gathering a build from two in-process workers, and a
-CPU rank of a one-rank gloo mesh scoring and scanning over it) or anywhere
-in its source, in chip_smoke.py and in the port's scripts.  Importing the
+cluster coordinator gathering a build from two in-process workers, a
+train step, a compressed gradient, a checkpoint and a crash-and-resume
+``train_loop`` on the token stream, and a CPU rank of a one-rank gloo mesh
+scoring and scanning over it) or anywhere in its source (train/,
+checkpoint/, runtime/, data/tokens.py and launch/train.py among it), in
+chip_smoke.py, in the port's scripts and in its examples.  Importing the
 package loads no mesh module and starts no process group."""
 import ast
 import json
@@ -100,9 +103,28 @@ with ops.backend_override("numpy"):
         for w in wsrv:
             w.shutdown()
             w.server_close()
+import tempfile
+from repro_torch.checkpoint import CheckpointManager
+from repro_torch.data.tokens import TokenStream
+from repro_torch.launch.train import train_loop
+from repro_torch.runtime import HeartbeatMonitor
+from repro_torch.train import (AdamWConfig, adamw_init, compress_with_feedback,
+                               ef_init, make_train_step)
+tok = TokenStream(lm.vocab, 2, 8, seed=0).batch_at(3)
+opt = adamw_init(lm_params)
+p2, opt, met = make_train_step(lm, AdamWConfig())(
+    lm_params, opt, {k: torch.as_tensor(v) for k, v in tok.items()})
+quant, _ = compress_with_feedback(p2["head"], ef_init(p2["head"]))
+with tempfile.TemporaryDirectory() as ckpt:
+    CheckpointManager(ckpt + "/a", async_save=False).save(1, {"p": p2})
+    trained = train_loop(lm, steps=3, batch=2, seq_len=8, ckpt_dir=ckpt + "/b",
+                         save_every=2, fail_at=2, device="cpu")["step"]
+HeartbeatMonitor().report("w0", 1)
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "repro"))
 print(json.dumps({"loss": loss, "blocks": cs.num_blocks, "bad": bad,
+                  "train": [int(opt["step"]), float(met["loss"]) > 0,
+                            str(quant["w"][0].dtype), trained],
                   "best_k": res.best_k, "patched": bool(patched),
                   "streamed": streamed, "sharded": sharded,
                   "write_ops": write_ops,
@@ -133,6 +155,7 @@ def test_cpu_slice_runs_without_jax_or_reference():
     assert loss > 0 and backend == "numpy" and served_from == "built"
     assert res["batch"] == [loss] * 3
     assert res["cluster"] == [1, True]
+    assert res["train"] == [1, True, "torch.int8", 3]
 
 
 _MESH_RANK = """
@@ -209,7 +232,14 @@ def test_sources_import_neither_jax_nor_reference():
         "fitting_loss_turns.py", "flash_attention_turns.py",
         "hist_f32_turns.py", "sat_delta_turns.py", "serve_turns.py",
         "cluster_gate_torch.py"}
-    files += [ROOT / "chip_smoke.py", *scripts]
+    examples = sorted((ROOT / "examples").glob("*_torch.py"))
+    assert {p.name for p in examples} >= {"lm_pretrain_torch.py"}
+    port = ROOT / "src" / "repro_torch"
+    assert {port / "data" / "tokens.py", port / "launch" / "train.py",
+            port / "train" / "train_step.py", port / "train" / "optimizer.py",
+            port / "train" / "compress.py", port / "checkpoint" / "checkpointer.py",
+            port / "runtime" / "fault_tolerance.py"} <= set(files)
+    files += [ROOT / "chip_smoke.py", *scripts, *examples]
     assert len(files) > 10
     bad = [f"{p.relative_to(ROOT)}:{line} imports {mod}"
            for p in files for mod, line in _imported_roots(p)
@@ -235,3 +265,4 @@ def test_flash_attention_turns_refuses_without_a_card():
 
 def test_sat_delta_turns_refuses_without_a_card():
     _refuses_without_a_card("sat_delta_turns")
+
