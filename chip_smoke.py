@@ -8,7 +8,11 @@ the paper's §5, the signal-tree config's coreset and forests; slice 3 (the
 write path) with row patches of the slice-1 signal and a line-scan stream of
 eight 256 x 1024 frames; slice 4 (LM serving) with qwen2-0.5b at full width
 (24 layers, d_model 896, 14 query and 2 KV heads of 64, vocab 151,936) and
-random weights from a seeded generator; LM training (train/, checkpoint/,
+random weights from a seeded generator; the SSM families (models/ssm.py)
+with falcon-mamba-7b (64 Mamba1 layers, d_model 4096, d_inner 8192, state
+16, vocab 65,024) and zamba2-1.2b (38 Mamba2 layers, d_model 2048, 64
+heads of 64, state 64, one shared GQA block of 32 heads every 6 layers)
+at full size; LM training (train/, checkpoint/,
 runtime/, launch/train.py) with the same model at full width, 4 x 2048
 tokens a step; the coreset server (service/,
 client/) with slice 1's signal, its trees and batches over HTTP, a 20-tree
@@ -85,7 +89,9 @@ Phases, one JSON line each:
               card at the prefill's shape (4 x 14 heads x 2048, bf16),
               prefill_32k's length (1 x 14 x 32768, bf16), yi-9b's heads
               of 128 (prefill_d128: 1 x 32 query and 4 KV heads x 4096,
-              bf16) and the float32 path's and a ragged float32 shape, with
+              bf16), zamba2-1.2b's shared block (4 x 32 query and 32 KV
+              heads x 2048, bf16) and the float32 path's and a ragged
+              float32 shape, with
               times beside the plain version's,
               scaled_dot_product_attention's and the bound
   lm_serve    prefill of 4 x 2048 prompt tokens through the kernel (24
@@ -95,6 +101,22 @@ Phases, one JSON line each:
               of 32 tokens after 4 x 64; host seconds, tokens/s, ms a step,
               and the device's busy time (torch.profiler) in a prefill and
               a decode step
+  lm_serve_ssm  falcon-mamba-7b, then zamba2-1.2b, at full size (bf16,
+              seeded random weights), every kernel's count at 0 before
+              each part: a 4 x 2048 prefill (finite logits; falcon launches
+              no kernel, zamba2's shared block the bf16 kernel 6 times;
+              each of its outputs within 2e-2 of attn_impl="torch" on the
+              same input, its logits no farther from the float32 model's
+              than the plain path's, times 1.1); the float32
+              model's prefill against teacher-forced decode at every
+              position of 4 x 64 (2e-3); greedy generate of 32 tokens after
+              4 x 64 (no kernel); the reduced float32 model on the card
+              against the CPU from the same weights (logits 1e-4, greedy
+              tokens equal).  Tokens/s, busy time and top kernels of a
+              prefill, one layer's chunked scan alone (CUDA events) and its
+              share, ms a decode step and its busy time, the parameters
+              (the sum of the tensors' sizes), peak memory; ssm_launches in
+              the kernel table
   lm_train    LM training on the card, every kernel's count at 0 before each
               part and none launched: (a) the reduced qwen2 in float32, 3
               make_train_step steps on the card and on the CPU from the same
@@ -262,6 +284,7 @@ LM_ARCH = "qwen2-0.5b"
 FA_SHAPES = {"prefill": (4, 14, 2, 2048, 2048, 64, "bfloat16"),
              "prefill_32k": (1, 14, 2, 32768, 32768, 64, "bfloat16"),
              "prefill_d128": (1, 32, 4, 4096, 4096, 128, "bfloat16"),
+             "zamba2_prefill": (4, 32, 32, 2048, 2048, 64, "bfloat16"),
              "f32_path": (4, 14, 2, 64, 64, 64, "float32"),
              "f32_ragged": (2, 4, 2, 300, 300, 32, "float32")}
 FA_TOL = {"bfloat16": 2e-2, "float32": 1e-5}
@@ -276,6 +299,21 @@ LM_DECODE_TOL = 2e-3
 # the bf16 kernel path may stand no farther from the float32 model's logits
 # than the bf16 plain path does, times this margin (both read ~1.5e-2)
 LM_F32_MARGIN = 1.1
+# the state-space families (models/ssm.py): falcon-mamba-7b (Mamba1) and
+# zamba2-1.2b (Mamba2 with a shared GQA block every 6 layers) at full size
+# with lm_serve's traffic and bars; the shared block's launches of the bf16
+# kernel in one prefill (n_layers // attn_every); the reduced float32 models
+# on the card against the CPU within SSM_CPU_TOL (abs + rel, lm_train (a)'s
+# bar), SSM_CPU_GEN greedy tokens after SSM_CPU_PROMPT equal
+# zamba2's bf16 logits are ill-conditioned in the rounding: two bf16 paths
+# that round differently anywhere drift apart over 38 Mamba2 layers (with
+# random weights its bf16 logits stand ~0.5 from the float32 model's on
+# either attention path, PERF.md §6), so LM_LOGITS_TOL holds each
+# application of the shared block (the kernel against attn_impl="torch" on
+# the same input), and the logits as lm_serve's LM_F32_MARGIN does
+SSM_ARCHS = ("falcon-mamba-7b", "zamba2-1.2b")
+SSM_CPU_TOL = 1e-4
+SSM_CPU_PROMPT, SSM_CPU_GEN = (2, 24), 16
 # LM training (train/, checkpoint/, runtime/, launch/train.py): (a) the
 # reduced qwen2 in float32, LM_TRAIN_XCHECK (batch, tokens, steps) on the
 # card and on the CPU from the same weights, with LM_TRAIN_OPT (warmup and
@@ -1516,6 +1554,238 @@ def phase_lm_serve(kernels, fa_rows):
     torch.cuda.empty_cache()
     return {"flash_attention_bf16": launches["flash_attention_bf16"],
             "flash_attention_f32": f32_launches}
+
+
+def ssm_scan_ms(cfg, B: int, L: int) -> dict:
+    """Device ms of one layer's chunked scan (Mamba1's ``_mamba1_ssm_chunked``
+    or Mamba2's ``_mamba2_ssd_chunked``) at (B, L), on inputs of the
+    model's ranges (decays exp(Δ·A), Δ = softplus of a normal draw); the
+    work does not depend on the values.  With its float32 bytes: the
+    inputs read once and y written once."""
+    import torch
+    from repro_torch.models import ssm
+    g = torch.Generator(device="cuda").manual_seed(1)
+    di, s, Q = cfg.d_inner, cfg.ssm_state, cfg.ssm_chunk
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device="cuda")
+    if cfg.mamba_version == 1:
+        delta = torch.nn.functional.softplus(randn(B, L, di))
+        A = -torch.arange(1, s + 1, device="cuda", dtype=torch.float32).expand(di, s)
+        args = (torch.exp(delta[..., None] * A), delta[..., None] * randn(B, L, 1, s),
+                randn(B, L, s), Q)
+        fn = ssm._mamba1_ssm_chunked
+        out = B * L * di
+    else:
+        H, P = cfg.ssm_heads, cfg.mamba_headdim
+        delta = torch.nn.functional.softplus(randn(B, L, H))
+        args = (torch.exp(-delta), randn(B, L, H, P) * delta[..., None], randn(B, L, s),
+                randn(B, L, s), Q)
+        fn = ssm._mamba2_ssd_chunked
+        out = B * L * H * P
+    ms = device_ms(lambda: fn(*args), 2)[0]
+    nbytes = 4 * (sum(a.numel() for a in args[:-1]) + out)
+    del args
+    torch.cuda.empty_cache()
+    return {"ms": ms, "bytes": nbytes, "bytes_bound_ms": nbytes / HBM_BYTES_PER_S * 1e3}
+
+
+def _ssm_cpu_parity(arch: str) -> dict:
+    """The reduced float32 model on the card against the CPU from the same
+    weights and tokens: prefill logits (the card's attention through the
+    f32 kernel, the CPU's the plain one) within SSM_CPU_TOL, greedy tokens
+    equal."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_arch, reduced_config
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import init_params, prefill
+    from repro_torch.tree import tree_map
+    cfg = reduced_config(get_arch(arch), dtype="float32", remat=False)
+    cpu = init_params(cfg, torch.Generator().manual_seed(0))
+    card = tree_map(lambda t: t.to("cuda"), cpu)
+    B, L = SSM_CPU_PROMPT
+    toks = np.random.default_rng(2).integers(0, cfg.vocab, size=(B, L)).astype(np.int32)
+    want, _ = prefill(cfg, cpu, {"tokens": torch.as_tensor(toks)}, attn_impl="torch")
+    got, _ = prefill(cfg, card, {"tokens": torch.as_tensor(toks, device="cuda")})
+    got = got.cpu()
+    excess = float(((got - want).abs() - SSM_CPU_TOL * want.abs()).max())
+    err = float((got - want).abs().max())
+    check(excess <= SSM_CPU_TOL,
+          f"{arch} reduced float32 logits card vs CPU: max abs {err}")
+    gen_cpu = generate(cfg, cpu, toks, SSM_CPU_GEN, greedy=True)
+    gen_card = generate(cfg, card, toks, SSM_CPU_GEN, greedy=True)
+    check(np.array_equal(gen_cpu, gen_card), f"{arch} reduced greedy tokens card vs CPU")
+    return {"batch": B, "tokens": L, "logits_max_abs_err": err,
+            "max_excess_over_bar": excess, "new_tokens": SSM_CPU_GEN,
+            "greedy_equal": True}
+
+
+def _shared_block_errs(cfg, params, toks) -> list:
+    """One bf16 prefill in which every application of the hybrid's shared
+    block runs the kernel and the plain attention on the same input: each
+    output's relative Frobenius distance, the kernel's against the plain."""
+    from repro_torch.models import attention, prefill
+    real, errs = attention.gqa_forward, []
+
+    def both(p, c, h, positions, attn_impl=None, **kw):
+        out = real(p, c, h, positions, "cuda", **kw)
+        errs.append(_rel_fro(out, real(p, c, h, positions, "torch", **kw)))
+        return out
+    attention.gqa_forward = both
+    try:
+        prefill(cfg, params, {"tokens": toks})
+    finally:
+        attention.gqa_forward = real
+    return errs
+
+
+def _serve_ssm(arch: str, kernels) -> dict:
+    """One SSM-family model at full size on the card, lm_serve's parts."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import (cast_params, decode_step, init_cache,
+                                    init_params, prefill)
+    from repro_torch.tree import leaves
+    t_model = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_arch(arch)
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in leaves(params))
+    # the hybrid's shared block: one bf16 kernel launch an application
+    shared = cfg.n_layers // cfg.attn_every if cfg.family == "hybrid" and cfg.attn_every else 0
+    rng = np.random.default_rng(0)
+    B, L = LM_PREFILL
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab, size=(B, L)), device="cuda")
+
+    def run(impl=None):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out, _ = prefill(cfg, params, {"tokens": toks}, attn_impl=impl)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    for kern in kernels.values():
+        kern.launches = 0
+    logits, cold_s = run()
+    launches = {name: kern.launches for name, kern in kernels.items() if kern.launches}
+    check(launches == ({"flash_attention_bf16": shared} if shared else {}),
+          f"{arch} prefill launched {launches}, not the bf16 kernel {shared} times")
+    check(logits.shape == (B, L, cfg.vocab) and logits.dtype == torch.bfloat16
+          and bool(torch.isfinite(logits).all()), f"{arch} prefill logits not finite or misshapen")
+    warm = [run()[1] for _ in range(2)]
+    attn_check = None
+    if shared:
+        blocks = _shared_block_errs(cfg, params, toks)
+        check(len(blocks) == shared and max(blocks) <= LM_LOGITS_TOL,
+              f"{arch} shared block, kernel vs attn_impl='torch': {blocks}")
+        plain_logits, _ = run("torch")
+        exact, _ = prefill(dataclasses.replace(cfg, dtype="float32"),
+                           cast_params(params, torch.float32), {"tokens": toks})
+        fro32 = {"kernel": _rel_fro(logits, exact), "plain": _rel_fro(plain_logits, exact)}
+        check(fro32["kernel"] <= LM_F32_MARGIN * fro32["plain"],
+              f"{arch} kernel-path logits farther from the float32 model than the "
+              f"plain path's: {fro32}")
+        attn_check = {"block_out_rel_fro_vs_plain": blocks,
+                      "logits_rel_fro_vs_plain": _rel_fro(logits, plain_logits),
+                      "logits_rel_fro_vs_float32_model": fro32}
+        del plain_logits, exact
+    del logits
+    torch.cuda.empty_cache()
+    prefill_s = float(np.median(warm))
+    busy_ms, top, n_kernels = device_busy(lambda: prefill(cfg, params, {"tokens": toks}), top=8)
+    prefill_peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    scan = ssm_scan_ms(cfg, B, L)
+
+    # float32: prefill against teacher-forced decode at every position
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    p32 = cast_params(params, torch.float32)
+    B2, L2 = LM_XCHECK
+    t32 = torch.as_tensor(rng.integers(0, cfg.vocab, size=(B2, L2)), device="cuda")
+    kernels["flash_attention_f32"].launches = 0
+    full, _ = prefill(cfg32, p32, {"tokens": t32})
+    f32_launches = kernels["flash_attention_f32"].launches
+    check(f32_launches == shared, f"{arch} float32 prefill launched the f32 kernel "
+                                  f"{f32_launches} times, not {shared}")
+    cache = init_cache(cfg32, B2, L2, device="cuda")
+    steps = torch.stack([decode_step(cfg32, p32, cache, {"tokens": t32[:, t:t + 1]})[0][:, 0]
+                         for t in range(L2)], dim=1)
+    diff = (steps - full).abs()
+    dec_abs = float(diff.max())
+    dec_excess = float((diff - LM_DECODE_TOL * full.abs()).max())
+    check(dec_excess <= LM_DECODE_TOL,
+          f"{arch} float32 prefill vs decode: max abs {dec_abs}, beyond 2e-3 + 2e-3|x|")
+    del p32, full, steps, diff, cache
+    torch.cuda.empty_cache()
+
+    # greedy generation on the bf16 model; decode launches no kernel
+    Bg, Lp, new = LM_GEN
+    prompts = rng.integers(0, cfg.vocab, size=(Bg, Lp)).astype(np.int32)
+    for kern in kernels.values():
+        kern.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = generate(cfg, params, prompts, new, greedy=True)
+    gen_s = time.perf_counter() - t0
+    check(out.shape == (Bg, Lp + new) and np.array_equal(out[:, :Lp], prompts)
+          and ((out >= 0) & (out < cfg.vocab)).all(), f"{arch} generate's tokens misshapen")
+    check(sum(k.launches for k in kernels.values()) == 0,
+          f"{arch} generate launched a kernel (decode is plain)")
+    cache = init_cache(cfg, Bg, Lp + new, device="cuda")
+    step_tok = torch.as_tensor(out[:, Lp:Lp + 1], device="cuda")
+
+    def step():
+        decode_step(cfg, params, dict(cache, pos=Lp), {"tokens": step_tok})
+    step()
+    step_busy_ms, step_top, _ = device_busy(step)
+    ms_step = gen_s * 1e3 / (Lp + new)
+    del cache, params
+    torch.cuda.empty_cache()
+    flops = 2 * n_params * B * L
+    return {"arch": arch, "params": n_params, "config_param_count": cfg.param_count(),
+            "weights_bytes": 2 * n_params,
+            "prefill": {"batch": B, "tokens": L, "host_s": prefill_s, "cold_host_s": cold_s,
+                        "host_s_runs": warm, "tokens_per_s": B * L / prefill_s,
+                        "device_busy_ms": busy_ms,
+                        "device_idle_share": 1 - busy_ms / 1e3 / prefill_s,
+                        "device_kernels": n_kernels, "device_top_kernels_ms": top,
+                        "flops_2n": flops, "flops_bound_ms": flops / BF16_FLOP_PER_S * 1e3,
+                        "peak_memory_gb": prefill_peak_gb,
+                        "scan_layer_device_ms": scan["ms"],
+                        "scan_layer_bytes_bound_ms": scan["bytes_bound_ms"],
+                        "scan_share_of_busy": cfg.n_layers * scan["ms"] / busy_ms,
+                        "launches": launches, "attention_check": attn_check},
+            "float32_check": {"batch": B2, "tokens": L2, "max_abs_err": dec_abs,
+                              "max_excess_over_bar": dec_excess,
+                              "f32_launches": f32_launches},
+            "generate": {"batch": Bg, "prompt": Lp, "new_tokens": new, "host_s": gen_s,
+                         "decode_steps": Lp + new, "ms_per_step": ms_step,
+                         "step_device_busy_ms": step_busy_ms,
+                         "step_device_idle_share": 1 - step_busy_ms / ms_step,
+                         "step_top_kernels_ms": step_top,
+                         "new_tokens_per_s": Bg * new / gen_s,
+                         "first_new": out[:, Lp].tolist()},
+            "reduced_float32_vs_cpu": _ssm_cpu_parity(arch),
+            "peak_memory_gb_with_float32_copy": torch.cuda.max_memory_allocated() / 2**30,
+            "seconds": time.perf_counter() - t_model}
+
+
+def phase_lm_serve_ssm(kernels) -> dict:
+    """The SSM families at full size on the card (falcon-mamba-7b, then
+    zamba2-1.2b), every kernel's count at 0 before each part.  Returns the
+    kernels' launches in zamba2's bf16 prefill."""
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    models = [_serve_ssm(arch, kernels) for arch in SSM_ARCHS]
+    emit("lm_serve_ssm", models=models, seconds=time.perf_counter() - t0)
+    return {name: sum(m["prefill"]["launches"].get(name, 0) for m in models)
+            for name in kernels}
 
 
 def lm_train_flops(cfg, B: int, L: int) -> dict:
@@ -3106,6 +3376,7 @@ def run(default_cache) -> int:
     kernels = {r["name"]: r["kernel"] for r in rows}
     lm_counts = phase_lm_serve(kernels, {r["name"]: r for r in fa_rows})
     counts.update(lm_counts)
+    ssm_counts = phase_lm_serve_ssm(kernels)
 
     # ---------------------------------------------------- LM training
     train_counts = phase_lm_train(kernels, smi)
@@ -3152,6 +3423,7 @@ def run(default_cache) -> int:
                       "cluster_launches": cluster_counts[r["name"]],
                       "mesh_launches": mesh_counts.get(r["name"], 0),
                       "train_launches": train_counts[r["name"]],
+                      "ssm_launches": ssm_counts[r["name"]],
                       "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                       "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                       "bound_by": r["bound_by"], "library_ms": r["library_ms"],

@@ -6,25 +6,31 @@ The reference's ``init_params`` tree, its leaves turned into numpy arrays
 stacked ``layers`` leaves are split along their leading L axis into one
 dict per layer, and the ``(d, H, hd)`` projection weights and ``(H, hd)``
 biases are flattened to the ``(d, H * hd)`` and ``(H * hd,)`` the port
-stores.  Any tree of the parameters' structure maps the same way (a
-gradient tree, AdamW's master, m and v), in a dtype given by the caller.
-Takes numpy only, so the port never imports the reference.
+stores.  An SSM layer's ``mixer`` maps leaf by leaf (its linears as
+above), and the hybrid's ``shared_attn`` and ``shared_ln`` as a layer's
+attention and norm.  Each leaf keeps its own dtype unless the caller asks
+for one: the reference keeps ``A_log``, ``D`` and ``dt_bias`` float32 in a
+bfloat16 model.  Any tree of the parameters' structure maps the same way (a
+gradient tree, AdamW's master, m and v).  Takes numpy only, so the port
+never imports the reference.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from .layers import torch_dtype
-
 __all__ = ["params_from_jax", "opt_state_from_jax"]
 
 
-def _tensor(a, dtype: torch.dtype, device) -> torch.Tensor:
-    # a bfloat16 array comes as ml_dtypes' bfloat16, which torch.from_numpy
-    # refuses; bfloat16 -> float32 -> bfloat16 is exact
-    return torch.from_numpy(np.asarray(a, dtype=np.float32).copy()).to(
-        device=device, dtype=dtype)
+def _tensor(a, dtype: torch.dtype | None, device) -> torch.Tensor:
+    """``a`` as a tensor in ``dtype``, or in its own dtype for None."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        # ml_dtypes' bfloat16, which torch.from_numpy refuses; bfloat16 ->
+        # float32 -> bfloat16 is exact
+        return torch.from_numpy(a.astype(np.float32)).to(
+            device=device, dtype=dtype or torch.bfloat16)
+    return torch.from_numpy(a.copy()).to(device=device, dtype=dtype)
 
 
 def _linear(p: dict, dtype, device) -> dict:
@@ -43,28 +49,37 @@ def _layer(tree: dict, i: int) -> dict:
 
 
 def params_from_jax(cfg, tree: dict, device="cpu", dtype: torch.dtype | None = None) -> dict:
-    """The port's parameters, in ``dtype`` (default ``cfg``'s) on ``device``,
-    from the reference's ``init_params(cfg, key)`` tree of numpy arrays, or
-    from any tree of that structure (its gradients, say)."""
-    dt = torch_dtype(cfg) if dtype is None else dtype
-
+    """The port's parameters on ``device``, each leaf in ``dtype`` (default:
+    its own), from the reference's ``init_params(cfg, key)`` tree of numpy
+    arrays, or from any tree of that structure (its gradients, say)."""
     def norm(p):
-        return {"scale": _tensor(p["scale"], dt, device)}
+        return {"scale": _tensor(p["scale"], dtype, device)}
+
+    def gqa(p):
+        return {name: _linear(p[name], dtype, device) for name in ("wq", "wk", "wv", "wo")}
 
     layers = []
     for i in range(cfg.n_layers):
         lp = _layer(tree["layers"], i)
+        if cfg.is_ssm:
+            layers.append({"ln1": norm(lp["ln1"]), "mixer": {
+                name: _linear(v, dtype, device) if isinstance(v, dict) else _tensor(v, dtype, device)
+                for name, v in lp["mixer"].items()}})
+            continue
         layers.append({
             "ln1": norm(lp["ln1"]),
-            "attn": {name: _linear(lp["attn"][name], dt, device)
-                     for name in ("wq", "wk", "wv", "wo")},
+            "attn": gqa(lp["attn"]),
             "ln2": norm(lp["ln2"]),
-            "mlp": {name: _linear(lp["mlp"][name], dt, device)
+            "mlp": {name: _linear(lp["mlp"][name], dtype, device)
                     for name in ("wi", "wg", "wo")}})
-    return {"embed": {"table": _tensor(tree["embed"]["table"], dt, device)},
-            "head": _linear(tree["head"], dt, device),
-            "layers": layers,
-            "final_ln": norm(tree["final_ln"])}
+    out = {"embed": {"table": _tensor(tree["embed"]["table"], dtype, device)},
+           "head": _linear(tree["head"], dtype, device),
+           "layers": layers}
+    if "shared_attn" in tree:
+        out["shared_attn"] = gqa(tree["shared_attn"])
+        out["shared_ln"] = norm(tree["shared_ln"])
+    out["final_ln"] = norm(tree["final_ln"])
+    return out
 
 
 def opt_state_from_jax(cfg, opt_tree: dict, device="cpu") -> dict:

@@ -1,7 +1,12 @@
 """Model assembly: init / forward / prefill / decode for the dense GQA
-decoder (qwen2, yi, phi3, granite):
+decoder (qwen2, yi, phi3, granite) and the state-space families:
 
-  [norm -> attention -> norm -> SwiGLU] x L, final norm, logits head
+  dense:            [norm -> attention -> norm -> SwiGLU] x L
+  ssm (falcon):     [norm -> Mamba1] x L                       (no MLP)
+  hybrid (zamba2):  [norm -> Mamba2] x L, with one *shared* GQA block
+                    (its own norm) after every cfg.attn_every-th layer
+
+then a final norm and the logits head.
 
 The reference scans one stacked layer body over a leading L axis; here the
 layers are a Python list of per-layer parameter dicts, run in a loop (so
@@ -10,11 +15,14 @@ into loops, has no counterpart).  With ``cfg.remat``, a layer whose input
 autograd tracks runs through ``torch.utils.checkpoint`` (the reference's
 ``jax.checkpoint`` on its scanned body); a serving prefill tracks nothing
 and runs every layer plainly, at no cost.  The KV cache keeps the
-reference's stacked layout ``(L, B, Hkv, S, hd)`` and is written in place
-by ``decode_step`` (the returned cache is the same object, its position
-advanced), which saves a copy of the cache per token.
+reference's stacked layout ``(L, B, Hkv, S, hd)``, and the SSM cache its
+``(L, B, W-1, d_inner)`` conv windows and float32 states (``h`` for Mamba1,
+``S`` for Mamba2; the hybrid's shared block a KV cache of one slot an
+application); ``decode_step`` writes all of them in place (the returned
+cache is the same object, its position advanced), which saves a copy of
+the cache per token.
 
-The MoE, MLA, SSM, hybrid, audio and vision branches of the reference raise
+The MoE, MLA, audio and vision branches of the reference raise
 ``NotImplementedError`` naming the slice of the port they wait for.
 """
 from __future__ import annotations
@@ -24,6 +32,7 @@ import torch.utils.checkpoint
 
 from ..tree import tree_map
 from . import attention as attn
+from . import ssm
 from .layers import (embed, init_embed, init_linear, init_rmsnorm, init_swiglu,
                      linear, rms_norm, swiglu, torch_dtype)
 
@@ -31,7 +40,7 @@ __all__ = ["init_params", "embed_inputs", "forward", "prefill", "init_cache",
            "decode_step", "cast_params", "Model"]
 
 # the later slices of the port, by what the reference's branch needs
-_LATER = {"moe": "MoE/MLA", "mla": "MoE/MLA", "ssm": "SSM", "hybrid": "SSM",
+_LATER = {"moe": "MoE/MLA", "mla": "MoE/MLA",
           "audio": "audio/vision frontend", "vlm": "audio/vision frontend"}
 
 
@@ -47,21 +56,38 @@ def _check_ported(cfg) -> None:
 # ================================================================== layer init
 def _init_layer(gen: torch.Generator, cfg) -> dict:
     dt = torch_dtype(cfg)
-    return {"ln1": init_rmsnorm(cfg.d_model, dt, gen.device),
-            "attn": attn.init_gqa(gen, cfg),
-            "ln2": init_rmsnorm(cfg.d_model, dt, gen.device),
-            "mlp": init_swiglu(gen, cfg.d_model, cfg.d_ff, dt)}
+    p = {"ln1": init_rmsnorm(cfg.d_model, dt, gen.device)}
+    if cfg.is_ssm:
+        init = ssm.init_mamba1 if cfg.mamba_version == 1 else ssm.init_mamba2
+        p["mixer"] = init(gen, cfg)
+        return p
+    p.update(attn=attn.init_gqa(gen, cfg), ln2=init_rmsnorm(cfg.d_model, dt, gen.device),
+             mlp=init_swiglu(gen, cfg.d_model, cfg.d_ff, dt))
+    return p
+
+
+def _has_shared(cfg) -> bool:
+    return cfg.family == "hybrid" and cfg.attn_every > 0
+
+
+def _shared_after(cfg, i: int) -> bool:
+    """Whether the hybrid's shared block runs after layer ``i``."""
+    return _has_shared(cfg) and (i + 1) % cfg.attn_every == 0
 
 
 def init_params(cfg, gen: torch.Generator) -> dict:
     """Random weights on ``gen``'s device, drawn from ``gen``."""
     _check_ported(cfg)
     dt = torch_dtype(cfg)
-    return {"embed": init_embed(gen, cfg.vocab, cfg.d_model, dt),
-            "head": init_linear(gen, cfg.d_model, cfg.vocab, dt,
-                                scale=cfg.d_model ** -0.5),
-            "layers": [_init_layer(gen, cfg) for _ in range(cfg.n_layers)],
-            "final_ln": init_rmsnorm(cfg.d_model, dt, gen.device)}
+    p = {"embed": init_embed(gen, cfg.vocab, cfg.d_model, dt),
+         "head": init_linear(gen, cfg.d_model, cfg.vocab, dt,
+                             scale=cfg.d_model ** -0.5),
+         "layers": [_init_layer(gen, cfg) for _ in range(cfg.n_layers)]}
+    if _has_shared(cfg):
+        p["shared_attn"] = attn.init_gqa(gen, cfg)
+        p["shared_ln"] = init_rmsnorm(cfg.d_model, dt, gen.device)
+    p["final_ln"] = init_rmsnorm(cfg.d_model, dt, gen.device)
+    return p
 
 
 def cast_params(params, dtype: torch.dtype):
@@ -77,11 +103,20 @@ def embed_inputs(cfg, params, batch: dict) -> torch.Tensor:
 
 
 # ==================================================================== forward
-def _layer_apply(cfg, lp, x, positions, attn_impl):
+def _layer_apply(cfg, lp, x, positions, attn_impl, shared=None):
+    """One layer, then the hybrid's shared block where ``shared`` (its
+    ``{"attn", "ln"}`` parameters) is given."""
     h = rms_norm(lp["ln1"], x, cfg.norm_eps)
-    x = x + attn.gqa_forward(lp["attn"], cfg, h, positions, attn_impl)
-    h2 = rms_norm(lp["ln2"], x, cfg.norm_eps)
-    return x + swiglu(lp["mlp"], h2)
+    if cfg.is_ssm:
+        mix = ssm.mamba1_forward if cfg.mamba_version == 1 else ssm.mamba2_forward
+        x = x + mix(lp["mixer"], cfg, h)
+    else:
+        x = x + attn.gqa_forward(lp["attn"], cfg, h, positions, attn_impl)
+        x = x + swiglu(lp["mlp"], rms_norm(lp["ln2"], x, cfg.norm_eps))
+    if shared is not None:
+        h = rms_norm(shared["ln"], x, cfg.norm_eps)
+        x = x + attn.gqa_forward(shared["attn"], cfg, h, positions, attn_impl)
+    return x
 
 
 def forward(cfg, params, batch: dict, attn_impl: str | None = None,
@@ -96,12 +131,15 @@ def forward(cfg, params, batch: dict, attn_impl: str | None = None,
     x = embed_inputs(cfg, params, batch)
     B, L, _ = x.shape
     positions = torch.arange(L, device=x.device)[None].expand(B, L)
-    for lp in params["layers"]:
+    shared = ({"attn": params["shared_attn"], "ln": params["shared_ln"]}
+              if _has_shared(cfg) else None)
+    for i, lp in enumerate(params["layers"]):
+        sh = shared if _shared_after(cfg, i) else None
         if cfg.remat and x.requires_grad:
             x = torch.utils.checkpoint.checkpoint(
-                _layer_apply, cfg, lp, x, positions, attn_impl, use_reentrant=False)
+                _layer_apply, cfg, lp, x, positions, attn_impl, sh, use_reentrant=False)
         else:
-            x = _layer_apply(cfg, lp, x, positions, attn_impl)
+            x = _layer_apply(cfg, lp, x, positions, attn_impl, sh)
     x = rms_norm(params["final_ln"], x, cfg.norm_eps)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if return_hidden:
@@ -110,29 +148,64 @@ def forward(cfg, params, batch: dict, attn_impl: str | None = None,
 
 
 # ===================================================================== decode
-def init_cache(cfg, batch_size: int, max_len: int, device=None) -> dict:
-    """Stacked KV cache ``{"layers": {"k", "v"}: (L, B, Hkv, max_len, hd),
-    "pos": 0}``."""
-    _check_ported(cfg)
-    shape = (cfg.n_layers, batch_size, cfg.n_kv_heads, max_len, cfg.hd)
+def _kv(cfg, n: int, batch_size: int, max_len: int, device) -> dict:
+    shape = (n, batch_size, cfg.n_kv_heads, max_len, cfg.hd)
     dt = torch_dtype(cfg)
-    return {"layers": {"k": torch.zeros(shape, dtype=dt, device=device),
-                       "v": torch.zeros(shape, dtype=dt, device=device)},
-            "pos": 0}
+    return {"k": torch.zeros(shape, dtype=dt, device=device),
+            "v": torch.zeros(shape, dtype=dt, device=device)}
+
+
+def init_cache(cfg, batch_size: int, max_len: int, device=None) -> dict:
+    """Stacked cache ``{"layers": ..., "pos": 0}``: the KV cache
+    ``{"k", "v"}: (L, B, Hkv, max_len, hd)``; for the SSM families the
+    conv windows ``"conv"`` (L, B, W-1, d_inner) in the model's dtype and
+    the float32 states ``"h"`` (L, B, d_inner, s) (Mamba1) or ``"S"``
+    (L, B, H, s, P) (Mamba2), and the hybrid's ``"shared"`` KV cache of
+    ``n_layers // attn_every`` slots."""
+    _check_ported(cfg)
+    if not cfg.is_ssm:
+        return {"layers": _kv(cfg, cfg.n_layers, batch_size, max_len, device), "pos": 0}
+    L, B = cfg.n_layers, batch_size
+    f32 = dict(dtype=torch.float32, device=device)
+    layer = {"conv": torch.zeros((L, B, cfg.ssm_conv - 1, cfg.d_inner),
+                                 dtype=torch_dtype(cfg), device=device)}
+    if cfg.mamba_version == 1:
+        layer["h"] = torch.zeros((L, B, cfg.d_inner, cfg.ssm_state), **f32)
+    else:
+        layer["S"] = torch.zeros((L, B, cfg.ssm_heads, cfg.ssm_state,
+                                  cfg.mamba_headdim), **f32)
+    cache = {"layers": layer, "pos": 0}
+    if _has_shared(cfg):
+        cache["shared"] = _kv(cfg, cfg.n_layers // cfg.attn_every, B, max_len, device)
+    return cache
 
 
 def decode_step(cfg, params, cache: dict, batch: dict) -> tuple:
     """One new token for every sequence. batch["tokens"]: (B, 1).  Returns
-    (logits, cache): the cache is written in place at its position, which
-    advances by one."""
+    (logits, cache): the cache is written in place (the KV caches at its
+    position, the SSM windows and states whole), and its position advances
+    by one."""
     x = embed_inputs(cfg, params, batch)
     pos = cache["pos"]
-    ck, cv = cache["layers"]["k"], cache["layers"]["v"]
+    layers = cache["layers"]
     for i, lp in enumerate(params["layers"]):
         h = rms_norm(lp["ln1"], x, cfg.norm_eps)
-        y, _ = attn.gqa_decode(lp["attn"], cfg, h, {"k": ck[i], "v": cv[i]}, pos)
-        x = x + y
-        x = x + swiglu(lp["mlp"], rms_norm(lp["ln2"], x, cfg.norm_eps))
+        if cfg.is_ssm:
+            mix = ssm.mamba1_decode if cfg.mamba_version == 1 else ssm.mamba2_decode
+            y, _ = mix(lp["mixer"], cfg, h, {k: t[i] for k, t in layers.items()})
+            x = x + y
+        else:
+            y, _ = attn.gqa_decode(lp["attn"], cfg, h,
+                                   {"k": layers["k"][i], "v": layers["v"][i]}, pos)
+            x = x + y
+            x = x + swiglu(lp["mlp"], rms_norm(lp["ln2"], x, cfg.norm_eps))
+        if _shared_after(cfg, i):
+            si = (i + 1) // cfg.attn_every - 1
+            sc = cache["shared"]
+            h = rms_norm(params["shared_ln"], x, cfg.norm_eps)
+            y, _ = attn.gqa_decode(params["shared_attn"], cfg, h,
+                                   {"k": sc["k"][si], "v": sc["v"][si]}, pos)
+            x = x + y
     x = rms_norm(params["final_ln"], x, cfg.norm_eps)
     cache["pos"] = pos + 1
     return linear(params["head"], x), cache

@@ -1,7 +1,9 @@
 """repro_torch's LM serving path against repro.models on the CPU: configs,
 layers, GQA attention, forward/prefill, decode and greedy generation on the
 reduced qwen2-0.5b (MQA at reduced width) and a GQA variant (two KV heads),
-with the reference's weights carried across by ``params_from_jax``.
+and on the state-space families, reduced falcon-mamba-7b (Mamba1) and
+zamba2-1.2b (Mamba2 with its shared GQA block), with the reference's
+weights carried across by ``params_from_jax``.
 
 Tolerances: float32 within 1e-4 on logits and equal tokens; bfloat16
 within 5e-2 (the port follows the reference's dtype promotions; what is
@@ -306,7 +308,6 @@ def test_port_init_params_has_the_converted_layout_and_is_seeded(models_by_case)
 
 
 @pytest.mark.parametrize("arch", ["deepseek-v2-236b", "qwen3-moe-235b-a22b",
-                                  "falcon-mamba-7b", "zamba2-1.2b",
                                   "musicgen-medium", "pixtral-12b"])
 def test_other_families_wait_for_their_slice(arch):
     cfg = configs.reduced_config(configs.ARCHS[arch])
@@ -314,3 +315,149 @@ def test_other_families_wait_for_their_slice(arch):
         models.init_params(cfg, torch.Generator().manual_seed(0))
     with pytest.raises(NotImplementedError, match="slice"):
         models.init_cache(cfg, 1, 4)
+
+
+# ------------------------------------------------- the state-space families
+SSM_ARCHS = ["falcon-mamba-7b", "zamba2-1.2b"]
+SSM_CASES = [(a, d) for a in SSM_ARCHS for d in TOL]
+# falcon has no attention, so only zamba2's shared block takes both pairs
+SSM_IMPLS = [("falcon-mamba-7b", "torch", "xla"), ("zamba2-1.2b", "torch", "xla"),
+             ("zamba2-1.2b", "cuda", "pallas")]
+
+
+@pytest.fixture(scope="module")
+def ssm_models():
+    """{(arch, dtype): (ref cfg, port cfg, ref params, port params)} of the
+    reduced SSM archs, the reference's weights (key 1) carried across."""
+    out = {}
+    for arch, dtype in SSM_CASES:
+        kw = dict(dtype=dtype, remat=False)
+        rcfg = ref_configs.reduced_config(ref_configs.ARCHS[arch], **kw)
+        tcfg = configs.reduced_config(configs.ARCHS[arch], **kw)
+        rp = ref_models.init_params(rcfg, jax.random.PRNGKey(1))
+        out[arch, dtype] = (rcfg, tcfg, rp,
+                            models.params_from_jax(tcfg, jax.tree.map(np.asarray, rp)))
+    return out
+
+
+@pytest.mark.parametrize("dtype", list(TOL))
+@pytest.mark.parametrize("arch,impl,ref_impl", SSM_IMPLS)
+def test_ssm_forward_and_prefill_match_the_reference(ssm_models, arch, dtype, impl,
+                                                     ref_impl):
+    rcfg, tcfg, rp, tp = ssm_models[arch, dtype]
+    toks = _tokens(rcfg.vocab, 2, 24)
+    want, waux = ref_models.forward(rcfg, rp, {"tokens": jnp.asarray(toks)},
+                                    attn_impl=ref_impl)
+    got, aux = models.forward(tcfg, tp, {"tokens": torch.as_tensor(toks)},
+                              attn_impl=impl)
+    assert got.shape == (2, 24, rcfg.vocab) and got.dtype == tp["head"]["w"].dtype
+    assert float(aux) == float(waux) == 0.0
+    _close(got, want, dtype)
+    pre, _ = models.prefill(tcfg, tp, {"tokens": torch.as_tensor(toks)}, attn_impl=impl)
+    assert torch.equal(pre, got)
+
+
+def test_zamba2_shared_block_runs_every_attn_every_layers(ssm_models, monkeypatch):
+    """One shared block, applied after layers attn_every - 1, 2·attn_every - 1,
+    ... with one set of weights; without a card and a pin it raises."""
+    _, tcfg, _, tp = ssm_models["zamba2-1.2b", "float32"]
+    cfg = dataclasses.replace(tcfg, n_layers=5)
+    params = dict(tp, layers=[tp["layers"][i % 2] for i in range(5)])
+    calls = []
+    real = attention.gqa_forward
+    monkeypatch.setattr(attention, "gqa_forward",
+                        lambda p, *a, **k: calls.append(p) or real(p, *a, **k))
+    batch = {"tokens": torch.as_tensor(_tokens(cfg.vocab, 1, 6))}
+    models.forward(cfg, params, batch, attn_impl="torch")
+    assert len(calls) == 5 // cfg.attn_every == 2
+    assert all(c is tp["shared_attn"] for c in calls)
+    cache = models.init_cache(cfg, 1, 6)
+    assert tuple(cache["shared"]["k"].shape) == (2, 1, cfg.n_kv_heads, 6, cfg.hd)
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: attn_impl=None runs the kernel")
+    with pytest.raises(RuntimeError, match="attn_impl='torch'"):
+        models.prefill(tcfg, tp, batch)
+
+
+@pytest.mark.parametrize("arch,dtype", SSM_CASES)
+def test_ssm_decode_steps_and_cache_match_the_reference(ssm_models, arch, dtype):
+    rcfg, tcfg, rp, tp = ssm_models[arch, dtype]
+    B, L = 2, 10
+    toks = _tokens(rcfg.vocab, B, L, seed=1)
+    rc = ref_models.init_cache(rcfg, B, L)
+    tc = models.init_cache(tcfg, B, L)
+    state = "h" if rcfg.mamba_version == 1 else "S"
+    assert sorted(tc["layers"]) == sorted(rc["layers"]) == sorted(["conv", state])
+    assert ("shared" in tc) == ("shared" in rc) == (arch == "zamba2-1.2b")
+    def pairs(rc, tc):
+        """(port leaf, reference leaf) of the two caches, by path."""
+        flat = jax.tree_util.tree_flatten_with_path
+        want = {jax.tree_util.keystr(k): a for k, a in flat(rc)[0]}
+        got = flat({n: v for n, v in tc.items() if n != "pos"})[0]
+        assert len(got) == len(want) - 1
+        return [(t, want[jax.tree_util.keystr(k)]) for k, t in got]
+
+    for t, w in pairs(rc, tc):
+        assert tuple(t.shape) == w.shape and str(t.dtype).split(".")[1] == str(w.dtype)
+    dec = jax.jit(lambda p, c, b: ref_models.decode_step(rcfg, p, c, b))
+    for t in range(L):
+        want, rc = dec(rp, rc, {"tokens": jnp.asarray(toks[:, t:t + 1])})
+        got, tc2 = models.decode_step(tcfg, tp, tc, {"tokens": torch.as_tensor(toks[:, t:t + 1])})
+        assert tc2 is tc and tc["pos"] == int(rc["pos"]) == t + 1
+        _close(got, want, dtype)
+    for t, w in pairs(rc, tc):
+        _close(t, w, dtype)
+
+
+@pytest.mark.parametrize("arch", SSM_ARCHS)
+def test_ssm_decode_matches_prefill_in_float32(ssm_models, arch):
+    """The reference's own bar (tests/test_models_smoke.py): teacher-forced
+    decode equals the full forward within 2e-3 (zamba2's shared block
+    through the kernel's plain version)."""
+    _, tcfg, _, tp = ssm_models[arch, "float32"]
+    B, L = 2, 10
+    toks = torch.as_tensor(_tokens(tcfg.vocab, B, L, seed=2))
+    full, _ = models.prefill(tcfg, tp, {"tokens": toks}, attn_impl="cuda")
+    cache = models.init_cache(tcfg, B, L)
+    steps = [models.decode_step(tcfg, tp, cache, {"tokens": toks[:, t:t + 1]})[0][:, 0]
+             for t in range(L)]
+    np.testing.assert_allclose(_np(torch.stack(steps, dim=1)), _np(full),
+                               rtol=2e-3, atol=2e-3)
+
+
+@pytest.mark.parametrize("arch", SSM_ARCHS)
+def test_ssm_greedy_generate_equals_the_reference_token_for_token(ssm_models, arch):
+    rcfg, tcfg, rp, tp = ssm_models[arch, "float32"]
+    prompts = _tokens(rcfg.vocab, 3, 8, seed=3)
+    want = ref_generate(rcfg, rp, prompts, 12, greedy=True)
+    got = serve.generate(tcfg, tp, prompts, 12, greedy=True)
+    assert got.dtype == np.int32 and got.shape == (3, 20)
+    assert np.array_equal(got, want)
+
+
+@pytest.mark.parametrize("arch", SSM_ARCHS)
+def test_ssm_port_init_params_has_the_converted_layout_and_dtypes(ssm_models, arch):
+    """The port's own init: the converted tree's paths, shapes and dtypes
+    (A_log, D and dt_bias float32 in a bfloat16 model), seeded."""
+    _, tcfg, _, tp = ssm_models[arch, "bfloat16"]
+    mine = models.init_params(tcfg, torch.Generator().manual_seed(0))
+    flat = jax.tree_util.tree_flatten_with_path
+    shapes = [(jax.tree_util.keystr(p), tuple(x.shape), x.dtype) for p, x in flat(mine)[0]]
+    assert shapes == [(jax.tree_util.keystr(p), tuple(x.shape), x.dtype)
+                      for p, x in flat(tp)[0]]
+    f32 = {"A_log", "D", "dt_bias"}
+    for k, _, dt in shapes:
+        name = k.split("[")[-1].strip("]'")
+        assert dt == (torch.float32 if name in f32 else torch.bfloat16), k
+    assert sum(name.endswith("['A_log']") for name, _, _ in shapes) == tcfg.n_layers
+    again = models.init_params(tcfg, torch.Generator().manual_seed(0))
+    assert all(torch.equal(a, b) for a, b in zip(jax.tree.leaves(mine),
+                                                 jax.tree.leaves(again)))
+    assert ("shared_attn" in mine) == (arch == "zamba2-1.2b")
+
+
+def test_ssm_serve_cli_runs_on_a_pinned_cpu(capsys):
+    serve.main(["--arch", "falcon-mamba-7b", "--reduced", "--device", "cpu",
+                "--batch", "2", "--prompt-len", "3", "--new-tokens", "2"])
+    out = capsys.readouterr().out
+    assert "arch=falcon-mamba-7b" in out and "generated (2, 5)" in out

@@ -149,6 +149,29 @@ def test_gradient_matches_jax_value_and_grad(lm):
         np.testing.assert_allclose(_np(got[k]), _np(w), rtol=1e-4, atol=1e-6, err_msg=k)
 
 
+@pytest.mark.parametrize("arch", ["falcon-mamba-7b", "zamba2-1.2b"])
+def test_ssm_loss_and_gradient_match_the_reference(arch):
+    """The state-space families through the same loss: reduced float32
+    falcon-mamba-7b and zamba2-1.2b (with its shared block), the loss
+    within 1e-5 and every gradient leaf within 1e-4 of
+    ``jax.value_and_grad``'s (the dense model's bars above)."""
+    kw = dict(dtype="float32", remat=False)
+    rcfg = ref_configs.reduced_config(ref_configs.ARCHS[arch], **kw)
+    tcfg = configs.reduced_config(configs.ARCHS[arch], **kw)
+    rp = ref_models.init_params(rcfg, jax.random.PRNGKey(1))
+    tp = models.params_from_jax(tcfg, jax.tree.map(np.asarray, rp))
+    jb, tb = _batches(RefTokenStream(rcfg.vocab, 2, 32, seed=0).batch_at(0))
+    want_loss, want = jax.value_and_grad(lambda p: ref_train.loss_fn(rcfg, p, jb)[0])(rp)
+    keys, leaves_ = flatten(tree_map(lambda t: t.detach().requires_grad_(True), tp))
+    loss, _ = train.loss_fn(tcfg, unflatten(tp, leaves_), tb)
+    grads = torch.autograd.grad(loss, leaves_)
+    np.testing.assert_allclose(float(loss.detach()), float(want_loss), rtol=1e-5)
+    wk, wl = flatten(models.params_from_jax(tcfg, jax.tree.map(np.asarray, want)))
+    assert keys == wk and any("mixer/A_log" in k for k in keys)
+    for k, g, w in zip(keys, grads, wl):
+        np.testing.assert_allclose(_np(g), _np(w), rtol=1e-4, atol=1e-6, err_msg=k)
+
+
 def test_remat_changes_neither_the_loss_nor_the_gradient(monkeypatch):
     """torch.utils.checkpoint reruns each layer's forward in the backward:
     the same operations on the same inputs, so the same bits.  It wraps
