@@ -12,7 +12,10 @@ random weights from a seeded generator; the SSM families (models/ssm.py)
 with falcon-mamba-7b (64 Mamba1 layers, d_model 4096, d_inner 8192, state
 16, vocab 65,024) and zamba2-1.2b (38 Mamba2 layers, d_model 2048, 64
 heads of 64, state 64, one shared GQA block of 32 heads every 6 layers)
-at full size; LM training (train/, checkpoint/,
+at full size; the MoE families (models/moe.py, MLA in models/attention.py)
+with qwen3-moe-235b-a22b (128 experts, top 8, 64 query and 4 KV heads of
+128) and deepseek-v2-236b (MLA, 160 routed and 2 shared experts, top 6) at
+full width, cut in depth to 6 and 4 layers; LM training (train/, checkpoint/,
 runtime/, launch/train.py) with the same model at full width, 4 x 2048
 tokens a step; the coreset server (service/,
 client/) with slice 1's signal, its trees and batches over HTTP, a 20-tree
@@ -90,7 +93,9 @@ Phases, one JSON line each:
               prefill_32k's length (1 x 14 x 32768, bf16), yi-9b's heads
               of 128 (prefill_d128: 1 x 32 query and 4 KV heads x 4096,
               bf16), zamba2-1.2b's shared block (4 x 32 query and 32 KV
-              heads x 2048, bf16) and the float32 path's and a ragged
+              heads x 2048, bf16), qwen3-moe's layout (qwen3_moe_prefill:
+              4 x 64 query and 4 KV heads of 128 x 2048, bf16) and the
+              float32 path's and a ragged
               float32 shape, with
               times beside the plain version's,
               scaled_dot_product_attention's and the bound
@@ -117,6 +122,29 @@ Phases, one JSON line each:
               share, ms a decode step and its busy time, the parameters
               (the sum of the tensors' sizes), peak memory; ssm_launches in
               the kernel table
+  lm_serve_moe  qwen3-moe-235b-a22b (6 of its 94 layers), then
+              deepseek-v2-236b (4 of 60), at full width (bf16, seeded random
+              weights), each freed before the next, every kernel's count at
+              0 before each part: (a) a 4 x 2048 prefill (qwen3-moe through
+              the bf16 kernel, 6 launches; deepseek on attn_impl="torch",
+              none: MLA's mixed head sizes are no shape of the kernel),
+              finite logits, a second prefill bitwise equal (no
+              atomics-ordered combine), each layer's share of assignments
+              dropped at capacity; (b) qwen3-moe only: each layer's
+              attention, the kernel against attn_impl="torch" on the same
+              input within 2e-2, and the logits' distance between the two
+              paths (no bar: top-k routing is discontinuous); (c) the first
+              layer with the embedding, head and final norm in float32 at
+              capacity_factor n_experts / moe_top_k (nothing drops): prefill
+              against teacher-forced decode at every position of 4 x 64
+              (2e-3); (d) greedy generate of 32 tokens after 4 x 64 (no
+              kernel); (e) the reduced float32 model on the card against the
+              CPU (logits 1e-4, greedy tokens equal).  Parameters by the
+              tensors' sizes beside param_count() and active_param_count() at
+              the cut depth, tokens/s, busy time, idle share and top kernels
+              of a prefill, the 2 x active parameters x tokens bound, one MoE
+              layer alone and its parts (CUDA events), ms a decode step and
+              its busy time, peak memory; moe_launches in the kernel table
   lm_train    LM training on the card, every kernel's count at 0 before each
               part and none launched: (a) the reduced qwen2 in float32, 3
               make_train_step steps on the card and on the CPU from the same
@@ -285,6 +313,7 @@ FA_SHAPES = {"prefill": (4, 14, 2, 2048, 2048, 64, "bfloat16"),
              "prefill_32k": (1, 14, 2, 32768, 32768, 64, "bfloat16"),
              "prefill_d128": (1, 32, 4, 4096, 4096, 128, "bfloat16"),
              "zamba2_prefill": (4, 32, 32, 2048, 2048, 64, "bfloat16"),
+             "qwen3_moe_prefill": (4, 64, 4, 2048, 2048, 128, "bfloat16"),
              "f32_path": (4, 14, 2, 64, 64, 64, "float32"),
              "f32_ragged": (2, 4, 2, 300, 300, 32, "float32")}
 FA_TOL = {"bfloat16": 2e-2, "float32": 1e-5}
@@ -314,6 +343,16 @@ LM_F32_MARGIN = 1.1
 SSM_ARCHS = ("falcon-mamba-7b", "zamba2-1.2b")
 SSM_CPU_TOL = 1e-4
 SSM_CPU_PROMPT, SSM_CPU_GEN = (2, 24), 16
+# the MoE families (models/moe.py, MLA): each arch at full width with its
+# depth cut to MOE_LAYERS, so that the bf16 model fits the card beside the
+# plain MLA attention's (4, 128, 2048, 2048) float32 scores; MOE_ATTN the
+# prefill's attn_impl (deepseek's MLA heads, 192 wide for query and key and
+# 128 for the value, are no shape of the flash-attention kernel, nor of the
+# reference's Pallas kernel); lm_serve's traffic and bars, the float32
+# cross-check on the first layer at a capacity where nothing drops, the
+# reduced float32 models against the CPU within SSM_CPU_TOL
+MOE_LAYERS = {"qwen3-moe-235b-a22b": 6, "deepseek-v2-236b": 4}
+MOE_ATTN = {"qwen3-moe-235b-a22b": None, "deepseek-v2-236b": "torch"}
 # LM training (train/, checkpoint/, runtime/, launch/train.py): (a) the
 # reduced qwen2 in float32, LM_TRAIN_XCHECK (batch, tokens, steps) on the
 # card and on the CPU from the same weights, with LM_TRAIN_OPT (warmup and
@@ -1590,11 +1629,11 @@ def ssm_scan_ms(cfg, B: int, L: int) -> dict:
     return {"ms": ms, "bytes": nbytes, "bytes_bound_ms": nbytes / HBM_BYTES_PER_S * 1e3}
 
 
-def _ssm_cpu_parity(arch: str) -> dict:
+def _cpu_parity(arch: str, attn_impl=None) -> dict:
     """The reduced float32 model on the card against the CPU from the same
-    weights and tokens: prefill logits (the card's attention through the
-    f32 kernel, the CPU's the plain one) within SSM_CPU_TOL, greedy tokens
-    equal."""
+    weights and tokens: prefill logits (the card's attention through
+    ``attn_impl``, by default the f32 kernel, the CPU's the plain one)
+    within SSM_CPU_TOL, greedy tokens equal."""
     import numpy as np
     import torch
     from repro_torch.configs import get_arch, reduced_config
@@ -1607,7 +1646,8 @@ def _ssm_cpu_parity(arch: str) -> dict:
     B, L = SSM_CPU_PROMPT
     toks = np.random.default_rng(2).integers(0, cfg.vocab, size=(B, L)).astype(np.int32)
     want, _ = prefill(cfg, cpu, {"tokens": torch.as_tensor(toks)}, attn_impl="torch")
-    got, _ = prefill(cfg, card, {"tokens": torch.as_tensor(toks, device="cuda")})
+    got, _ = prefill(cfg, card, {"tokens": torch.as_tensor(toks, device="cuda")},
+                     attn_impl=attn_impl)
     got = got.cpu()
     excess = float(((got - want).abs() - SSM_CPU_TOL * want.abs()).max())
     err = float((got - want).abs().max())
@@ -1622,9 +1662,10 @@ def _ssm_cpu_parity(arch: str) -> dict:
 
 
 def _shared_block_errs(cfg, params, toks) -> list:
-    """One bf16 prefill in which every application of the hybrid's shared
-    block runs the kernel and the plain attention on the same input: each
-    output's relative Frobenius distance, the kernel's against the plain."""
+    """One bf16 prefill in which every ``gqa_forward`` (each application of
+    the hybrid's shared block, each layer of a GQA model) runs the kernel
+    and the plain attention on the same input: each output's relative
+    Frobenius distance, the kernel's against the plain."""
     from repro_torch.models import attention, prefill
     real, errs = attention.gqa_forward, []
 
@@ -1769,7 +1810,7 @@ def _serve_ssm(arch: str, kernels) -> dict:
                          "step_top_kernels_ms": step_top,
                          "new_tokens_per_s": Bg * new / gen_s,
                          "first_new": out[:, Lp].tolist()},
-            "reduced_float32_vs_cpu": _ssm_cpu_parity(arch),
+            "reduced_float32_vs_cpu": _cpu_parity(arch),
             "peak_memory_gb_with_float32_copy": torch.cuda.max_memory_allocated() / 2**30,
             "seconds": time.perf_counter() - t_model}
 
@@ -1784,6 +1825,250 @@ def phase_lm_serve_ssm(kernels) -> dict:
     t0 = time.perf_counter()
     models = [_serve_ssm(arch, kernels) for arch in SSM_ARCHS]
     emit("lm_serve_ssm", models=models, seconds=time.perf_counter() - t0)
+    return {name: sum(m["prefill"]["launches"].get(name, 0) for m in models)
+            for name in kernels}
+
+
+def _moe_probe(fn):
+    """``fn()`` with the MoE layer's ``dispatch`` and ``moe_forward``
+    wrapped: returns (its result, each MoE layer's share of assignments
+    dropped at capacity, from ``dispatch``'s ``keep``, and a copy of the
+    first MoE layer's input)."""
+    from repro_torch.models import moe
+    real_dispatch, real_forward = moe.dispatch, moe.moe_forward
+    drops, first = [], []
+
+    def dispatch(*a, **kw):
+        out = real_dispatch(*a, **kw)
+        keep = out[1][3]
+        drops.append(float((~keep).sum()) / keep.numel())
+        return out
+
+    def forward(p, cfg, x):
+        if not first:
+            first.append(x.detach().clone())
+        return real_forward(p, cfg, x)
+    moe.dispatch, moe.moe_forward = dispatch, forward
+    try:
+        return fn(), drops, first[0] if first else None
+    finally:
+        moe.dispatch, moe.moe_forward = real_dispatch, real_forward
+
+
+def moe_layer_ms(cfg, p: dict, x) -> dict:
+    """Device ms of one MoE layer on x (B, L, d), whole and in its parts
+    (the float32 router, dispatch, the expert products, combine), by CUDA
+    events; the expert products' FLOPs over all E x C slots and the share
+    of slots a pick fills."""
+    import torch
+    from repro_torch.models import moe
+    B, L, d = x.shape
+    T, E, dff = B * L, cfg.n_experts, cfg.d_ff_expert
+    C = moe.capacity(cfg, T)
+    xt = x.reshape(T, d)
+    _, gates, experts = moe.route(p, cfg, xt)
+    h, meta = moe.dispatch(xt, experts, gates, E, C)
+
+    def expert_products():
+        y = torch.bmm(h, p["wi"]) * torch.nn.functional.silu(torch.bmm(h, p["wg"]))
+        return torch.bmm(y, p["wo"])
+    y = expert_products()
+    flops = 2 * 3 * E * C * d * dff
+    out = {"capacity": C, "slots": E * C,
+           "slots_filled_share": float(meta[3].sum()) / (E * C),
+           "layer_ms": device_ms(lambda: moe.moe_forward(p, cfg, x), 3)[0],
+           "router_ms": device_ms(lambda: moe.route(p, cfg, xt), 3)[0],
+           "dispatch_ms": device_ms(lambda: moe.dispatch(xt, experts, gates, E, C), 3)[0],
+           "experts_ms": device_ms(expert_products, 3)[0],
+           "combine_ms": device_ms(lambda: moe.combine(y, meta, T), 3)[0],
+           "experts_flops": flops,
+           "experts_flops_bound_ms": flops / BF16_FLOP_PER_S * 1e3}
+    if "shared" in p:
+        from repro_torch.models.layers import swiglu
+        out["shared_experts_ms"] = device_ms(lambda: swiglu(p["shared"], xt), 3)[0]
+    del h, meta, y
+    return out
+
+
+def _serve_moe(arch: str, kernels) -> dict:
+    """One MoE arch at full width and a cut depth on the card, parts (a)-(e)
+    of the lm_serve_moe phase."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import (cast_params, decode_step, init_cache,
+                                    init_params, prefill)
+    from repro_torch.tree import leaves
+    t_model = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    full = get_arch(arch)
+    cfg = dataclasses.replace(full, n_layers=MOE_LAYERS[arch])
+    impl = MOE_ATTN[arch]
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in leaves(params))
+    weights_bytes = sum(t.numel() * t.element_size() for t in leaves(params))
+    # qwen3-moe's GQA layers: one bf16 kernel launch a layer
+    kernel_layers = 0 if cfg.is_mla else cfg.n_layers
+    rng = np.random.default_rng(0)
+    B, L = LM_PREFILL
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab, size=(B, L)), device="cuda")
+
+    def run(attn_impl=impl):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out, _ = prefill(cfg, params, {"tokens": toks}, attn_impl=attn_impl)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    # (a) the bf16 prefill
+    for kern in kernels.values():
+        kern.launches = 0
+    logits, cold_s = run()
+    launches = {name: kern.launches for name, kern in kernels.items() if kern.launches}
+    check(launches == ({"flash_attention_bf16": kernel_layers} if kernel_layers else {}),
+          f"{arch} prefill launched {launches}, not the bf16 kernel {kernel_layers} times")
+    check(logits.shape == (B, L, cfg.vocab) and logits.dtype == torch.bfloat16
+          and bool(torch.isfinite(logits).all()), f"{arch} prefill logits not finite or misshapen")
+    warm = [run()[1] for _ in range(2)]
+    (again, _), drops, x0 = _moe_probe(run)
+    check(torch.equal(again, logits), f"{arch} two bf16 prefills differ")
+    check(len(drops) == cfg.n_layers, f"{arch}: {len(drops)} MoE layers dispatched")
+    del again
+    # (b) qwen3-moe: each layer's attention, the kernel against the plain
+    attn_check = None
+    if kernel_layers:
+        for kern in kernels.values():
+            kern.launches = 0
+        errs = _shared_block_errs(cfg, params, toks)
+        check(len(errs) == kernel_layers and max(errs) <= LM_LOGITS_TOL,
+              f"{arch} attention, kernel vs attn_impl='torch': {errs}")
+        plain_logits, plain_s = run("torch")
+        attn_check = {"layer_out_rel_fro_vs_plain": errs,
+                      "logits_rel_fro_vs_plain": _rel_fro(logits, plain_logits),
+                      "plain_attention_cold_host_s": plain_s}
+        del plain_logits
+    del logits
+    torch.cuda.empty_cache()
+    prefill_s = float(np.median(warm))
+    busy_ms, top, n_kernels = device_busy(
+        lambda: prefill(cfg, params, {"tokens": toks}, attn_impl=impl), top=8)
+    prefill_peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    layer = moe_layer_ms(cfg, params["layers"][0]["mlp"], x0)
+    del x0
+    torch.cuda.empty_cache()
+
+    # (c) float32: the first layer, embedding, head and final norm at a
+    # capacity where no assignment drops, prefill against teacher-forced
+    # decode at every position
+    cfg32 = dataclasses.replace(cfg, n_layers=1, dtype="float32",
+                                capacity_factor=cfg.n_experts / cfg.moe_top_k)
+    p32 = cast_params({"embed": params["embed"], "head": params["head"],
+                       "layers": params["layers"][:1], "final_ln": params["final_ln"]},
+                      torch.float32)
+    B2, L2 = LM_XCHECK
+    t32 = torch.as_tensor(rng.integers(0, cfg.vocab, size=(B2, L2)), device="cuda")
+    for kern in kernels.values():
+        kern.launches = 0
+    (full32, _), drops32, _ = _moe_probe(
+        lambda: prefill(cfg32, p32, {"tokens": t32}, attn_impl=impl))
+    f32_launches = {name: kern.launches for name, kern in kernels.items() if kern.launches}
+    check(f32_launches == ({"flash_attention_f32": 1} if kernel_layers else {}),
+          f"{arch} float32 prefill launched {f32_launches}")
+    cache = init_cache(cfg32, B2, L2, device="cuda")
+    steps, dec_drops, _ = _moe_probe(lambda: torch.stack(
+        [decode_step(cfg32, p32, cache, {"tokens": t32[:, t:t + 1]})[0][:, 0]
+         for t in range(L2)], dim=1))
+    check(max(drops32 + dec_drops) == 0, f"{arch} float32 check dropped assignments: "
+                                         f"{drops32}, {max(dec_drops)}")
+    diff = (steps - full32).abs()
+    dec_abs = float(diff.max())
+    dec_excess = float((diff - LM_DECODE_TOL * full32.abs()).max())
+    check(dec_excess <= LM_DECODE_TOL,
+          f"{arch} float32 prefill vs decode: max abs {dec_abs}, beyond 2e-3 + 2e-3|x|")
+    del p32, full32, steps, diff, cache
+    torch.cuda.empty_cache()
+
+    # (d) greedy generation on the bf16 model; decode launches no kernel
+    Bg, Lp, new = LM_GEN
+    prompts = rng.integers(0, cfg.vocab, size=(Bg, Lp)).astype(np.int32)
+    for kern in kernels.values():
+        kern.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = generate(cfg, params, prompts, new, greedy=True)
+    gen_s = time.perf_counter() - t0
+    check(out.shape == (Bg, Lp + new) and np.array_equal(out[:, :Lp], prompts)
+          and ((out >= 0) & (out < cfg.vocab)).all(), f"{arch} generate's tokens misshapen")
+    check(sum(k.launches for k in kernels.values()) == 0,
+          f"{arch} generate launched a kernel (decode is plain)")
+    cache = init_cache(cfg, Bg, Lp + new, device="cuda")
+    step_tok = torch.as_tensor(out[:, Lp:Lp + 1], device="cuda")
+
+    def step():
+        decode_step(cfg, params, dict(cache, pos=Lp), {"tokens": step_tok})
+    step()
+    step_busy_ms, step_top, _ = device_busy(step)
+    ms_step = gen_s * 1e3 / (Lp + new)
+    del cache, params
+    torch.cuda.empty_cache()
+    # (e) the reduced float32 model, on the card against the CPU
+    for kern in kernels.values():
+        kern.launches = 0
+    reduced = _cpu_parity(arch, impl)
+    reduced["launches"] = {name: kern.launches for name, kern in kernels.items()
+                           if kern.launches}
+    active = cfg.active_param_count()
+    flops = 2 * active * B * L
+    return {"arch": arch, "n_layers": cfg.n_layers, "full_n_layers": full.n_layers,
+            "params": n_params, "weights_bytes": weights_bytes,
+            "config_param_count": cfg.param_count(),
+            "config_active_param_count": active,
+            "full_param_count": full.param_count(),
+            "full_active_param_count": full.active_param_count(),
+            "attn_impl": impl or "cuda",
+            "prefill": {"batch": B, "tokens": L, "host_s": prefill_s, "cold_host_s": cold_s,
+                        "host_s_runs": warm, "tokens_per_s": B * L / prefill_s,
+                        "device_busy_ms": busy_ms,
+                        "device_idle_share": 1 - busy_ms / 1e3 / prefill_s,
+                        "device_kernels": n_kernels, "device_top_kernels_ms": top,
+                        "flops_2n_active": flops,
+                        "flops_bound_ms": flops / BF16_FLOP_PER_S * 1e3,
+                        "peak_memory_gb": prefill_peak_gb,
+                        "dropped_share_by_layer": drops,
+                        "moe_layer": layer,
+                        "moe_share_of_busy": cfg.n_layers * layer["layer_ms"] / busy_ms,
+                        "launches": launches, "attention_check": attn_check,
+                        "bitwise_repeat": True},
+            "float32_check": {"n_layers": 1, "batch": B2, "tokens": L2,
+                              "capacity_factor": cfg32.capacity_factor,
+                              "max_abs_err": dec_abs, "max_excess_over_bar": dec_excess,
+                              "dropped": 0, "launches": f32_launches},
+            "generate": {"batch": Bg, "prompt": Lp, "new_tokens": new, "host_s": gen_s,
+                         "decode_steps": Lp + new, "ms_per_step": ms_step,
+                         "step_device_busy_ms": step_busy_ms,
+                         "step_device_idle_share": 1 - step_busy_ms / ms_step,
+                         "step_top_kernels_ms": step_top,
+                         "new_tokens_per_s": Bg * new / gen_s,
+                         "first_new": out[:, Lp].tolist()},
+            "reduced_float32_vs_cpu": reduced,
+            "peak_memory_gb": torch.cuda.max_memory_allocated() / 2**30,
+            "seconds": time.perf_counter() - t_model}
+
+
+def phase_lm_serve_moe(kernels) -> dict:
+    """The MoE families at full width and a cut depth on the card
+    (qwen3-moe-235b-a22b, then deepseek-v2-236b), every kernel's count at
+    0 before each part.  Returns the kernels' launches in the bf16
+    prefills."""
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    models = [_serve_moe(arch, kernels) for arch in MOE_LAYERS]
+    emit("lm_serve_moe", models=models, seconds=time.perf_counter() - t0)
     return {name: sum(m["prefill"]["launches"].get(name, 0) for m in models)
             for name in kernels}
 
@@ -3377,6 +3662,7 @@ def run(default_cache) -> int:
     lm_counts = phase_lm_serve(kernels, {r["name"]: r for r in fa_rows})
     counts.update(lm_counts)
     ssm_counts = phase_lm_serve_ssm(kernels)
+    moe_counts = phase_lm_serve_moe(kernels)
 
     # ---------------------------------------------------- LM training
     train_counts = phase_lm_train(kernels, smi)
@@ -3424,6 +3710,7 @@ def run(default_cache) -> int:
                       "mesh_launches": mesh_counts.get(r["name"], 0),
                       "train_launches": train_counts[r["name"]],
                       "ssm_launches": ssm_counts[r["name"]],
+                      "moe_launches": moe_counts[r["name"]],
                       "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                       "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                       "bound_by": r["bound_by"], "library_ms": r["library_ms"],

@@ -9,6 +9,8 @@ without it, it raises.
   python -m repro_torch.launch.serve --arch qwen2-0.5b --new-tokens 8
   python -m repro_torch.launch.serve --arch qwen2-0.5b --reduced --device cpu
   python -m repro_torch.launch.serve --arch falcon-mamba-7b --reduced --device cpu
+  python -m repro_torch.launch.serve --arch qwen3-moe-235b-a22b --reduced --device cpu
+  python -m repro_torch.launch.serve --arch deepseek-v2-236b --reduced --device cpu
 """
 from __future__ import annotations
 

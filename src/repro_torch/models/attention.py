@@ -13,14 +13,21 @@ Two execution paths for a full sequence, chosen by ``impl``:
 the CPU is pinned with ``impl="torch"``.
 
 Decode is single-query attention against a KV cache (a memory-bound einsum,
-outside any kernel in the reference too).  MLA (DeepSeek-V2) waits for the
-port's MLA slice.
+outside any kernel in the reference too).
+
+MLA (DeepSeek-V2) attends with a query/key head of ``qk_nope + qk_rope``
+and a narrower value head, which the flash-attention kernel does not take
+(nor does the reference's Pallas kernel): its forward runs only on the
+plain attention, and asks for ``impl="torch"``.  Its decode is the
+*absorbed* form: the per-head K/V up-projections fold into the query and
+output projections, so a step attends over the compressed (kv_lora + rope)
+cache.
 """
 from __future__ import annotations
 
 import torch
 
-from .layers import init_linear, linear, rope, torch_dtype
+from .layers import init_linear, init_rmsnorm, linear, rms_norm, rope, torch_dtype
 
 __all__ = ["init_gqa", "gqa_forward", "gqa_decode", "init_mla", "mla_forward",
            "mla_decode", "chunked_attention", "resolve_attn_impl", "ATTN_IMPLS"]
@@ -153,10 +160,91 @@ def gqa_decode(p: dict, cfg, x: torch.Tensor, cache: dict, pos: int):
 
 
 # ---------------------------------------------------------------------- MLA
-def _mla_later(*_args, **_kw):
-    raise NotImplementedError(
-        "MLA attention (DeepSeek-V2) is not ported yet: it comes with the "
-        "port's MoE/MLA slice (ROADMAP.md)")
+def init_mla(gen: torch.Generator, cfg) -> dict:
+    d, H = cfg.d_model, cfg.n_heads
+    r_kv, r_q = cfg.kv_lora_rank, cfg.q_lora_rank
+    dn, dr, dv = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    dt = torch_dtype(cfg)
+    p = {"wkv_a": init_linear(gen, d, r_kv + dr, dt),
+         "kv_norm": init_rmsnorm(r_kv, dt, gen.device),
+         "wk_b": init_linear(gen, r_kv, (H, dn), dt),
+         "wv_b": init_linear(gen, r_kv, (H, dv), dt),
+         "wo": init_linear(gen, H * dv, d, dt, scale=(H * dv) ** -0.5)}
+    if r_q:
+        p["wq_a"] = init_linear(gen, d, r_q, dt)
+        p["q_norm"] = init_rmsnorm(r_q, dt, gen.device)
+        p["wq_b"] = init_linear(gen, r_q, (H, dn + dr), dt)
+    else:
+        p["wq"] = init_linear(gen, d, (H, dn + dr), dt)
+    return p
 
 
-init_mla = mla_forward = mla_decode = _mla_later
+def _mla_q(p, cfg, x, positions):
+    """(q_nope (B, H, L, dn), q_rope (B, H, L, dr) with RoPE applied)."""
+    if "wq_a" in p:
+        q = linear(p["wq_b"], rms_norm(p["q_norm"], linear(p["wq_a"], x), cfg.norm_eps))
+    else:
+        q = linear(p["wq"], x)
+    q = _heads(q, cfg.n_heads)
+    dn = cfg.qk_nope_dim
+    return q[..., :dn], rope(q[..., dn:], positions[:, None, :], cfg.rope_theta)
+
+
+def mla_forward(p: dict, cfg, x: torch.Tensor, positions: torch.Tensor,
+                attn_impl: str | None = None, return_kv: bool = False):
+    """x: (B, L, d). Returns (B, L, d) (+ the compressed cache ``(c_kv
+    (B, L, kv_lora), k_rope (B, L, dr))`` for prefill).  Only the plain
+    attention takes MLA's heads: ``attn_impl`` must be ``"torch"``."""
+    if resolve_attn_impl(attn_impl) == "cuda":
+        raise ValueError(
+            f"MLA's {cfg.qk_nope_dim + cfg.qk_rope_dim}-wide query/key heads and "
+            f"{cfg.v_head_dim}-wide value heads are not a shape the flash-attention "
+            "kernel takes (nor the reference's Pallas kernel): pass "
+            "attn_impl=\"torch\"")
+    B, L, _ = x.shape
+    H, r_kv, dr = cfg.n_heads, cfg.kv_lora_rank, cfg.qk_rope_dim
+    q_nope, q_rope = _mla_q(p, cfg, x, positions)
+    kv = linear(p["wkv_a"], x)                                 # (B, L, r_kv + dr)
+    c_kv = rms_norm(p["kv_norm"], kv[..., :r_kv], cfg.norm_eps)
+    k_rope = rope(kv[:, None, :, r_kv:], positions[:, None, :], cfg.rope_theta)
+    k_nope = _heads(linear(p["wk_b"], c_kv), H)                # (B, H, L, dn)
+    v = _heads(linear(p["wv_b"], c_kv), H)                     # (B, H, L, dv)
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    k = torch.cat([k_nope, k_rope.expand(B, H, L, dr)], dim=-1)
+    o = chunked_attention(q, k, v, causal=True, impl="torch",
+                          q_chunk=cfg.attn_q_chunk, k_chunk=cfg.attn_k_chunk)
+    out = linear(p["wo"], o.transpose(1, 2).reshape(B, L, -1))
+    if return_kv:
+        return out, (c_kv, k_rope[:, 0])
+    return out
+
+
+def mla_decode(p: dict, cfg, x: torch.Tensor, cache: dict, pos: int):
+    """Absorbed-matmul decode over the compressed cache.  x: (B, 1, d);
+    cache: {"c_kv": (B, S, kv_lora), "k_rope": (B, S, dr)}, written at
+    ``pos`` in place.  Returns (out, cache)."""
+    B = x.shape[0]
+    dn, dr, dv = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    H, r_kv = cfg.n_heads, cfg.kv_lora_rank
+    posv = torch.full((B, 1, 1), pos, dtype=torch.int64, device=x.device)
+    q_nope, q_rope = _mla_q(p, cfg, x, posv[:, 0])
+    kv = linear(p["wkv_a"], x)                                 # (B, 1, r_kv + dr)
+    c_new = rms_norm(p["kv_norm"], kv[..., :r_kv], cfg.norm_eps)
+    kr_new = rope(kv[:, None, :, r_kv:], posv, cfg.rope_theta)[:, 0]   # (B, 1, dr)
+    c_kv, k_rope = cache["c_kv"], cache["k_rope"]
+    c_kv[:, pos:pos + 1] = c_new.to(c_kv.dtype)
+    k_rope[:, pos:pos + 1] = kr_new.to(k_rope.dtype)
+    # absorb wk_b into the query: (B, H, 1, r_kv)
+    q_abs = torch.einsum("bhqn,rhn->bhqr", q_nope, p["wk_b"]["w"].reshape(r_kv, H, dn))
+    # the two score products summed in the model's dtype, then float32
+    s = (torch.einsum("bhqr,bsr->bhqs", q_abs, c_kv)
+         + torch.einsum("bhqr,bsr->bhqs", q_rope, k_rope)).float()
+    s = s / (dn + dr) ** 0.5
+    S = c_kv.shape[1]
+    mask = torch.arange(S, device=x.device)[None, None, None, :] <= pos
+    w = torch.softmax(torch.where(mask, s, _NEG), dim=-1)
+    ctx = torch.einsum("bhqs,bsr->bhqr", w.to(c_kv.dtype), c_kv)
+    # absorb wv_b into the output projection
+    o = torch.einsum("bhqr,rhv->bhqv", ctx, p["wv_b"]["w"].reshape(r_kv, H, dv))
+    out = linear(p["wo"], o.transpose(1, 2).reshape(B, 1, -1))
+    return out, cache

@@ -8,11 +8,14 @@ dict per layer, and the ``(d, H, hd)`` projection weights and ``(H, hd)``
 biases are flattened to the ``(d, H * hd)`` and ``(H * hd,)`` the port
 stores.  An SSM layer's ``mixer`` maps leaf by leaf (its linears as
 above), and the hybrid's ``shared_attn`` and ``shared_ln`` as a layer's
-attention and norm.  Each leaf keeps its own dtype unless the caller asks
-for one: the reference keeps ``A_log``, ``D`` and ``dt_bias`` float32 in a
-bfloat16 model.  Any tree of the parameters' structure maps the same way (a
-gradient tree, AdamW's master, m and v).  Takes numpy only, so the port
-never imports the reference.
+attention and norm.  An MLA attention's projections are linears and its
+``q_norm``/``kv_norm`` norms; an MoE ``mlp`` keeps its router as a linear,
+its ``(E, ...)`` expert weights ``wi``, ``wg``, ``wo`` as they are, and its
+``shared`` experts as a SwiGLU.  Each leaf keeps its own dtype unless the
+caller asks for one: the reference keeps ``A_log``, ``D`` and ``dt_bias``,
+and the MoE router, float32 in a bfloat16 model.  Any tree of the
+parameters' structure maps the same way (a gradient tree, AdamW's master,
+m and v).  Takes numpy only, so the port never imports the reference.
 """
 from __future__ import annotations
 
@@ -58,6 +61,24 @@ def params_from_jax(cfg, tree: dict, device="cpu", dtype: torch.dtype | None = N
     def gqa(p):
         return {name: _linear(p[name], dtype, device) for name in ("wq", "wk", "wv", "wo")}
 
+    def attn(p):
+        if not cfg.is_mla:
+            return gqa(p)
+        return {name: norm(v) if name.endswith("_norm") else _linear(v, dtype, device)
+                for name, v in p.items()}
+
+    def swiglu(p):
+        return {name: _linear(p[name], dtype, device) for name in ("wi", "wg", "wo")}
+
+    def mlp(p):
+        if not cfg.is_moe:
+            return swiglu(p)
+        out = {"router": _linear(p["router"], dtype, device)}
+        out.update({name: _tensor(p[name], dtype, device) for name in ("wi", "wg", "wo")})
+        if "shared" in p:
+            out["shared"] = swiglu(p["shared"])
+        return out
+
     layers = []
     for i in range(cfg.n_layers):
         lp = _layer(tree["layers"], i)
@@ -66,12 +87,8 @@ def params_from_jax(cfg, tree: dict, device="cpu", dtype: torch.dtype | None = N
                 name: _linear(v, dtype, device) if isinstance(v, dict) else _tensor(v, dtype, device)
                 for name, v in lp["mixer"].items()}})
             continue
-        layers.append({
-            "ln1": norm(lp["ln1"]),
-            "attn": gqa(lp["attn"]),
-            "ln2": norm(lp["ln2"]),
-            "mlp": {name: _linear(lp["mlp"][name], dtype, device)
-                    for name in ("wi", "wg", "wo")}})
+        layers.append({"ln1": norm(lp["ln1"]), "attn": attn(lp["attn"]),
+                       "ln2": norm(lp["ln2"]), "mlp": mlp(lp["mlp"])})
     out = {"embed": {"table": _tensor(tree["embed"]["table"], dtype, device)},
            "head": _linear(tree["head"], dtype, device),
            "layers": layers}

@@ -1,7 +1,10 @@
 """Model assembly: init / forward / prefill / decode for the dense GQA
-decoder (qwen2, yi, phi3, granite) and the state-space families:
+decoder (qwen2, yi, phi3, granite), the MoE families and the state-space
+families:
 
   dense:            [norm -> attention -> norm -> SwiGLU] x L
+  moe (incl. MLA):  [norm -> GQA|MLA -> norm -> MoE] x L       (qwen3-moe,
+                    deepseek-v2)
   ssm (falcon):     [norm -> Mamba1] x L                       (no MLP)
   hybrid (zamba2):  [norm -> Mamba2] x L, with one *shared* GQA block
                     (its own norm) after every cfg.attn_every-th layer
@@ -15,15 +18,18 @@ into loops, has no counterpart).  With ``cfg.remat``, a layer whose input
 autograd tracks runs through ``torch.utils.checkpoint`` (the reference's
 ``jax.checkpoint`` on its scanned body); a serving prefill tracks nothing
 and runs every layer plainly, at no cost.  The KV cache keeps the
-reference's stacked layout ``(L, B, Hkv, S, hd)``, and the SSM cache its
-``(L, B, W-1, d_inner)`` conv windows and float32 states (``h`` for Mamba1,
-``S`` for Mamba2; the hybrid's shared block a KV cache of one slot an
-application); ``decode_step`` writes all of them in place (the returned
-cache is the same object, its position advanced), which saves a copy of
-the cache per token.
+reference's stacked layout ``(L, B, Hkv, S, hd)`` (MLA's the compressed
+``c_kv`` (L, B, S, kv_lora) and ``k_rope`` (L, B, S, dr)), and the SSM
+cache its ``(L, B, W-1, d_inner)`` conv windows and float32 states
+(``h`` for Mamba1, ``S`` for Mamba2; the hybrid's shared block a KV cache
+of one slot an application); ``decode_step`` writes all of them in place
+(the returned cache is the same object, its position advanced), which
+saves a copy of the cache per token.
 
-The MoE, MLA, audio and vision branches of the reference raise
-``NotImplementedError`` naming the slice of the port they wait for.
+``forward`` returns the sum of the MoE layers' aux losses (0 for the
+other families), which the training loss adds.  The audio and vision
+branches of the reference raise ``NotImplementedError`` naming the slice of
+the port they wait for.
 """
 from __future__ import annotations
 
@@ -32,6 +38,7 @@ import torch.utils.checkpoint
 
 from ..tree import tree_map
 from . import attention as attn
+from . import moe as moe_mod
 from . import ssm
 from .layers import (embed, init_embed, init_linear, init_rmsnorm, init_swiglu,
                      linear, rms_norm, swiglu, torch_dtype)
@@ -40,17 +47,14 @@ __all__ = ["init_params", "embed_inputs", "forward", "prefill", "init_cache",
            "decode_step", "cast_params", "Model"]
 
 # the later slices of the port, by what the reference's branch needs
-_LATER = {"moe": "MoE/MLA", "mla": "MoE/MLA",
-          "audio": "audio/vision frontend", "vlm": "audio/vision frontend"}
+_LATER = {"audio": "audio/vision frontend", "vlm": "audio/vision frontend"}
 
 
 def _check_ported(cfg) -> None:
-    kind = ("mla" if cfg.is_mla else "moe" if cfg.is_moe else
-            cfg.family if cfg.family in _LATER else None)
-    if kind is not None:
+    if cfg.family in _LATER:
         raise NotImplementedError(
-            f"{cfg.name} ({kind}) is not ported yet: it comes with the port's "
-            f"{_LATER[kind]} slice (ROADMAP.md); the dense GQA decoder runs")
+            f"{cfg.name} ({cfg.family}) is not ported yet: it comes with the port's "
+            f"{_LATER[cfg.family]} slice (ROADMAP.md); the dense GQA decoder runs")
 
 
 # ================================================================== layer init
@@ -61,8 +65,10 @@ def _init_layer(gen: torch.Generator, cfg) -> dict:
         init = ssm.init_mamba1 if cfg.mamba_version == 1 else ssm.init_mamba2
         p["mixer"] = init(gen, cfg)
         return p
-    p.update(attn=attn.init_gqa(gen, cfg), ln2=init_rmsnorm(cfg.d_model, dt, gen.device),
-             mlp=init_swiglu(gen, cfg.d_model, cfg.d_ff, dt))
+    p["attn"] = attn.init_mla(gen, cfg) if cfg.is_mla else attn.init_gqa(gen, cfg)
+    p["ln2"] = init_rmsnorm(cfg.d_model, dt, gen.device)
+    p["mlp"] = (moe_mod.init_moe(gen, cfg) if cfg.is_moe
+                else init_swiglu(gen, cfg.d_model, cfg.d_ff, dt))
     return p
 
 
@@ -103,45 +109,59 @@ def embed_inputs(cfg, params, batch: dict) -> torch.Tensor:
 
 
 # ==================================================================== forward
+def _mlp(cfg, lp, h):
+    """The layer's MLP on its normed input: (y, aux), aux None but for MoE."""
+    if cfg.is_moe:
+        return moe_mod.moe_forward(lp["mlp"], cfg, h)
+    return swiglu(lp["mlp"], h), None
+
+
 def _layer_apply(cfg, lp, x, positions, attn_impl, shared=None):
     """One layer, then the hybrid's shared block where ``shared`` (its
-    ``{"attn", "ln"}`` parameters) is given."""
+    ``{"attn", "ln"}`` parameters) is given.  Returns (x, the layer's aux
+    loss or None)."""
     h = rms_norm(lp["ln1"], x, cfg.norm_eps)
+    aux = None
     if cfg.is_ssm:
         mix = ssm.mamba1_forward if cfg.mamba_version == 1 else ssm.mamba2_forward
         x = x + mix(lp["mixer"], cfg, h)
     else:
-        x = x + attn.gqa_forward(lp["attn"], cfg, h, positions, attn_impl)
-        x = x + swiglu(lp["mlp"], rms_norm(lp["ln2"], x, cfg.norm_eps))
+        mix = attn.mla_forward if cfg.is_mla else attn.gqa_forward
+        x = x + mix(lp["attn"], cfg, h, positions, attn_impl)
+        y, aux = _mlp(cfg, lp, rms_norm(lp["ln2"], x, cfg.norm_eps))
+        x = x + y
     if shared is not None:
         h = rms_norm(shared["ln"], x, cfg.norm_eps)
         x = x + attn.gqa_forward(shared["attn"], cfg, h, positions, attn_impl)
-    return x
+    return x, aux
 
 
 def forward(cfg, params, batch: dict, attn_impl: str | None = None,
             return_hidden: bool = False) -> tuple:
     """-> (logits, aux_loss), or (hidden, aux_loss) with return_hidden=True:
     the hidden states after the final norm, which training feeds to a
-    chunked cross-entropy so that the (B, L, V) logits never exist at once.
+    chunked cross-entropy so that the (B, L, V) logits never exist at once;
+    aux_loss is the sum of the MoE layers' (a float32 0 for the others).
     ``attn_impl`` None runs the flash-attention kernel on the card and
     raises without one; ``"torch"`` pins the plain attention, the one that
-    trains (the kernel has no backward)."""
+    trains (the kernel has no backward), and the only one MLA runs."""
     attn_impl = attn.resolve_attn_impl(attn_impl)
     x = embed_inputs(cfg, params, batch)
     B, L, _ = x.shape
     positions = torch.arange(L, device=x.device)[None].expand(B, L)
     shared = ({"attn": params["shared_attn"], "ln": params["shared_ln"]}
               if _has_shared(cfg) else None)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, lp in enumerate(params["layers"]):
         sh = shared if _shared_after(cfg, i) else None
         if cfg.remat and x.requires_grad:
-            x = torch.utils.checkpoint.checkpoint(
+            x, a = torch.utils.checkpoint.checkpoint(
                 _layer_apply, cfg, lp, x, positions, attn_impl, sh, use_reentrant=False)
         else:
-            x = _layer_apply(cfg, lp, x, positions, attn_impl, sh)
+            x, a = _layer_apply(cfg, lp, x, positions, attn_impl, sh)
+        if a is not None:
+            aux = aux + a
     x = rms_norm(params["final_ln"], x, cfg.norm_eps)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if return_hidden:
         return x, aux
     return linear(params["head"], x), aux
@@ -157,12 +177,20 @@ def _kv(cfg, n: int, batch_size: int, max_len: int, device) -> dict:
 
 def init_cache(cfg, batch_size: int, max_len: int, device=None) -> dict:
     """Stacked cache ``{"layers": ..., "pos": 0}``: the KV cache
-    ``{"k", "v"}: (L, B, Hkv, max_len, hd)``; for the SSM families the
+    ``{"k", "v"}: (L, B, Hkv, max_len, hd)``; MLA's compressed cache
+    ``{"c_kv": (L, B, max_len, kv_lora), "k_rope": (L, B, max_len, dr)}``
+    in the model's dtype; for the SSM families the
     conv windows ``"conv"`` (L, B, W-1, d_inner) in the model's dtype and
     the float32 states ``"h"`` (L, B, d_inner, s) (Mamba1) or ``"S"``
     (L, B, H, s, P) (Mamba2), and the hybrid's ``"shared"`` KV cache of
     ``n_layers // attn_every`` slots."""
     _check_ported(cfg)
+    if cfg.is_mla:
+        dt = dict(dtype=torch_dtype(cfg), device=device)
+        shape = (cfg.n_layers, batch_size, max_len)
+        return {"layers": {"c_kv": torch.zeros(shape + (cfg.kv_lora_rank,), **dt),
+                           "k_rope": torch.zeros(shape + (cfg.qk_rope_dim,), **dt)},
+                "pos": 0}
     if not cfg.is_ssm:
         return {"layers": _kv(cfg, cfg.n_layers, batch_size, max_len, device), "pos": 0}
     L, B = cfg.n_layers, batch_size
@@ -195,10 +223,10 @@ def decode_step(cfg, params, cache: dict, batch: dict) -> tuple:
             y, _ = mix(lp["mixer"], cfg, h, {k: t[i] for k, t in layers.items()})
             x = x + y
         else:
-            y, _ = attn.gqa_decode(lp["attn"], cfg, h,
-                                   {"k": layers["k"][i], "v": layers["v"][i]}, pos)
+            dec = attn.mla_decode if cfg.is_mla else attn.gqa_decode
+            y, _ = dec(lp["attn"], cfg, h, {k: t[i] for k, t in layers.items()}, pos)
             x = x + y
-            x = x + swiglu(lp["mlp"], rms_norm(lp["ln2"], x, cfg.norm_eps))
+            x = x + _mlp(cfg, lp, rms_norm(lp["ln2"], x, cfg.norm_eps))[0]
         if _shared_after(cfg, i):
             si = (i + 1) // cfg.attn_every - 1
             sc = cache["shared"]

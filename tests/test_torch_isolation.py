@@ -3,14 +3,15 @@ package, at run time (a fresh interpreter running the CPU slices: a
 build, a loss query, a tune_k sweep, a row patch, a stream with a band
 replacement, a band-parallel build, a reduced qwen2 prefill and greedy
 generation pinned to the plain attention, the same for reduced
-falcon-mamba-7b and zamba2-1.2b, the coreset server booted on
+falcon-mamba-7b and zamba2-1.2b and for reduced qwen3-moe-235b-a22b and
+deepseek-v2-236b (MoE, MLA), the coreset server booted on
 an ephemeral port answering a loss query and a batch through the SDK, a
 cluster coordinator gathering a build from two in-process workers, a
 train step, a compressed gradient, a checkpoint and a crash-and-resume
 ``train_loop`` on the token stream, and a CPU rank of a one-rank gloo mesh
 scoring and scanning over it) or anywhere in its source (train/,
-checkpoint/, runtime/, data/tokens.py, launch/train.py and models/ssm.py
-among it), in
+checkpoint/, runtime/, data/tokens.py, launch/train.py, models/ssm.py and
+models/moe.py among it), in
 chip_smoke.py, in the port's scripts and in its examples.  Importing the
 package loads no mesh module and starts no process group."""
 import ast
@@ -75,6 +76,14 @@ for arch in ("falcon-mamba-7b", "zamba2-1.2b"):
                            attn_impl="torch")
     ssm_tokens.append([list(sm_logits.shape),
                        list(generate(sm, sm_params, prompts, 2, greedy=True).shape)])
+moe_tokens = []
+for arch in ("qwen3-moe-235b-a22b", "deepseek-v2-236b"):
+    mm = reduced_config(get_arch(arch))
+    mm_params = init_params(mm, torch.Generator().manual_seed(0))
+    mm_logits, mm_aux = prefill(mm, mm_params, {"tokens": torch.as_tensor(prompts)},
+                                attn_impl="torch")
+    moe_tokens.append([list(mm_logits.shape), float(mm_aux) > 0,
+                       list(generate(mm, mm_params, prompts, 2, greedy=True).shape)])
 from repro_torch.client import CoresetClient
 from repro_torch.service import CoresetEngine, make_server, serve_forever_in_thread
 with ops.backend_override("numpy"):
@@ -141,6 +150,7 @@ print(json.dumps({"loss": loss, "blocks": cs.num_blocks, "bad": bad,
                   "logits": list(logits.shape),
                   "finite": bool(torch.isfinite(logits.float()).all()),
                   "tokens": list(tokens.shape), "ssm": ssm_tokens,
+                  "moe": moe_tokens,
                   "served": [served.loss, served.backend, served.served_from],
                   "batch": batch.losses.tolist(),
                   "cluster": [gathers, gathered == one]}))
@@ -162,6 +172,7 @@ def test_cpu_slice_runs_without_jax_or_reference():
     assert res["logits"] == [2, 5, 512] and res["finite"]
     assert res["tokens"] == [2, 8]
     assert res["ssm"] == [[[2, 5, 512], [2, 7]]] * 2
+    assert res["moe"] == [[[2, 5, 512], True, [2, 7]]] * 2
     loss, backend, served_from = res["served"]
     assert loss > 0 and backend == "numpy" and served_from == "built"
     assert res["batch"] == [loss] * 3
@@ -249,7 +260,8 @@ def test_sources_import_neither_jax_nor_reference():
     assert {port / "data" / "tokens.py", port / "launch" / "train.py",
             port / "train" / "train_step.py", port / "train" / "optimizer.py",
             port / "train" / "compress.py", port / "checkpoint" / "checkpointer.py",
-            port / "runtime" / "fault_tolerance.py", port / "models" / "ssm.py"} <= set(files)
+            port / "runtime" / "fault_tolerance.py", port / "models" / "ssm.py",
+            port / "models" / "moe.py"} <= set(files)
     files += [ROOT / "chip_smoke.py", *scripts, *examples]
     assert len(files) > 10
     bad = [f"{p.relative_to(ROOT)}:{line} imports {mod}"

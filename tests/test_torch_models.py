@@ -1,13 +1,16 @@
 """repro_torch's LM serving path against repro.models on the CPU: configs,
 layers, GQA attention, forward/prefill, decode and greedy generation on the
 reduced qwen2-0.5b (MQA at reduced width) and a GQA variant (two KV heads),
-and on the state-space families, reduced falcon-mamba-7b (Mamba1) and
-zamba2-1.2b (Mamba2 with its shared GQA block), with the reference's
-weights carried across by ``params_from_jax``.
+on the state-space families, reduced falcon-mamba-7b (Mamba1) and
+zamba2-1.2b (Mamba2 with its shared GQA block), and on the MoE families,
+reduced qwen3-moe-235b-a22b (GQA) and deepseek-v2-236b (MLA, a shared
+expert), with the reference's weights carried across by
+``params_from_jax``.
 
 Tolerances: float32 within 1e-4 on logits and equal tokens; bfloat16
 within 5e-2 (the port follows the reference's dtype promotions; what is
 left is the order of the sums and bfloat16's last bit)."""
+import contextlib
 import dataclasses
 
 import jax
@@ -184,11 +187,6 @@ def test_attention_selection_pins_the_cpu_or_raises():
             attention.resolve_attn_impl(None)
 
 
-def test_mla_waits_for_its_slice():
-    with pytest.raises(NotImplementedError, match="MLA"):
-        attention.mla_forward(None, None, None, None)
-
-
 # ------------------------------------------------------- forward / prefill
 @pytest.mark.parametrize("variant,dtype", CASES)
 @pytest.mark.parametrize("impl,ref_impl", [("torch", "xla"), ("cuda", "pallas")])
@@ -307,8 +305,7 @@ def test_port_init_params_has_the_converted_layout_and_is_seeded(models_by_case)
     assert all(t.dtype == torch.float32 for t in jax.tree.leaves(f32))
 
 
-@pytest.mark.parametrize("arch", ["deepseek-v2-236b", "qwen3-moe-235b-a22b",
-                                  "musicgen-medium", "pixtral-12b"])
+@pytest.mark.parametrize("arch", ["musicgen-medium", "pixtral-12b"])
 def test_other_families_wait_for_their_slice(arch):
     cfg = configs.reduced_config(configs.ARCHS[arch])
     with pytest.raises(NotImplementedError, match="slice"):
@@ -461,3 +458,178 @@ def test_ssm_serve_cli_runs_on_a_pinned_cpu(capsys):
                 "--batch", "2", "--prompt-len", "3", "--new-tokens", "2"])
     out = capsys.readouterr().out
     assert "arch=falcon-mamba-7b" in out and "generated (2, 5)" in out
+
+
+# ---------------------------------------------------------- the MoE families
+MOE_ARCHS = ["qwen3-moe-235b-a22b", "deepseek-v2-236b"]
+MOE_CASES = [(a, d) for a in MOE_ARCHS for d in TOL]
+# MLA's mixed head sizes run on the plain attention only, in both packages
+MOE_IMPLS = [("qwen3-moe-235b-a22b", "torch", "xla"),
+             ("qwen3-moe-235b-a22b", "cuda", "pallas"),
+             ("deepseek-v2-236b", "torch", "xla")]
+# each token's k-th router probability above its (k+1)-th, in every layer,
+# so that a pick flipped between the packages fails as its own check
+ROUTER_MARGIN = 1e-5
+
+
+@pytest.fixture(scope="module")
+def moe_models():
+    """{(arch, dtype): (ref cfg, port cfg, ref params, port params)} of the
+    reduced MoE archs, the reference's weights (key 1) carried across."""
+    out = {}
+    for arch, dtype in MOE_CASES:
+        kw = dict(dtype=dtype, remat=False)
+        rcfg = ref_configs.reduced_config(ref_configs.ARCHS[arch], **kw)
+        tcfg = configs.reduced_config(configs.ARCHS[arch], **kw)
+        rp = ref_models.init_params(rcfg, jax.random.PRNGKey(1))
+        out[arch, dtype] = (rcfg, tcfg, rp,
+                            models.params_from_jax(tcfg, jax.tree.map(np.asarray, rp)))
+    return out
+
+
+@contextlib.contextmanager
+def _router_gaps(monkeypatch):
+    """Yields a list that receives, for each MoE layer run inside, the
+    smallest gap between a token's k-th and (k+1)-th router probability."""
+    from repro_torch.models import moe
+    real, gaps = moe.route, []
+
+    def route(p, c, xt):
+        out = real(p, c, xt)
+        top = torch.topk(out[0], c.moe_top_k + 1, dim=-1).values
+        gaps.append(float((top[:, -2] - top[:, -1]).min()))
+        return out
+    monkeypatch.setattr(moe, "route", route)
+    yield gaps
+    monkeypatch.undo()
+
+
+@pytest.mark.parametrize("dtype", list(TOL))
+@pytest.mark.parametrize("arch,impl,ref_impl", MOE_IMPLS)
+def test_moe_forward_and_prefill_match_the_reference(moe_models, monkeypatch, arch,
+                                                     dtype, impl, ref_impl):
+    """Against the reference's forward run op by op (``unroll=True``): its
+    scan compiles the layer body, where XLA fuses bfloat16 chains in
+    float32 without the roundings between ops that its unrolled forward and
+    the port make; on the Pallas path reduced qwen3-moe's scanned forward
+    flips a pick against its own unrolled one (its logits then stand
+    beyond the 5e-2 bar)."""
+    rcfg, tcfg, rp, tp = moe_models[arch, dtype]
+    toks = _tokens(rcfg.vocab, 2, 24)
+    want, waux = ref_models.forward(rcfg, rp, {"tokens": jnp.asarray(toks)},
+                                    attn_impl=ref_impl, unroll=True)
+    with _router_gaps(monkeypatch) as gaps:
+        got, aux = models.forward(tcfg, tp, {"tokens": torch.as_tensor(toks)},
+                                  attn_impl=impl)
+    assert len(gaps) == tcfg.n_layers and min(gaps) > ROUTER_MARGIN, \
+        f"a near-tie in the routing, a pick may flip between the packages: {gaps}"
+    assert got.shape == (2, 24, rcfg.vocab) and got.dtype == tp["head"]["w"].dtype
+    assert aux.dtype == torch.float32 and float(aux) > 0
+    # the aux loss: the loss's bar in float32, the logits' in bfloat16 (the
+    # router reads the bfloat16 hidden states)
+    np.testing.assert_allclose(float(aux), float(waux),
+                               rtol=1e-5 if dtype == "float32" else TOL[dtype])
+    _close(got, want, dtype)
+    pre, pre_aux = models.prefill(tcfg, tp, {"tokens": torch.as_tensor(toks)},
+                                  attn_impl=impl)
+    assert torch.equal(pre, got) and torch.equal(pre_aux, aux)
+
+
+@pytest.mark.parametrize("arch,dtype", MOE_CASES)
+def test_moe_decode_steps_and_cache_match_the_reference(moe_models, monkeypatch, arch,
+                                                        dtype):
+    """Against the reference's decode step run op by op (``unroll=True``,
+    not jitted): under ``jax.jit`` XLA fuses bfloat16 chains in float32
+    without the roundings between ops that the eager reference and the port
+    make, and reduced deepseek-v2's jitted step 6 flips a pick against the
+    eager reference's own (beyond the 5e-2 bar)."""
+    rcfg, tcfg, rp, tp = moe_models[arch, dtype]
+    B, L = 2, 10
+    toks = _tokens(rcfg.vocab, B, L, seed=1)
+    rc = ref_models.init_cache(rcfg, B, L)
+    tc = models.init_cache(tcfg, B, L)
+    names = ["c_kv", "k_rope"] if arch == "deepseek-v2-236b" else ["k", "v"]
+    assert sorted(tc["layers"]) == sorted(rc["layers"]) == sorted(names)
+    for name in names:
+        assert tuple(tc["layers"][name].shape) == rc["layers"][name].shape
+        assert tc["layers"][name].dtype == tp["embed"]["table"].dtype
+    for t in range(L):
+        want, rc = ref_models.decode_step(rcfg, rp, rc,
+                                          {"tokens": jnp.asarray(toks[:, t:t + 1])},
+                                          unroll=True)
+        with _router_gaps(monkeypatch) as gaps:
+            got, tc2 = models.decode_step(tcfg, tp, tc,
+                                          {"tokens": torch.as_tensor(toks[:, t:t + 1])})
+        assert min(gaps) > ROUTER_MARGIN, f"a near-tie in the routing at step {t}: {gaps}"
+        assert tc2 is tc and tc["pos"] == int(rc["pos"]) == t + 1
+        _close(got, want, dtype)
+    for name in names:
+        _close(tc["layers"][name], rc["layers"][name], dtype)
+
+
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_moe_decode_matches_prefill_in_float32(moe_models, arch):
+    """The reference's own check (tests/test_models_smoke.py): at
+    capacity_factor 8, where no assignment drops, teacher-forced decode
+    equals the full forward, here within 2e-3."""
+    _, tcfg, _, tp = moe_models[arch, "float32"]
+    cfg = dataclasses.replace(tcfg, capacity_factor=8.0)
+    B, L = 2, 10
+    toks = torch.as_tensor(_tokens(cfg.vocab, B, L, seed=2))
+    impl = "cuda" if arch == "qwen3-moe-235b-a22b" else "torch"
+    full, _ = models.prefill(cfg, tp, {"tokens": toks}, attn_impl=impl)
+    cache = models.init_cache(cfg, B, L)
+    steps = [models.decode_step(cfg, tp, cache, {"tokens": toks[:, t:t + 1]})[0][:, 0]
+             for t in range(L)]
+    np.testing.assert_allclose(_np(torch.stack(steps, dim=1)), _np(full),
+                               rtol=2e-3, atol=2e-3)
+
+
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_moe_greedy_generate_equals_the_reference_token_for_token(moe_models, arch):
+    rcfg, tcfg, rp, tp = moe_models[arch, "float32"]
+    prompts = _tokens(rcfg.vocab, 3, 8, seed=3)
+    want = ref_generate(rcfg, rp, prompts, 12, greedy=True)
+    got = serve.generate(tcfg, tp, prompts, 12, greedy=True)
+    assert got.dtype == np.int32 and got.shape == (3, 20)
+    assert np.array_equal(got, want)
+
+
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_moe_port_init_params_has_the_converted_layout_and_dtypes(moe_models, arch):
+    """The port's own init: the converted tree's paths, shapes and dtypes
+    (the router float32 in a bfloat16 model, the experts (E, ...) raw),
+    seeded."""
+    _, tcfg, _, tp = moe_models[arch, "bfloat16"]
+    mine = models.init_params(tcfg, torch.Generator().manual_seed(0))
+    flat = jax.tree_util.tree_flatten_with_path
+    shapes = [(jax.tree_util.keystr(p), tuple(x.shape), x.dtype) for p, x in flat(mine)[0]]
+    assert shapes == [(jax.tree_util.keystr(p), tuple(x.shape), x.dtype)
+                      for p, x in flat(tp)[0]]
+    for k, shape, dt in shapes:
+        assert dt == (torch.float32 if "['router']" in k else torch.bfloat16), k
+    mlp = mine["layers"][0]["mlp"]
+    E, d, dff = tcfg.n_experts, tcfg.d_model, tcfg.d_ff_expert
+    assert [tuple(mlp[n].shape) for n in ("wi", "wg", "wo")] == [(E, d, dff), (E, d, dff),
+                                                                 (E, dff, d)]
+    assert ("shared" in mlp) == (arch == "deepseek-v2-236b")
+    att = mine["layers"][0]["attn"]
+    if arch == "deepseek-v2-236b":
+        H, r = tcfg.n_heads, tcfg.kv_lora_rank
+        assert sorted(att) == ["kv_norm", "q_norm", "wk_b", "wkv_a", "wo", "wq_a", "wq_b",
+                               "wv_b"]
+        assert tuple(att["wk_b"]["w"].shape) == (r, H * tcfg.qk_nope_dim)
+        assert tuple(att["wv_b"]["w"].shape) == (r, H * tcfg.v_head_dim)
+    else:
+        assert sorted(att) == ["wk", "wo", "wq", "wv"]
+    again = models.init_params(tcfg, torch.Generator().manual_seed(0))
+    assert all(torch.equal(a, b) for a, b in zip(jax.tree.leaves(mine),
+                                                 jax.tree.leaves(again)))
+
+
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_moe_serve_cli_runs_on_a_pinned_cpu(capsys, arch):
+    serve.main(["--arch", arch, "--reduced", "--device", "cpu",
+                "--batch", "2", "--prompt-len", "3", "--new-tokens", "2"])
+    out = capsys.readouterr().out
+    assert f"arch={arch}" in out and "generated (2, 5)" in out

@@ -172,6 +172,55 @@ def test_ssm_loss_and_gradient_match_the_reference(arch):
         np.testing.assert_allclose(_np(g), _np(w), rtol=1e-4, atol=1e-6, err_msg=k)
 
 
+@pytest.mark.parametrize("arch", ["qwen3-moe-235b-a22b", "deepseek-v2-236b"])
+def test_moe_loss_and_gradient_match_the_reference(arch):
+    """The MoE families through the same loss, with the layers' aux term in
+    it: reduced float32 qwen3-moe-235b-a22b and deepseek-v2-236b (MLA, a
+    shared expert), the loss and the aux within 1e-5 and every gradient
+    leaf (the float32 router's and the (E, ...) experts' among them) within
+    1e-4 of ``jax.value_and_grad``'s."""
+    kw = dict(dtype="float32", remat=False)
+    rcfg = ref_configs.reduced_config(ref_configs.ARCHS[arch], **kw)
+    tcfg = configs.reduced_config(configs.ARCHS[arch], **kw)
+    rp = ref_models.init_params(rcfg, jax.random.PRNGKey(1))
+    tp = models.params_from_jax(tcfg, jax.tree.map(np.asarray, rp))
+    jb, tb = _batches(RefTokenStream(rcfg.vocab, 2, 32, seed=0).batch_at(0))
+    (want_loss, wmet), want = jax.value_and_grad(
+        lambda p: ref_train.loss_fn(rcfg, p, jb), has_aux=True)(rp)
+    keys, leaves_ = flatten(tree_map(lambda t: t.detach().requires_grad_(True), tp))
+    loss, met = train.loss_fn(tcfg, unflatten(tp, leaves_), tb)
+    grads = torch.autograd.grad(loss, leaves_)
+    np.testing.assert_allclose(float(loss.detach()), float(want_loss), rtol=1e-5)
+    aux = float(met["aux"].detach())
+    assert aux > 0
+    np.testing.assert_allclose(aux, float(wmet["aux"]), rtol=1e-5)
+    wk, wl = flatten(models.params_from_jax(tcfg, jax.tree.map(np.asarray, want)))
+    assert keys == wk and any(k.endswith("mlp/router/w") for k in keys)
+    for k, g, w in zip(keys, grads, wl):
+        np.testing.assert_allclose(_np(g), _np(w), rtol=1e-4, atol=1e-6, err_msg=k)
+
+
+@pytest.mark.parametrize("arch", ["qwen3-moe-235b-a22b", "deepseek-v2-236b"])
+def test_moe_remat_gives_the_same_loss_aux_and_gradient(arch):
+    """torch.utils.checkpoint returns each MoE layer's aux beside its
+    output, and the recompute routes the same picks: the loss, the aux and
+    every gradient bitwise with remat on and off."""
+    tcfg = configs.reduced_config(configs.ARCHS[arch], dtype="float32")
+    params = models.init_params(tcfg, torch.Generator().manual_seed(0))
+    tb = {k: torch.as_tensor(v)
+          for k, v in TokenStream(tcfg.vocab, 2, 32, seed=1).batch_at(0).items()}
+    out = []
+    for remat in (False, True):
+        cfg = dataclasses.replace(tcfg, remat=remat)
+        ps = tree_map(lambda t: t.detach().requires_grad_(True), params)
+        loss, met = train.loss_fn(cfg, ps, tb)
+        out.append((loss.detach(), met["aux"].detach(),
+                    torch.autograd.grad(loss, flatten(ps)[1])))
+    assert float(out[0][1]) > 0
+    assert torch.equal(out[0][0], out[1][0]) and torch.equal(out[0][1], out[1][1])
+    assert all(torch.equal(a, b) for a, b in zip(out[0][2], out[1][2]))
+
+
 def test_remat_changes_neither_the_loss_nor_the_gradient(monkeypatch):
     """torch.utils.checkpoint reruns each layer's forward in the backward:
     the same operations on the same inputs, so the same bits.  It wraps
