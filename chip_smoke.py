@@ -15,7 +15,11 @@ heads of 64, state 64, one shared GQA block of 32 heads every 6 layers)
 at full size; the MoE families (models/moe.py, MLA in models/attention.py)
 with qwen3-moe-235b-a22b (128 experts, top 8, 64 query and 4 KV heads of
 128) and deepseek-v2-236b (MLA, 160 routed and 2 shared experts, top 6) at
-full width, cut in depth to 6 and 4 layers; LM training (train/, checkpoint/,
+full width, cut in depth to 6 and 4 layers; the modality frontends
+(models/model.py's embed_inputs and head) with musicgen-medium (48 layers,
+d_model 1536, 24 query and 24 KV heads of 64, 4 codebooks of 2048) and
+pixtral-12b (40 layers, d_model 5120, 32 query and 8 KV heads of 128, vocab
+131,072, 256 patch embeddings) at full size; LM training (train/, checkpoint/,
 runtime/, launch/train.py) with the same model at full width, 4 x 2048
 tokens a step; the coreset server (service/,
 client/) with slice 1's signal, its trees and batches over HTTP, a 20-tree
@@ -94,8 +98,10 @@ Phases, one JSON line each:
               of 128 (prefill_d128: 1 x 32 query and 4 KV heads x 4096,
               bf16), zamba2-1.2b's shared block (4 x 32 query and 32 KV
               heads x 2048, bf16), qwen3-moe's layout (qwen3_moe_prefill:
-              4 x 64 query and 4 KV heads of 128 x 2048, bf16) and the
-              float32 path's and a ragged
+              4 x 64 query and 4 KV heads of 128 x 2048, bf16), musicgen's
+              (musicgen_prefill: 4 x 24 query and 24 KV heads of 64 x 2048)
+              and pixtral's (pixtral_prefill: 4 x 32 query and 8 KV heads
+              of 128 x 2048) and the float32 path's and a ragged
               float32 shape, with
               times beside the plain version's,
               scaled_dot_product_attention's and the bound
@@ -145,6 +151,26 @@ Phases, one JSON line each:
               of a prefill, the 2 x active parameters x tokens bound, one MoE
               layer alone and its parts (CUDA events), ms a decode step and
               its busy time, peak memory; moe_launches in the kernel table
+  lm_serve_frontends  musicgen-medium, then pixtral-12b, at full size (bf16,
+              seeded random weights), each freed before the next, every
+              kernel's count at 0 before each part: (a) a 4 x 2048 prefill
+              (musicgen's (4, 2048, 4) codebook tokens, logits (4, 2048, 4,
+              2048); pixtral's 256 seeded patch embeddings before 1,792
+              text tokens, logits (4, 2048, 131072)), the bf16 kernel once a
+              layer (48, 40), finite logits, a second prefill bitwise equal;
+              (b) each layer's attention, the kernel against
+              attn_impl="torch" on the same input within 2e-2; (c) float32
+              (musicgen whole, pixtral's first layer with its embedding,
+              head and final norm) prefill against teacher-forced decode at
+              every position of 4 x 64 codebook or text tokens (2e-3; the f32
+              kernel 48 and 1 times); (d) greedy decoding of 32 tokens after
+              4 x 64 (pixtral through generate, musicgen through a loop of
+              decode steps with an argmax a codebook; no kernel); (e) the
+              reduced float32 model on the card against the CPU (logits
+              1e-4, greedy tokens equal).  Tokens/s, busy time, idle share
+              and top kernels of a prefill, the 2 x non-embedding parameters
+              x tokens bound, ms a decode step and its busy time, peak
+              memory; frontend_launches in the kernel table
   lm_train    LM training on the card, every kernel's count at 0 before each
               part and none launched: (a) the reduced qwen2 in float32, 3
               make_train_step steps on the card and on the CPU from the same
@@ -314,6 +340,8 @@ FA_SHAPES = {"prefill": (4, 14, 2, 2048, 2048, 64, "bfloat16"),
              "prefill_d128": (1, 32, 4, 4096, 4096, 128, "bfloat16"),
              "zamba2_prefill": (4, 32, 32, 2048, 2048, 64, "bfloat16"),
              "qwen3_moe_prefill": (4, 64, 4, 2048, 2048, 128, "bfloat16"),
+             "musicgen_prefill": (4, 24, 24, 2048, 2048, 64, "bfloat16"),
+             "pixtral_prefill": (4, 32, 8, 2048, 2048, 128, "bfloat16"),
              "f32_path": (4, 14, 2, 64, 64, 64, "float32"),
              "f32_ragged": (2, 4, 2, 300, 300, 32, "float32")}
 FA_TOL = {"bfloat16": 2e-2, "float32": 1e-5}
@@ -353,6 +381,19 @@ SSM_CPU_PROMPT, SSM_CPU_GEN = (2, 24), 16
 # reduced float32 models against the CPU within SSM_CPU_TOL
 MOE_LAYERS = {"qwen3-moe-235b-a22b": 6, "deepseek-v2-236b": 4}
 MOE_ATTN = {"qwen3-moe-235b-a22b": None, "deepseek-v2-236b": "torch"}
+# the modality frontends (models/model.py's embed_inputs and head):
+# musicgen-medium's (B, L, 4) codebook tokens and (B, L, 4, 2048) logits,
+# pixtral-12b's n_patches = 256 patch embeddings (seeded standard normals
+# in bf16, as the reference's tests draw them) before 1,792 text tokens;
+# both at full size, not cut, with lm_serve's traffic and bars.  The
+# float32 cross-check runs musicgen whole (7.35 GB) and pixtral's first
+# FRONTEND_F32_LAYERS layer, embedding, head and final norm (its whole
+# float32 model, 49 GB, does not fit beside the bf16 one); pixtral's
+# decode and generate take text only, as the reference's do, and musicgen
+# decodes greedily through a loop of decode steps (no generate takes
+# codebooks: the reference's own test)
+FRONTEND_ARCHS = ("musicgen-medium", "pixtral-12b")
+FRONTEND_F32_LAYERS = {"pixtral-12b": 1}
 # LM training (train/, checkpoint/, runtime/, launch/train.py): (a) the
 # reduced qwen2 in float32, LM_TRAIN_XCHECK (batch, tokens, steps) on the
 # card and on the CPU from the same weights, with LM_TRAIN_OPT (warmup and
@@ -1629,43 +1670,93 @@ def ssm_scan_ms(cfg, B: int, L: int) -> dict:
     return {"ms": ms, "bytes": nbytes, "bytes_bound_ms": nbytes / HBM_BYTES_PER_S * 1e3}
 
 
+def frontend_batch(cfg, B: int, L: int, rng, device, patch_dtype=None) -> dict:
+    """Seeded inputs of L positions on ``device``: (B, L) tokens; for the
+    audio frontend (B, L, C) codebook tokens; for the vision frontend
+    n_patches standard-normal patch embeddings in ``patch_dtype`` (the
+    model's casts them to its own) and L - n_patches text tokens."""
+    import numpy as np
+    import torch
+    if cfg.frontend == "audio_codebooks":
+        return {"tokens": torch.as_tensor(
+            rng.integers(0, cfg.vocab, size=(B, L, cfg.n_codebooks)), device=device)}
+    if cfg.frontend != "vision_stub":
+        return {"tokens": torch.as_tensor(rng.integers(0, cfg.vocab, size=(B, L)),
+                                          device=device)}
+    patches = rng.standard_normal(size=(B, cfg.n_patches, cfg.d_model), dtype=np.float32)
+    return {"patch_embeds": torch.as_tensor(patches, device=device).to(
+                patch_dtype or torch.bfloat16),
+            "tokens": torch.as_tensor(rng.integers(0, cfg.vocab, size=(B, L - cfg.n_patches)),
+                                      device=device)}
+
+
+def greedy_decode(cfg, params, prompts, new: int):
+    """Greedy tokens after ``prompts`` on the parameters' device: (B, Lp)
+    text prompts through ``generate``; musicgen's (B, Lp, C) codebook
+    prompts through a loop of decode steps taking each codebook's argmax,
+    ``generate``'s loop (no generate takes codebooks; the reference's own
+    test decodes so).  Returns (B, Lp + new[, C]) int32."""
+    import numpy as np
+    import torch
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import decode_step, init_cache
+    if cfg.frontend != "audio_codebooks":
+        return generate(cfg, params, prompts, new, greedy=True)
+    device = params["embed"]["table"].device
+    B, Lp, _ = prompts.shape
+    cache = init_cache(cfg, B, Lp + new, device=device)
+    toks = torch.as_tensor(np.asarray(prompts, np.int32), device=device)
+    out = [toks]
+    with torch.no_grad():
+        for t in range(Lp):
+            logits, cache = decode_step(cfg, params, cache, {"tokens": toks[:, t:t + 1]})
+        for _ in range(new):
+            cur = torch.argmax(logits[:, -1].float(), dim=-1).to(torch.int32)[:, None]
+            out.append(cur)
+            logits, cache = decode_step(cfg, params, cache, {"tokens": cur})
+    return torch.cat(out, dim=1).cpu().numpy()
+
+
 def _cpu_parity(arch: str, attn_impl=None) -> dict:
     """The reduced float32 model on the card against the CPU from the same
-    weights and tokens: prefill logits (the card's attention through
+    weights and inputs (``frontend_batch``'s: codebook tokens, patch
+    embeddings): prefill logits (the card's attention through
     ``attn_impl``, by default the f32 kernel, the CPU's the plain one)
-    within SSM_CPU_TOL, greedy tokens equal."""
+    within SSM_CPU_TOL, greedy tokens (``greedy_decode``'s, on the text or
+    codebook tokens) equal."""
     import numpy as np
     import torch
     from repro_torch.configs import get_arch, reduced_config
-    from repro_torch.launch.serve import generate
     from repro_torch.models import init_params, prefill
     from repro_torch.tree import tree_map
     cfg = reduced_config(get_arch(arch), dtype="float32", remat=False)
     cpu = init_params(cfg, torch.Generator().manual_seed(0))
     card = tree_map(lambda t: t.to("cuda"), cpu)
     B, L = SSM_CPU_PROMPT
-    toks = np.random.default_rng(2).integers(0, cfg.vocab, size=(B, L)).astype(np.int32)
-    want, _ = prefill(cfg, cpu, {"tokens": torch.as_tensor(toks)}, attn_impl="torch")
-    got, _ = prefill(cfg, card, {"tokens": torch.as_tensor(toks, device="cuda")},
+    batch = frontend_batch(cfg, B, L + cfg.n_patches, np.random.default_rng(2), "cpu",
+                           torch.float32)
+    want, _ = prefill(cfg, cpu, batch, attn_impl="torch")
+    got, _ = prefill(cfg, card, {k: v.to("cuda") for k, v in batch.items()},
                      attn_impl=attn_impl)
     got = got.cpu()
     excess = float(((got - want).abs() - SSM_CPU_TOL * want.abs()).max())
     err = float((got - want).abs().max())
     check(excess <= SSM_CPU_TOL,
           f"{arch} reduced float32 logits card vs CPU: max abs {err}")
-    gen_cpu = generate(cfg, cpu, toks, SSM_CPU_GEN, greedy=True)
-    gen_card = generate(cfg, card, toks, SSM_CPU_GEN, greedy=True)
+    toks = batch["tokens"].numpy().astype(np.int32)
+    gen_cpu = greedy_decode(cfg, cpu, toks, SSM_CPU_GEN)
+    gen_card = greedy_decode(cfg, card, toks, SSM_CPU_GEN)
     check(np.array_equal(gen_cpu, gen_card), f"{arch} reduced greedy tokens card vs CPU")
     return {"batch": B, "tokens": L, "logits_max_abs_err": err,
             "max_excess_over_bar": excess, "new_tokens": SSM_CPU_GEN,
             "greedy_equal": True}
 
 
-def _shared_block_errs(cfg, params, toks) -> list:
-    """One bf16 prefill in which every ``gqa_forward`` (each application of
-    the hybrid's shared block, each layer of a GQA model) runs the kernel
-    and the plain attention on the same input: each output's relative
-    Frobenius distance, the kernel's against the plain."""
+def _shared_block_errs(cfg, params, batch: dict) -> list:
+    """One bf16 prefill of ``batch`` in which every ``gqa_forward`` (each
+    application of the hybrid's shared block, each layer of a GQA model)
+    runs the kernel and the plain attention on the same input: each
+    output's relative Frobenius distance, the kernel's against the plain."""
     from repro_torch.models import attention, prefill
     real, errs = attention.gqa_forward, []
 
@@ -1675,7 +1766,7 @@ def _shared_block_errs(cfg, params, toks) -> list:
         return out
     attention.gqa_forward = both
     try:
-        prefill(cfg, params, {"tokens": toks})
+        prefill(cfg, params, batch)
     finally:
         attention.gqa_forward = real
     return errs
@@ -1721,7 +1812,7 @@ def _serve_ssm(arch: str, kernels) -> dict:
     warm = [run()[1] for _ in range(2)]
     attn_check = None
     if shared:
-        blocks = _shared_block_errs(cfg, params, toks)
+        blocks = _shared_block_errs(cfg, params, {"tokens": toks})
         check(len(blocks) == shared and max(blocks) <= LM_LOGITS_TOL,
               f"{arch} shared block, kernel vs attn_impl='torch': {blocks}")
         plain_logits, _ = run("torch")
@@ -1942,7 +2033,7 @@ def _serve_moe(arch: str, kernels) -> dict:
     if kernel_layers:
         for kern in kernels.values():
             kern.launches = 0
-        errs = _shared_block_errs(cfg, params, toks)
+        errs = _shared_block_errs(cfg, params, {"tokens": toks})
         check(len(errs) == kernel_layers and max(errs) <= LM_LOGITS_TOL,
               f"{arch} attention, kernel vs attn_impl='torch': {errs}")
         plain_logits, plain_s = run("torch")
@@ -2069,6 +2160,168 @@ def phase_lm_serve_moe(kernels) -> dict:
     t0 = time.perf_counter()
     models = [_serve_moe(arch, kernels) for arch in MOE_LAYERS]
     emit("lm_serve_moe", models=models, seconds=time.perf_counter() - t0)
+    return {name: sum(m["prefill"]["launches"].get(name, 0) for m in models)
+            for name in kernels}
+
+
+def _serve_frontend(arch: str, kernels) -> dict:
+    """One frontend arch at full size on the card, parts (a)-(e) of the
+    lm_serve_frontends phase."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.models import (cast_params, decode_step, init_cache,
+                                    init_params, prefill)
+    from repro_torch.models.layers import head_shape
+    from repro_torch.tree import leaves
+    t_model = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_arch(arch)
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t_model
+    n_params = sum(t.numel() for t in leaves(params))
+    rng = np.random.default_rng(0)
+    B, L = LM_PREFILL
+    batch = frontend_batch(cfg, B, L, rng, "cuda")
+
+    def run(attn_impl=None):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out, _ = prefill(cfg, params, batch, attn_impl=attn_impl)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    # (a) the bf16 prefill, one kernel launch a layer, twice bitwise
+    for kern in kernels.values():
+        kern.launches = 0
+    logits, cold_s = run()
+    launches = {name: kern.launches for name, kern in kernels.items() if kern.launches}
+    check(launches == {"flash_attention_bf16": cfg.n_layers},
+          f"{arch} prefill launched {launches}, not the bf16 kernel {cfg.n_layers} times")
+    check(tuple(logits.shape) == (B, L) + head_shape(cfg) and logits.dtype == torch.bfloat16
+          and bool(torch.isfinite(logits).all()), f"{arch} prefill logits not finite or "
+                                                  f"misshapen: {tuple(logits.shape)}")
+    warm = [run()[1] for _ in range(2)]
+    again, _ = run()
+    check(torch.equal(again, logits), f"{arch} two bf16 prefills differ")
+    del again
+    prefill_peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    # (b) each layer's attention, the kernel against the plain on its input
+    errs = _shared_block_errs(cfg, params, batch)
+    check(len(errs) == cfg.n_layers and max(errs) <= LM_LOGITS_TOL,
+          f"{arch} attention, kernel vs attn_impl='torch': {errs}")
+    plain_logits, plain_s = run("torch")
+    attn_check = {"layer_out_rel_fro_vs_plain": errs,
+                  "logits_rel_fro_vs_plain": _rel_fro(logits, plain_logits),
+                  "plain_attention_cold_host_s": plain_s}
+    del logits, plain_logits
+    torch.cuda.empty_cache()
+    prefill_s = float(np.median(warm))
+    busy_ms, top, n_kernels = device_busy(lambda: prefill(cfg, params, batch), top=8)
+
+    # (c) float32 (musicgen whole; pixtral's first layer, embedding, head and
+    # final norm) prefill through the f32 kernel against teacher-forced
+    # decode at every position, on codebook or text tokens
+    n32 = FRONTEND_F32_LAYERS.get(arch, cfg.n_layers)
+    cfg32 = dataclasses.replace(cfg, n_layers=n32, dtype="float32")
+    p32 = cast_params(dict(params, layers=params["layers"][:n32]), torch.float32)
+    B2, L2 = LM_XCHECK
+    t32 = frontend_batch(cfg, B2, L2 + cfg.n_patches, rng, "cuda")["tokens"]
+    for kern in kernels.values():
+        kern.launches = 0
+    full32, _ = prefill(cfg32, p32, {"tokens": t32})
+    f32_launches = {name: kern.launches for name, kern in kernels.items() if kern.launches}
+    check(f32_launches == {"flash_attention_f32": n32},
+          f"{arch} float32 prefill launched {f32_launches}, not the f32 kernel {n32} times")
+    cache = init_cache(cfg32, B2, L2, device="cuda")
+    steps = torch.stack([decode_step(cfg32, p32, cache, {"tokens": t32[:, t:t + 1]})[0][:, 0]
+                         for t in range(L2)], dim=1)
+    check(steps.shape == full32.shape, f"{arch} decode logits {tuple(steps.shape)}")
+    diff = (steps - full32).abs()
+    dec_abs = float(diff.max())
+    dec_excess = float((diff - LM_DECODE_TOL * full32.abs()).max())
+    check(dec_excess <= LM_DECODE_TOL,
+          f"{arch} float32 prefill vs decode: max abs {dec_abs}, beyond 2e-3 + 2e-3|x|")
+    del p32, full32, steps, diff, cache
+    torch.cuda.empty_cache()
+
+    # (d) greedy decoding on the bf16 model; decode launches no kernel
+    Bg, Lp, new = LM_GEN
+    prompts = frontend_batch(cfg, Bg, Lp + cfg.n_patches, rng, "cpu")["tokens"].numpy()
+    prompts = prompts.astype(np.int32)
+    for kern in kernels.values():
+        kern.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = greedy_decode(cfg, params, prompts, new)
+    gen_s = time.perf_counter() - t0
+    check(out.shape == (Bg, Lp + new) + prompts.shape[2:]
+          and np.array_equal(out[:, :Lp], prompts)
+          and ((out >= 0) & (out < cfg.vocab)).all(), f"{arch} greedy tokens misshapen")
+    check(sum(k.launches for k in kernels.values()) == 0,
+          f"{arch} greedy decoding launched a kernel (decode is plain)")
+    cache = init_cache(cfg, Bg, Lp + new, device="cuda")
+    step_tok = torch.as_tensor(out[:, Lp:Lp + 1], device="cuda")
+
+    def step():
+        decode_step(cfg, params, dict(cache, pos=Lp), {"tokens": step_tok})
+    step()
+    step_busy_ms, step_top, _ = device_busy(step)
+    ms_step = gen_s * 1e3 / (Lp + new)
+    emb = params["embed"]["table"].numel()
+    del cache, params
+    torch.cuda.empty_cache()
+    # (e) the reduced float32 model, on the card against the CPU
+    for kern in kernels.values():
+        kern.launches = 0
+    reduced = _cpu_parity(arch)
+    reduced["launches"] = {name: kern.launches for name, kern in kernels.items()
+                           if kern.launches}
+    flops = 2 * (n_params - emb) * B * L
+    return {"arch": arch, "n_layers": cfg.n_layers, "params": n_params,
+            "weights_bytes": 2 * n_params, "config_param_count": cfg.param_count(),
+            "init_s": init_s,
+            "prefill": {"batch": B, "tokens": L, "patches": cfg.n_patches,
+                        "logits_shape": [B, L, *head_shape(cfg)],
+                        "host_s": prefill_s, "cold_host_s": cold_s,
+                        "host_s_runs": warm, "tokens_per_s": B * L / prefill_s,
+                        "device_busy_ms": busy_ms,
+                        "device_idle_share": 1 - busy_ms / 1e3 / prefill_s,
+                        "device_kernels": n_kernels, "device_top_kernels_ms": top,
+                        "flops_2n_nonembed": flops,
+                        "flops_bound_ms": flops / BF16_FLOP_PER_S * 1e3,
+                        "peak_memory_gb": prefill_peak_gb,
+                        "launches": launches, "attention_check": attn_check,
+                        "bitwise_repeat": True},
+            "float32_check": {"n_layers": n32, "batch": B2, "tokens": L2,
+                              "max_abs_err": dec_abs, "max_excess_over_bar": dec_excess,
+                              "launches": f32_launches},
+            "greedy": {"via": ("decode_step loop, argmax a codebook"
+                               if cfg.n_codebooks else "generate"),
+                       "batch": Bg, "prompt": Lp, "new_tokens": new, "host_s": gen_s,
+                       "decode_steps": Lp + new, "ms_per_step": ms_step,
+                       "step_device_busy_ms": step_busy_ms,
+                       "step_device_idle_share": 1 - step_busy_ms / ms_step,
+                       "step_top_kernels_ms": step_top,
+                       "new_tokens_per_s": Bg * new / gen_s,
+                       "first_new": out[:, Lp].tolist()},
+            "reduced_float32_vs_cpu": reduced,
+            "peak_memory_gb": torch.cuda.max_memory_allocated() / 2**30,
+            "seconds": time.perf_counter() - t_model}
+
+
+def phase_lm_serve_frontends(kernels) -> dict:
+    """The modality frontends at full size on the card (musicgen-medium,
+    then pixtral-12b), every kernel's count at 0 before each part.  Returns
+    the kernels' launches in the bf16 prefills."""
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    models = [_serve_frontend(arch, kernels) for arch in FRONTEND_ARCHS]
+    emit("lm_serve_frontends", models=models, seconds=time.perf_counter() - t0)
     return {name: sum(m["prefill"]["launches"].get(name, 0) for m in models)
             for name in kernels}
 
@@ -3663,6 +3916,7 @@ def run(default_cache) -> int:
     counts.update(lm_counts)
     ssm_counts = phase_lm_serve_ssm(kernels)
     moe_counts = phase_lm_serve_moe(kernels)
+    frontend_counts = phase_lm_serve_frontends(kernels)
 
     # ---------------------------------------------------- LM training
     train_counts = phase_lm_train(kernels, smi)
@@ -3711,6 +3965,7 @@ def run(default_cache) -> int:
                       "train_launches": train_counts[r["name"]],
                       "ssm_launches": ssm_counts[r["name"]],
                       "moe_launches": moe_counts[r["name"]],
+                      "frontend_launches": frontend_counts[r["name"]],
                       "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                       "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                       "bound_by": r["bound_by"], "library_ms": r["library_ms"],

@@ -4,13 +4,16 @@ The prompt is fed token by token through ``decode_step`` (teacher-forced,
 filling the cache, as the reference's ``generate`` does), then
 ``max_new_tokens`` are sampled, or taken greedily, one decode step each.
 Runs on the card unless ``--device cpu`` is given; without a card and
-without it, it raises.
+without it, it raises.  ``generate`` takes (B, Lp) text prompts: pixtral
+generates from text alone, and the CLI refuses musicgen, whose codebook
+tokens no sampler here takes, as the reference's does.
 
   python -m repro_torch.launch.serve --arch qwen2-0.5b --new-tokens 8
   python -m repro_torch.launch.serve --arch qwen2-0.5b --reduced --device cpu
   python -m repro_torch.launch.serve --arch falcon-mamba-7b --reduced --device cpu
   python -m repro_torch.launch.serve --arch qwen3-moe-235b-a22b --reduced --device cpu
   python -m repro_torch.launch.serve --arch deepseek-v2-236b --reduced --device cpu
+  python -m repro_torch.launch.serve --arch pixtral-12b --reduced --device cpu
 """
 from __future__ import annotations
 
@@ -78,10 +81,12 @@ def main(argv=None) -> None:
                     help="torch device; default the card, raising without one")
     args = ap.parse_args(argv)
 
-    device = resolve_device(args.device)
     cfg = get_arch(args.arch)
     if args.reduced:
         cfg = reduced_config(cfg)
+    if cfg.frontend == "audio_codebooks":
+        raise SystemExit("use the musicgen example for codebook decoding")
+    device = resolve_device(args.device)
     gen = torch.Generator(device=device)
     gen.manual_seed(0)
     params = init_params(cfg, gen)

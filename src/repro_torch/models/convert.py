@@ -11,7 +11,9 @@ above), and the hybrid's ``shared_attn`` and ``shared_ln`` as a layer's
 attention and norm.  An MLA attention's projections are linears and its
 ``q_norm``/``kv_norm`` norms; an MoE ``mlp`` keeps its router as a linear,
 its ``(E, ...)`` expert weights ``wi``, ``wg``, ``wo`` as they are, and its
-``shared`` experts as a SwiGLU.  Each leaf keeps its own dtype unless the
+``shared`` experts as a SwiGLU.  The audio frontend's (C, V, d) codebook
+embedding is carried as it is and its (d, C, V) head flattened to
+(d, C·V), as every linear is.  Each leaf keeps its own dtype unless the
 caller asks for one: the reference keeps ``A_log``, ``D`` and ``dt_bias``,
 and the MoE router, float32 in a bfloat16 model.  Any tree of the
 parameters' structure maps the same way (a gradient tree, AdamW's master,

@@ -7,7 +7,10 @@ product and bias stay in the inputs' dtype.  Initializers take a
 ``torch.Generator`` and create their tensors on its device; a weight
 ``(d_in, *d_out)`` of the reference is stored flattened as
 ``(d_in, prod(d_out))`` (and its bias as ``(prod(d_out),)``), which is the
-matrix the reference multiplies by.
+matrix the reference multiplies by.  ``linear`` returns the flat
+``(..., prod(d_out))``; the logits head goes through ``unembed``, which
+gives back the reference's trailing dims (musicgen's ``(n_codebooks,
+vocab)``).
 """
 from __future__ import annotations
 
@@ -16,12 +19,20 @@ import math
 import torch
 
 __all__ = ["rms_norm", "rope", "swiglu", "init_linear", "init_rmsnorm",
-           "init_swiglu", "linear", "embed", "init_embed",
-           "truncated_normal", "torch_dtype"]
+           "init_swiglu", "linear", "embed", "unembed", "head_shape",
+           "init_embed", "truncated_normal", "torch_dtype"]
 
 
 def torch_dtype(cfg) -> torch.dtype:
     return torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
+
+
+def head_shape(cfg) -> tuple:
+    """The logits' trailing dims: ``(n_codebooks, vocab)`` for the audio
+    frontend (one head a codebook), ``(vocab,)`` otherwise."""
+    if cfg.frontend == "audio_codebooks":
+        return (cfg.n_codebooks, cfg.vocab)
+    return (cfg.vocab,)
 
 
 def truncated_normal(gen: torch.Generator, shape, scale: float,
@@ -99,3 +110,9 @@ def embed(p: dict, tokens: torch.Tensor) -> torch.Tensor:
     # index_put_ with accumulate, sums them in a thread-dependent order on
     # the CPU), so a replayed training step gives the same bits
     return torch.nn.functional.embedding(tokens.long(), p["table"])
+
+
+def unembed(p: dict, x: torch.Tensor, out_shape: tuple) -> torch.Tensor:
+    """The logits head: x (..., d) -> (..., *out_shape), the reference's
+    ``linear`` keeping the weight's output dims (the weight stays flat)."""
+    return linear(p, x).reshape(*x.shape[:-1], *out_shape)

@@ -1,8 +1,8 @@
 """Model assembly: init / forward / prefill / decode for the dense GQA
-decoder (qwen2, yi, phi3, granite), the MoE families and the state-space
-families:
+decoder (qwen2, yi, phi3, granite, and behind their frontends pixtral and
+musicgen), the MoE families and the state-space families:
 
-  dense:            [norm -> attention -> norm -> SwiGLU] x L
+  dense/vlm/audio:  [norm -> attention -> norm -> SwiGLU] x L
   moe (incl. MLA):  [norm -> GQA|MLA -> norm -> MoE] x L       (qwen3-moe,
                     deepseek-v2)
   ssm (falcon):     [norm -> Mamba1] x L                       (no MLP)
@@ -27,9 +27,11 @@ of one slot an application); ``decode_step`` writes all of them in place
 saves a copy of the cache per token.
 
 ``forward`` returns the sum of the MoE layers' aux losses (0 for the
-other families), which the training loss adds.  The audio and vision
-branches of the reference raise ``NotImplementedError`` naming the slice of
-the port they wait for.
+other families), which the training loss adds.  The modality frontends are
+the reference's stubs: pixtral (``vision_stub``) takes precomputed patch
+embeddings ``"patch_embeds"`` (B, P, d) before its text tokens, musicgen
+(``audio_codebooks``) (B, L, C) codebook tokens whose C embeddings are
+summed, and its logits come out (..., C, vocab), one head a codebook.
 """
 from __future__ import annotations
 
@@ -40,22 +42,12 @@ from ..tree import tree_map
 from . import attention as attn
 from . import moe as moe_mod
 from . import ssm
-from .layers import (embed, init_embed, init_linear, init_rmsnorm, init_swiglu,
-                     linear, rms_norm, swiglu, torch_dtype)
+from .layers import (embed, head_shape, init_embed, init_linear, init_rmsnorm,
+                     init_swiglu, rms_norm, swiglu, torch_dtype, truncated_normal,
+                     unembed)
 
 __all__ = ["init_params", "embed_inputs", "forward", "prefill", "init_cache",
            "decode_step", "cast_params", "Model"]
-
-# the later slices of the port, by what the reference's branch needs
-_LATER = {"audio": "audio/vision frontend", "vlm": "audio/vision frontend"}
-
-
-def _check_ported(cfg) -> None:
-    if cfg.family in _LATER:
-        raise NotImplementedError(
-            f"{cfg.name} ({cfg.family}) is not ported yet: it comes with the port's "
-            f"{_LATER[cfg.family]} slice (ROADMAP.md); the dense GQA decoder runs")
-
 
 # ================================================================== layer init
 def _init_layer(gen: torch.Generator, cfg) -> dict:
@@ -82,11 +74,17 @@ def _shared_after(cfg, i: int) -> bool:
 
 
 def init_params(cfg, gen: torch.Generator) -> dict:
-    """Random weights on ``gen``'s device, drawn from ``gen``."""
-    _check_ported(cfg)
+    """Random weights on ``gen``'s device, drawn from ``gen``.  The audio
+    frontend's embedding is a (C, vocab, d) table, a codebook a slice, and
+    its head a (d, C·vocab) matrix."""
     dt = torch_dtype(cfg)
-    p = {"embed": init_embed(gen, cfg.vocab, cfg.d_model, dt),
-         "head": init_linear(gen, cfg.d_model, cfg.vocab, dt,
+    if cfg.frontend == "audio_codebooks":
+        emb = {"table": truncated_normal(gen, (cfg.n_codebooks, cfg.vocab, cfg.d_model),
+                                         1.0, dt)}
+    else:
+        emb = init_embed(gen, cfg.vocab, cfg.d_model, dt)
+    p = {"embed": emb,
+         "head": init_linear(gen, cfg.d_model, head_shape(cfg), dt,
                              scale=cfg.d_model ** -0.5),
          "layers": [_init_layer(gen, cfg) for _ in range(cfg.n_layers)]}
     if _has_shared(cfg):
@@ -103,9 +101,27 @@ def cast_params(params, dtype: torch.dtype):
 
 # ================================================================ embeddings
 def embed_inputs(cfg, params, batch: dict) -> torch.Tensor:
-    """batch {"tokens": (B, L) ints} -> (B, L, d) hidden states."""
-    _check_ported(cfg)
-    return embed(params["embed"], batch["tokens"])
+    """batch -> (B, L, d) hidden states.  ``{"tokens": (B, L) ints}``; for
+    the audio frontend (B, L, C) codebook tokens, their C embeddings
+    summed; for the vision frontend an optional ``"patch_embeds"`` (B, P,
+    d), cast to the text's dtype and put before its (B, Lt) tokens' (a
+    decode step carries none), so that L = P + Lt."""
+    if cfg.frontend == "audio_codebooks":
+        return _codebook_embed(params["embed"]["table"], batch["tokens"])
+    x = embed(params["embed"], batch["tokens"])
+    if cfg.frontend == "vision_stub" and "patch_embeds" in batch:
+        return torch.cat([batch["patch_embeds"].to(x.dtype), x], dim=1)
+    return x
+
+
+def _codebook_embed(table: torch.Tensor, toks: torch.Tensor) -> torch.Tensor:
+    """table (C, V, d), toks (B, L, C) -> the sum over c of
+    ``table[c][toks[..., c]]``, added c = 0, 1, ... in the table's dtype as
+    the reference's ``sum`` does (so the bf16 sums are its op-by-op bits)."""
+    x = embed({"table": table[0]}, toks[..., 0])
+    for c in range(1, table.shape[0]):
+        x = x + embed({"table": table[c]}, toks[..., c])
+    return x
 
 
 # ==================================================================== forward
@@ -164,7 +180,7 @@ def forward(cfg, params, batch: dict, attn_impl: str | None = None,
     x = rms_norm(params["final_ln"], x, cfg.norm_eps)
     if return_hidden:
         return x, aux
-    return linear(params["head"], x), aux
+    return unembed(params["head"], x, head_shape(cfg)), aux
 
 
 # ===================================================================== decode
@@ -184,7 +200,6 @@ def init_cache(cfg, batch_size: int, max_len: int, device=None) -> dict:
     the float32 states ``"h"`` (L, B, d_inner, s) (Mamba1) or ``"S"``
     (L, B, H, s, P) (Mamba2), and the hybrid's ``"shared"`` KV cache of
     ``n_layers // attn_every`` slots."""
-    _check_ported(cfg)
     if cfg.is_mla:
         dt = dict(dtype=torch_dtype(cfg), device=device)
         shape = (cfg.n_layers, batch_size, max_len)
@@ -209,10 +224,11 @@ def init_cache(cfg, batch_size: int, max_len: int, device=None) -> dict:
 
 
 def decode_step(cfg, params, cache: dict, batch: dict) -> tuple:
-    """One new token for every sequence. batch["tokens"]: (B, 1).  Returns
-    (logits, cache): the cache is written in place (the KV caches at its
-    position, the SSM windows and states whole), and its position advances
-    by one."""
+    """One new token for every sequence. batch["tokens"]: (B, 1), or
+    (B, 1, C) for the audio frontend.  Returns (logits, cache): logits
+    (B, 1, vocab), or (B, 1, C, vocab); the cache is written in place (the
+    KV caches at its position, the SSM windows and states whole), and its
+    position advances by one."""
     x = embed_inputs(cfg, params, batch)
     pos = cache["pos"]
     layers = cache["layers"]
@@ -236,7 +252,7 @@ def decode_step(cfg, params, cache: dict, batch: dict) -> tuple:
             x = x + y
     x = rms_norm(params["final_ln"], x, cfg.norm_eps)
     cache["pos"] = pos + 1
-    return linear(params["head"], x), cache
+    return unembed(params["head"], x, head_shape(cfg)), cache
 
 
 def prefill(cfg, params, batch: dict, attn_impl: str | None = None):

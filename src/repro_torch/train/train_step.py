@@ -13,7 +13,7 @@ from __future__ import annotations
 import torch
 
 from ..models import forward
-from ..models.layers import linear
+from ..models.layers import head_shape, unembed
 from ..tree import leaves, tree_map, unflatten
 from .optimizer import AdamWConfig, adamw_apply
 
@@ -43,14 +43,16 @@ def chunked_xent(cfg, head_p: dict, hidden: torch.Tensor, targets: torch.Tensor,
     """Fused CE: the unembedding matmul runs per sequence chunk, so no
     (B, L, V) logits tensor is ever made; the mean of the chunks' losses.
     ``n_chunks`` halves until it divides L, as in the reference, so the
-    chunks are the reference's."""
+    chunks are the reference's.  targets: (B, L), or (B, L, C) for the
+    audio frontend, whose codebook axis folds into the cross-entropy's
+    leading axes; with patch embeddings L counts their positions too."""
     L = hidden.shape[1]
     while L % n_chunks:
         n_chunks //= 2
     n_chunks = max(n_chunks, 1)
     c = L // n_chunks
     losses = torch.stack([
-        cross_entropy(linear(head_p, hidden[:, i * c:(i + 1) * c]),
+        cross_entropy(unembed(head_p, hidden[:, i * c:(i + 1) * c], head_shape(cfg)),
                       targets[:, i * c:(i + 1) * c], cfg.z_loss_coef)
         for i in range(n_chunks)])
     return losses.mean()

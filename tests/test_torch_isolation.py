@@ -4,7 +4,9 @@ build, a loss query, a tune_k sweep, a row patch, a stream with a band
 replacement, a band-parallel build, a reduced qwen2 prefill and greedy
 generation pinned to the plain attention, the same for reduced
 falcon-mamba-7b and zamba2-1.2b and for reduced qwen3-moe-235b-a22b and
-deepseek-v2-236b (MoE, MLA), the coreset server booted on
+deepseek-v2-236b (MoE, MLA), a reduced musicgen-medium prefill and decode
+step on codebook tokens and a reduced pixtral-12b prefill on patch
+embeddings and its greedy generation, the coreset server booted on
 an ephemeral port answering a loss query and a batch through the SDK, a
 cluster coordinator gathering a build from two in-process workers, a
 train step, a compressed gradient, a checkpoint and a crash-and-resume
@@ -61,7 +63,7 @@ with ops.backend_override("numpy"):
 import torch
 from repro_torch.configs import get_arch, reduced_config
 from repro_torch.launch.serve import generate
-from repro_torch.models import init_params, prefill
+from repro_torch.models import decode_step, init_cache, init_params, prefill
 lm = reduced_config(get_arch("qwen2-0.5b"))
 lm_params = init_params(lm, torch.Generator().manual_seed(0))
 prompts = np.random.default_rng(3).integers(0, lm.vocab, size=(2, 5)).astype(np.int32)
@@ -84,6 +86,23 @@ for arch in ("qwen3-moe-235b-a22b", "deepseek-v2-236b"):
                                 attn_impl="torch")
     moe_tokens.append([list(mm_logits.shape), float(mm_aux) > 0,
                        list(generate(mm, mm_params, prompts, 2, greedy=True).shape)])
+frontends = []
+for arch in ("musicgen-medium", "pixtral-12b"):
+    fm = reduced_config(get_arch(arch))
+    fm_params = init_params(fm, torch.Generator().manual_seed(0))
+    frng = np.random.default_rng(4)
+    if fm.n_codebooks:
+        fb = {"tokens": torch.as_tensor(
+            frng.integers(0, fm.vocab, size=(2, 5, fm.n_codebooks)))}
+    else:
+        fb = {"patch_embeds": torch.as_tensor(frng.normal(
+                  size=(2, fm.n_patches, fm.d_model))).to(torch.bfloat16),
+              "tokens": torch.as_tensor(prompts)}
+    fm_logits, _ = prefill(fm, fm_params, fb, attn_impl="torch")
+    fm_step, _ = decode_step(fm, fm_params, init_cache(fm, 2, 1),
+                             {"tokens": fb["tokens"][:, :1]})
+    frontends.append([list(fm_logits.shape), list(fm_step.shape)])
+frontends[1].append(list(generate(fm, fm_params, prompts, 2, greedy=True).shape))
 from repro_torch.client import CoresetClient
 from repro_torch.service import CoresetEngine, make_server, serve_forever_in_thread
 with ops.backend_override("numpy"):
@@ -150,7 +169,7 @@ print(json.dumps({"loss": loss, "blocks": cs.num_blocks, "bad": bad,
                   "logits": list(logits.shape),
                   "finite": bool(torch.isfinite(logits.float()).all()),
                   "tokens": list(tokens.shape), "ssm": ssm_tokens,
-                  "moe": moe_tokens,
+                  "moe": moe_tokens, "frontends": frontends,
                   "served": [served.loss, served.backend, served.served_from],
                   "batch": batch.losses.tolist(),
                   "cluster": [gathers, gathered == one]}))
@@ -173,6 +192,8 @@ def test_cpu_slice_runs_without_jax_or_reference():
     assert res["tokens"] == [2, 8]
     assert res["ssm"] == [[[2, 5, 512], [2, 7]]] * 2
     assert res["moe"] == [[[2, 5, 512], True, [2, 7]]] * 2
+    assert res["frontends"] == [[[2, 5, 4, 512], [2, 1, 4, 512]],
+                                [[2, 13, 512], [2, 1, 512], [2, 7]]]
     loss, backend, served_from = res["served"]
     assert loss > 0 and backend == "numpy" and served_from == "built"
     assert res["batch"] == [loss] * 3

@@ -305,15 +305,6 @@ def test_port_init_params_has_the_converted_layout_and_is_seeded(models_by_case)
     assert all(t.dtype == torch.float32 for t in jax.tree.leaves(f32))
 
 
-@pytest.mark.parametrize("arch", ["musicgen-medium", "pixtral-12b"])
-def test_other_families_wait_for_their_slice(arch):
-    cfg = configs.reduced_config(configs.ARCHS[arch])
-    with pytest.raises(NotImplementedError, match="slice"):
-        models.init_params(cfg, torch.Generator().manual_seed(0))
-    with pytest.raises(NotImplementedError, match="slice"):
-        models.init_cache(cfg, 1, 4)
-
-
 # ------------------------------------------------- the state-space families
 SSM_ARCHS = ["falcon-mamba-7b", "zamba2-1.2b"]
 SSM_CASES = [(a, d) for a in SSM_ARCHS for d in TOL]
