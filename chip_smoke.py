@@ -190,6 +190,27 @@ Phases, one JSON line each:
               python -m repro_torch.launch.train --reduced twice in one
               checkpoint directory, the second run resuming from step 3
               (train_launches in the kernel table)
+  lm_train_dp  LM training over two gloo ranks sharing the card, processes
+              of this script (--mesh-rank) whose collectives cross through
+              host copies (NCCL refuses two ranks on one card), each rank
+              counting its kernels' launches over its path (none may
+              launch): (a) qwen2-0.5b as configured (bf16, remat) through
+              train_loop over a (2, 1) mesh with ZeRO-1, lm_train's 4 x 2048
+              batch split 2 x 2048 a rank, 3 steps: the ranks' losses and
+              grad norms bitwise equal, their gathered params bitwise equal
+              after the last step (sha256), each rank's optimizer bytes within
+              1 % of half the one-rank 12 B a parameter; the median step ms,
+              tokens/s, each rank's peak memory, the sync's ms and bytes
+              (the float32 all-reduce of the gradients' rows, one a rank) and
+              the gather's, the
+              global losses beside lm_train's first 3; (b) the reduced
+              float32 qwen2 over the same ranks, 3 steps, against one rank
+              on the card in this process (losses within 1e-5 relative,
+              weights within 1e-4, which the steps move past), and saved at
+              step 2; (c) a world of one rank: plan_mesh(1, 1), the step-2
+              checkpoint through restore(shardings=) (each part bitwise its
+              slice of the whole), step 3 within the same bars of (b)'s
+              (train_dp_launches in the kernel table)
   coreset_serve  the coreset server on the card: CoresetEngine behind the
               HTTP API on an ephemeral port, no backend pinned, driven only
               by the binary SDK with every kernel's count at 0 just before:
@@ -415,6 +436,18 @@ LM_TRAIN_RESUME = dict(steps=10, batch=4, seq_len=256, save_every=5)
 LM_TRAIN_FAIL_AT = 7
 LM_TRAIN_RESUME_RTOL, LM_TRAIN_RESUME_ATOL = 1e-5, 1e-6
 LM_TRAIN_CLI_TIMEOUT_S = 300
+# LM training over ranks (train/zero1.py, sharding/, runtime/elastic.py,
+# restore(shardings=)): LM_DP_RANKS gloo ranks on the card over a
+# (LM_DP_RANKS, 1) mesh; (a) lm_train's full-width batch for LM_DP_STEPS
+# steps; (b) LM_DP_SMALL in float32 for LM_DP_LOOP with LM_TRAIN_OPT, against
+# one rank within LM_DP_LOSS_RTOL (losses) and LM_TRAIN_TOL (weights), saving
+# at step LM_DP_SAVE_AT; (c) that checkpoint restored onto one rank.  Each
+# rank's optimizer bytes within LM_DP_OPT_SHARE_TOL of its 1 / LM_DP_RANKS
+# share; the ranks stopped after LM_DP_TIMEOUT_S
+LM_DP_RANKS, LM_DP_STEPS, LM_DP_TIMEOUT_S = 2, 3, 600
+LM_DP_SMALL = dict(n_layers=4)
+LM_DP_LOOP = dict(steps=3, batch=4, seq_len=64)
+LM_DP_SAVE_AT, LM_DP_LOSS_RTOL, LM_DP_OPT_SHARE_TOL = 2, 1e-5, 0.01
 # the coreset server (service/, client/): slice 1's signal registered as a
 # synthetic spec (generated server-side, nothing uploaded), built, then a
 # weaker (k, eps) that the cache must serve dominated; SERVE_CLIENTS threads
@@ -2368,7 +2401,8 @@ def phase_lm_train(kernels, smi):
     (c) crash and resume against an uninterrupted run, with the
     checkpoint's bytes and save seconds; (d) the CLI twice, the second
     resuming.  No part may launch a kernel.  Returns the launches of every
-    kernel over (a)–(c) (the CLI's are its own processes')."""
+    kernel over (a)–(c) (the CLI's are its own processes') and (b)'s
+    losses."""
     import dataclasses
     import math
     import numpy as np
@@ -2563,7 +2597,7 @@ def phase_lm_train(kernels, smi):
     emit("lm_train", a_card_vs_cpu=part_a, b_full_width=part_b, c_crash_resume=part_c,
          d_cli={"runs": cli, "checkpoint_files": cli_files}, device=smi,
          seconds=time.perf_counter() - t_phase)
-    return launches
+    return launches, part_b["losses"]
 
 
 def _pct(xs, q) -> float:
@@ -3392,11 +3426,13 @@ def mesh_rank(spec: dict) -> dict:
     torch.cuda.set_device(0)
     dist.init_process_group(spec["backend"], init_method="file://" + spec["store"],
                             world_size=spec["world"], rank=spec["rank"])
+    from repro_torch.launch.mesh import destroy_world
     try:
         return {"duplicate": _rank_duplicate, "one": _rank_one,
-                "gloo": _rank_gloo}[spec["part"]](spec)
+                "gloo": _rank_gloo, "train_dp": _rank_train_dp,
+                "elastic": _rank_elastic}[spec["part"]](spec)
     finally:
-        dist.destroy_process_group()
+        destroy_world()
 
 
 def start_ranks(part: str, backend: str, world: int, tmp: pathlib.Path, **extra):
@@ -3419,18 +3455,18 @@ def start_ranks(part: str, backend: str, world: int, tmp: pathlib.Path, **extra)
     return procs
 
 
-def finish_ranks(procs, what: str) -> list[dict]:
+def finish_ranks(procs, what: str, timeout_s: float = MESH_TIMEOUT_S) -> list[dict]:
     """Each rank's result.  A rank that fails, or ranks that run over
-    MESH_TIMEOUT_S from now, fail the run; every rank's session is killed
+    ``timeout_s`` from now, fail the run; every rank's session is killed
     once one has failed or all have ended."""
     import signal
-    deadline = time.perf_counter() + MESH_TIMEOUT_S
+    deadline = time.perf_counter() + timeout_s
     try:
         while any(p.poll() is None for p, _, _ in procs):
             if any(p.poll() not in (None, 0) for p, _, _ in procs):
                 break
             check(time.perf_counter() < deadline,
-                  f"the {what} ranks ran over {MESH_TIMEOUT_S} s")
+                  f"the {what} ranks ran over {timeout_s} s")
             time.sleep(0.1)
     finally:
         for p, _, _ in procs:
@@ -3443,6 +3479,272 @@ def finish_ranks(procs, what: str) -> list[dict]:
                                  f"{err.read_text()[-4000:]}")
     return [json.loads(out.read_text().strip().splitlines()[-1])
             for _, out, _ in procs]
+
+
+def _kernel_counters() -> dict:
+    """Every kernel wrapper by its name in the kernel table, in this
+    process."""
+    from repro_torch.kernels.fitting_loss import kernel as fl
+    from repro_torch.kernels.flash_attention import kernel as fa
+    from repro_torch.kernels.histsplit import kernel as hk
+    from repro_torch.kernels.sat2d import kernel as sk
+    return {"sat_moments_f64": sk.SAT_MOMENTS_F64, "sat_moments_f32": sk.SAT_MOMENTS_F32,
+            "fitting_loss": fl.FITTING_LOSS, "fitting_loss_batched": fl.FITTING_LOSS_BATCHED,
+            "hist_f64": hk.HIST_F64, "hist_f64_node": hk.HIST_F64_NODE,
+            "hist_fused_f32": hk.HIST_FUSED, "hist_partials_f32": hk.HIST_PARTIALS,
+            "hist_legacy_f32": hk.HIST_LEGACY,
+            "sat_delta_f64": sk.SAT_DELTA_F64, "sat_delta_f32": sk.SAT_DELTA_F32,
+            "sat_stack_f64": sk.SAT_STACK_F64, "sat_stack_f32": sk.SAT_STACK_F32,
+            "flash_attention_bf16": fa.FLASH_ATTENTION_BF16,
+            "flash_attention_f32": fa.FLASH_ATTENTION_F32}
+
+
+def _params_sha256(params) -> str:
+    """sha256 of every parameter's bytes, leaf by leaf."""
+    import torch
+    from repro_torch.tree import leaves
+    h = hashlib.sha256()
+    for t in leaves(params):
+        h.update(t.detach().contiguous().view(-1).view(torch.uint8).cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _save_params(path, params) -> None:
+    import numpy as np
+    from repro_torch.tree import flatten
+    keys, ts = flatten(params)
+    np.savez(path, **{k: t.detach().float().cpu().numpy() for k, t in zip(keys, ts)})
+
+
+@contextlib.contextmanager
+def _train_loop_optimizer(**opt):
+    """train_loop's optimizer, AdamWConfig(total_steps=steps), replaced by
+    AdamWConfig(**opt) while the context is open: lm_train_dp (b) and (c)
+    train with LM_TRAIN_OPT, which moves the weights past the bar in
+    LM_DP_LOOP's steps."""
+    from repro_torch.launch import train as launch_train
+    from repro_torch.train import AdamWConfig
+    launch_train.AdamWConfig = lambda **_: AdamWConfig(**opt)
+    try:
+        yield
+    finally:
+        launch_train.AdamWConfig = AdamWConfig
+
+
+def _dp_small_cfg():
+    import dataclasses
+    from repro_torch.configs import get_arch, reduced_config
+    return dataclasses.replace(reduced_config(get_arch(LM_ARCH), **LM_DP_SMALL),
+                               dtype="float32")
+
+
+def _rank_train_dp(spec) -> dict:
+    """A rank of lm_train_dp (a) and (b): full-width qwen2-0.5b over a
+    (world, 1) mesh of gloo ranks on the card, then the reduced float32
+    model straight for LM_DP_LOOP and again to LM_DP_SAVE_AT with a
+    checkpoint."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.launch.train import train_loop
+    from repro_torch.tree import leaves
+    counters = _kernel_counters()
+    for kern in counters.values():
+        kern.launches = 0
+    mesh = make_local_mesh(spec["world"], 1, device_type="cpu")
+    cfg = get_arch(LM_ARCH)
+    B, L, _ = LM_TRAIN_FULL
+    torch.cuda.reset_peak_memory_stats()
+    full = train_loop(cfg, steps=LM_DP_STEPS, batch=B, seq_len=L, mesh=mesh,
+                      device="cuda", log_every=1)
+    peak = torch.cuda.max_memory_allocated()
+    opt_bytes = sum(t.numel() * t.element_size()
+                    for k in ("master", "m", "v") for t in leaves(full["opt"][k]))
+    n_params = sum(t.numel() for t in leaves(full["params"]))
+    part_a = {"losses": full["losses"], "grad_norms": full["grad_norms"],
+              "step_s": full["step_s"], "sync": full["sync"],
+              "digest": _params_sha256(full["params"]),
+              "peak_memory_bytes": peak, "opt_bytes": opt_bytes, "params": n_params,
+              "local_rows": B // spec["world"], "backend": dist.get_backend()}
+    del full
+    torch.cuda.empty_cache()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg_b = _dp_small_cfg()
+    with _train_loop_optimizer(**LM_TRAIN_OPT):
+        straight = train_loop(cfg_b, mesh=mesh, device="cuda", log_every=100,
+                              **LM_DP_LOOP)
+        if dist.get_rank() == 0:
+            _save_params(spec["out"] + "/straight.npz", straight["params"])
+        saved = train_loop(cfg_b, mesh=mesh, device="cuda", log_every=100,
+                           ckpt_dir=spec["ckpt"], save_every=LM_DP_SAVE_AT,
+                           **dict(LM_DP_LOOP, steps=LM_DP_SAVE_AT))
+    part_b = {"losses": straight["losses"], "grad_norms": straight["grad_norms"],
+              "digest": _params_sha256(straight["params"]),
+              "saved_losses": saved["losses"], "sync": straight["sync"]}
+    return {"full": part_a, "small": part_b, "coord": mesh.get_coordinate(),
+            "launches": {n: k.launches for n, k in counters.items()}}
+
+
+def _rank_elastic(spec) -> dict:
+    """lm_train_dp (c), a world of one rank: plan_mesh(1, 1), the
+    checkpoint through restore(shardings=) against the whole, and
+    train_loop resuming from it to LM_DP_LOOP's last step."""
+    import torch
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.launch.train import train_loop
+    from repro_torch.models import init_params
+    from repro_torch.runtime import plan_mesh
+    from repro_torch.sharding import state_shardings
+    from repro_torch.train import adamw_init
+    from repro_torch.tree import flatten
+    counters = _kernel_counters()
+    for kern in counters.values():
+        kern.launches = 0
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = _dp_small_cfg()
+    mesh = plan_mesh(1, 1, device_type="cpu")
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+    template = {"params": params, "opt": adamw_init(params), "step": 0}
+    mgr = CheckpointManager(spec["ckpt"])
+    whole = mgr.restore(LM_DP_SAVE_AT, template)
+    at = state_shardings(cfg, mesh)
+    part = mgr.restore(LM_DP_SAVE_AT, template, shardings=at)
+    same = all(torch.equal(p, w if a is None else a.local(w)) if isinstance(p, torch.Tensor)
+               else p == w for p, w, a in zip(flatten(part)[1], flatten(whole)[1],
+                                              flatten(at)[1]))
+    t0 = time.perf_counter()
+    with _train_loop_optimizer(**LM_TRAIN_OPT):
+        resumed = train_loop(cfg, mesh=mesh, device="cuda", log_every=100,
+                             ckpt_dir=spec["ckpt"], save_every=LM_DP_LOOP["steps"],
+                             **LM_DP_LOOP)
+    _save_params(spec["out"] + "/resumed.npz", resumed["params"])
+    return {"mesh": list(mesh.shape), "restore_bitwise": same,
+            "restored_step": int(whole["step"]), "losses": resumed["losses"],
+            "step": resumed["step"], "seconds": time.perf_counter() - t0,
+            "launches": {n: k.launches for n, k in counters.items()}}
+
+
+def phase_lm_train_dp(kernels, smi, one_rank_losses):
+    """LM training over LM_DP_RANKS gloo ranks sharing the card (each a
+    process of this script; this process starts no group): (a) full-width
+    qwen2-0.5b, ZeRO-1; (b) the reduced float32 model against one rank on
+    the card, and its checkpoint; (c) that checkpoint on a world of one
+    rank.  Returns every kernel's launches over the ranks' paths (none)."""
+    import math
+    import numpy as np
+    import torch
+    from repro_torch.launch.train import train_loop
+    from repro_torch.tree import flatten
+    t_phase = time.perf_counter()
+    check(set(_kernel_counters()) == set(kernels),
+          f"the ranks count other kernels than the table's: {sorted(kernels)}")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dp_") as tmp:
+        tmp = pathlib.Path(tmp)
+        ranks = finish_ranks(
+            start_ranks("train_dp", "gloo", LM_DP_RANKS, tmp, out=str(tmp),
+                        ckpt=str(tmp / "ckpt")), "lm_train_dp", LM_DP_TIMEOUT_S)
+        # (a) full width
+        fulls = [r["full"] for r in ranks]
+        a0 = fulls[0]
+        for r in fulls[1:]:
+            check(r["losses"] == a0["losses"] and r["grad_norms"] == a0["grad_norms"],
+                  f"the ranks' losses or grad norms differ: {[f['losses'] for f in fulls]}")
+            check(r["digest"] == a0["digest"],
+                  "the ranks' gathered params differ after the last step")
+        check(len(a0["losses"]) == LM_DP_STEPS
+              and all(map(math.isfinite, a0["losses"] + a0["grad_norms"])),
+              f"full-width losses {a0['losses']}, grad norms {a0['grad_norms']}")
+        one_rank_opt = 12 * a0["params"] + 4
+        for r in fulls:
+            share = r["opt_bytes"] / (one_rank_opt / LM_DP_RANKS)
+            check(abs(share - 1) <= LM_DP_OPT_SHARE_TOL,
+                  f"a rank holds {r['opt_bytes']} optimizer bytes of {one_rank_opt}")
+        B, L, _ = LM_TRAIN_FULL
+        step_ms = float(np.median(a0["step_s"][1:])) * 1e3
+        sync = [s for r in fulls for s in r["sync"][1:]]
+        part_a = {
+            "arch": LM_ARCH, "ranks": LM_DP_RANKS, "mesh": [LM_DP_RANKS, 1],
+            "backend": a0["backend"], "transport": a0["sync"][0]["transport"],
+            "batch": B, "tokens": L, "rows_per_rank": a0["local_rows"],
+            "steps": LM_DP_STEPS, "params": a0["params"],
+            "losses": a0["losses"], "one_rank_losses": one_rank_losses[:LM_DP_STEPS],
+            "loss_rel_to_one_rank": [abs(a - b) / abs(b) for a, b in
+                                     zip(a0["losses"], one_rank_losses)],
+            "grad_norms": a0["grad_norms"], "step_s": [r["step_s"] for r in fulls],
+            "median_step_ms_2_to_last": step_ms, "tokens_per_s": B * L / (step_ms / 1e3),
+            "median_sync_ms": float(np.median([s["sync_s"] for s in sync])) * 1e3,
+            "median_gather_ms": float(np.median([s["gather_s"] for s in sync])) * 1e3,
+            "median_sync_stage_ms": {
+                k: float(np.median([s[k] for s in sync])) * 1e3
+                for k in ("to_mesh_s", "collective_s", "back_s")},
+            "sync_bytes": a0["sync"][0]["sync_bytes"],
+            "gather_bytes": a0["sync"][0]["gather_bytes"],
+            "sync_dtype": "float32",
+            "sync_collective": "all_reduce of every data rank's row, each rank "
+                               "keeping its own; all_reduce of (loss, ce, aux) "
+                               "and of the squared norm",
+            "peak_memory_bytes": [r["peak_memory_bytes"] for r in fulls],
+            "opt_bytes": [r["opt_bytes"] for r in fulls],
+            "one_rank_opt_bytes": one_rank_opt,
+            "params_sha256_bitwise_across_ranks": True}
+        # (b) the reduced float32 model against one rank on the card
+        cfg = _dp_small_cfg()
+        with _train_loop_optimizer(**LM_TRAIN_OPT):
+            one = train_loop(cfg, device="cuda", log_every=100, **LM_DP_LOOP)
+        smalls = [r["small"] for r in ranks]
+        b0 = smalls[0]
+        for r in smalls[1:]:
+            check(r["losses"] == b0["losses"] and r["digest"] == b0["digest"],
+                  "the ranks' reduced-model losses or params differ")
+        check(all(r["saved_losses"] == b0["losses"][:LM_DP_SAVE_AT] for r in smalls),
+              "the checkpointed run's losses are not the straight run's")
+        straight = np.load(tmp / "straight.npz")
+        keys, ones = flatten(one["params"])
+        init = _dp_init_params(cfg)
+        loss_rel = max(abs(a - b) / abs(b) for a, b in zip(b0["losses"], one["losses"]))
+        w_abs = max(float(np.abs(straight[k] - t.float().cpu().numpy()).max())
+                    for k, t in zip(keys, ones))
+        moved = max(float(np.abs(straight[k] - t.float().cpu().numpy()).max())
+                    for k, t in zip(keys, flatten(init)[1]))
+        check(loss_rel <= LM_DP_LOSS_RTOL and w_abs <= LM_TRAIN_TOL
+              and moved > 10 * LM_TRAIN_TOL,
+              f"two ranks against one: losses {b0['losses']} vs {one['losses']}, "
+              f"weights {w_abs} (moved {moved})")
+        part_b = {"config": LM_DP_SMALL, "dtype": "float32", **LM_DP_LOOP,
+                  "optimizer": LM_TRAIN_OPT, "losses": b0["losses"],
+                  "one_rank_losses": one["losses"], "max_loss_rel_err": loss_rel,
+                  "params_max_abs_err": w_abs, "params_moved": moved,
+                  "sync_bytes": b0["sync"][0]["sync_bytes"]}
+        # (c) the checkpoint of step LM_DP_SAVE_AT onto one rank
+        el = finish_ranks(start_ranks("elastic", "gloo", 1, tmp, out=str(tmp),
+                                      ckpt=str(tmp / "ckpt")),
+                          "lm_train_dp elastic", LM_DP_TIMEOUT_S)[0]
+        resumed = np.load(tmp / "resumed.npz")
+        c_loss = abs(el["losses"][0] - b0["losses"][-1]) / abs(b0["losses"][-1])
+        c_abs = max(float(np.abs(resumed[k] - straight[k]).max()) for k in keys)
+        check(el["restore_bitwise"] and el["restored_step"] == LM_DP_SAVE_AT
+              and el["step"] == LM_DP_LOOP["steps"] and len(el["losses"]) == 1
+              and c_loss <= LM_DP_LOSS_RTOL and c_abs <= LM_TRAIN_TOL,
+              f"the checkpoint restored onto one rank: {el} (loss rel {c_loss}, "
+              f"weights {c_abs})")
+        part_c = {"mesh": el["mesh"], "restore_bitwise": el["restore_bitwise"],
+                  "restored_step": el["restored_step"], "step_3_loss": el["losses"][0],
+                  "two_rank_step_3_loss": b0["losses"][-1], "loss_rel_err": c_loss,
+                  "params_max_abs_err": c_abs, "seconds": el["seconds"]}
+    launches = {name: sum(r["launches"][name] for r in ranks) + el["launches"][name]
+                for name in kernels}
+    check(not any(launches.values()),
+          f"training over ranks launched {[n for n, c in launches.items() if c]}")
+    emit("lm_train_dp", a_full_width=part_a, b_two_vs_one_rank=part_b,
+         c_elastic=part_c, device=smi, seconds=time.perf_counter() - t_phase)
+    return launches
+
+
+def _dp_init_params(cfg):
+    import torch
+    from repro_torch.models import init_params
+    return init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
 
 
 def phase_coreset_mesh(smi, serve, sat_f32_ms):
@@ -3919,7 +4221,8 @@ def run(default_cache) -> int:
     frontend_counts = phase_lm_serve_frontends(kernels)
 
     # ---------------------------------------------------- LM training
-    train_counts = phase_lm_train(kernels, smi)
+    train_counts, full_losses = phase_lm_train(kernels, smi)
+    train_dp_counts = phase_lm_train_dp(kernels, smi, full_losses)
 
     # ------------------------------------------------- the coreset server
     serve_counts, serve = phase_coreset_serve(kernels, smi)
@@ -3963,6 +4266,7 @@ def run(default_cache) -> int:
                       "cluster_launches": cluster_counts[r["name"]],
                       "mesh_launches": mesh_counts.get(r["name"], 0),
                       "train_launches": train_counts[r["name"]],
+                      "train_dp_launches": train_dp_counts[r["name"]],
                       "ssm_launches": ssm_counts[r["name"]],
                       "moe_launches": moe_counts[r["name"]],
                       "frontend_launches": frontend_counts[r["name"]],

@@ -2,7 +2,7 @@
 
 Same subpackage names as the reference (``core``, ``data``, ``ops``,
 ``kernels``, ``trees``, ``configs``, ``models``, ``train``, ``checkpoint``,
-``runtime``, ``launch``); the hot ops
+``runtime``, ``launch``, ``sharding``); the hot ops
 run as hand-written CUDA kernels built from ``repro_torch/csrc`` on first
 use.  Entry points run on the card: with no CUDA device, dispatch raises
 unless the caller pins the ``numpy`` or ``torch`` backend
@@ -14,7 +14,7 @@ environment variable), and the LM path raises unless it is given
 Imports ``torch`` and numpy only — never ``jax`` or ``repro``.
 """
 from . import (checkpoint, configs, core, data, launch, models, obs, ops,
-               runtime, train, trees)
+               runtime, sharding, train, trees)
 
 __all__ = ["checkpoint", "configs", "core", "data", "launch", "models", "obs",
-           "ops", "runtime", "train", "trees"]
+           "ops", "runtime", "sharding", "train", "trees"]

@@ -17,7 +17,13 @@ Design points:
   * writing runs on a background thread (training continues; ``wait()``
     joins before the next save or at exit);
   * ``restore`` puts each array back in its template leaf's dtype and on
-    its device;
+    its device; with ``shardings=`` (the elastic path, a tree of
+    ``NamedSharding``s of the template's structure, ``None`` where a leaf
+    is whole) each rank takes its own part of each array, on a mesh of any
+    number of ranks.  Whoever writes a sharded state writes it whole: the
+    ZeRO-1 trainer gathers its optimizer state and one rank writes host 0's
+    file (``train.zero1.Zero1Checkpoints``), the reference's
+    single-controller picture, so R ranks' checkpoint restores onto R';
   * ``max_to_keep`` garbage-collects old steps after commit.
 """
 from __future__ import annotations
@@ -146,10 +152,15 @@ class CheckpointManager:
         steps = self.all_steps()
         return steps[-1] if steps else None
 
-    def restore(self, step: int, template):
+    def restore(self, step: int, template, shardings=None):
         """Load into the template tree's structure: a tensor leaf comes back
         as a tensor of its template's dtype on its template's device, a
-        numpy leaf in its dtype, anything else as the stored array."""
+        numpy leaf in its dtype, anything else as the stored array.
+        ``shardings``: a tree of the template's structure whose leaves are
+        ``NamedSharding``s (``repro_torch.sharding``) or None; a leaf with
+        one comes back as this rank's part of the stored array (its
+        ``local`` at the rank's coordinate in the sharding's mesh).  Every
+        rank reads and decompresses the whole file and keeps its parts."""
         step_dir = self.dir / f"step_{step:08d}"
         for name, (ext, _, decompress) in _CODECS.items():
             shard = step_dir / f"host_{self.host_id}{ext}"
@@ -163,9 +174,16 @@ class CheckpointManager:
         raw = decompress(shard.read_bytes())
         npz = np.load(io.BytesIO(raw))
         keys, leaves = flatten(template)
+        placed = [None] * len(keys)
+        if shardings is not None:
+            skeys, placed = flatten(shardings)
+            if skeys != keys:
+                raise ValueError("shardings= is not a tree of the template's structure")
         out = []
-        for k, tmpl in zip(keys, leaves):
+        for k, tmpl, at in zip(keys, leaves, placed):
             a = npz[k]
+            if at is not None:
+                a = np.ascontiguousarray(at.local(a))
             if isinstance(tmpl, torch.Tensor):
                 a = torch.from_numpy(a).to(device=tmpl.device, dtype=tmpl.dtype)
             elif hasattr(tmpl, "dtype"):

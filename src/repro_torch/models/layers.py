@@ -39,6 +39,8 @@ def truncated_normal(gen: torch.Generator, shape, scale: float,
                      dtype: torch.dtype) -> torch.Tensor:
     """scale x a standard normal truncated to [-2, 2], drawn in float32."""
     t = torch.empty(shape, dtype=torch.float32, device=gen.device)
+    if t.is_meta:   # shapes only (``param_shapes``): nothing to draw
+        return t.to(dtype)
     torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=gen)
     return (t * scale).to(dtype)
 

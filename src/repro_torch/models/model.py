@@ -47,7 +47,7 @@ from .layers import (embed, head_shape, init_embed, init_linear, init_rmsnorm,
                      unembed)
 
 __all__ = ["init_params", "embed_inputs", "forward", "prefill", "init_cache",
-           "decode_step", "cast_params", "Model"]
+           "decode_step", "cast_params", "param_shapes", "Model"]
 
 # ================================================================== layer init
 def _init_layer(gen: torch.Generator, cfg) -> dict:
@@ -92,6 +92,20 @@ def init_params(cfg, gen: torch.Generator) -> dict:
         p["shared_ln"] = init_rmsnorm(cfg.d_model, dt, gen.device)
     p["final_ln"] = init_rmsnorm(cfg.d_model, dt, gen.device)
     return p
+
+
+class _MetaDraws:
+    """``init_params``'s generator for ``param_shapes``: its device is the
+    meta device, where the init makes tensors of a shape and a dtype and
+    draws nothing."""
+    device = torch.device("meta")
+
+
+def param_shapes(cfg) -> dict:
+    """``init_params``'s tree on the meta device: each leaf's shape and
+    dtype without storage, at any size (the reference's
+    ``jax.eval_shape(lambda: init_params(cfg, key))``)."""
+    return init_params(cfg, _MetaDraws())
 
 
 def cast_params(params, dtype: torch.dtype):

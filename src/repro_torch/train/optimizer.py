@@ -63,13 +63,16 @@ def cosine_lr(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
 
 
 @torch.no_grad()
-def adamw_apply(ocfg: AdamWConfig, grads, opt_state, params):
+def adamw_apply(ocfg: AdamWConfig, grads, opt_state, params, gnorm=None):
     """One AdamW step. Returns (new_params, new_opt_state, metrics): new
     params in each param's own dtype, the masters, m and v in float32, the
-    metrics ``grad_norm`` and ``lr`` (float32 tensors)."""
+    metrics ``grad_norm`` and ``lr`` (float32 tensors).  ``gnorm``: the
+    norm to clip by, where ``grads`` are a part of the gradients (a ZeRO-1
+    rank's); default ``global_norm(grads)``."""
     step = opt_state["step"] + 1
     lr = cosine_lr(ocfg, step)
-    gnorm = global_norm(grads)
+    if gnorm is None:
+        gnorm = global_norm(grads)
     scale = torch.clamp(ocfg.grad_clip / torch.clamp(gnorm, min=1e-9), max=1.0)
     stepf = step.to(torch.float32)
     bc1 = 1 - torch.tensor(ocfg.beta1, dtype=torch.float32, device=step.device) ** stepf

@@ -17,7 +17,7 @@ from ..models.layers import head_shape, unembed
 from ..tree import leaves, tree_map, unflatten
 from .optimizer import AdamWConfig, adamw_apply
 
-__all__ = ["cross_entropy", "loss_fn", "make_train_step"]
+__all__ = ["cross_entropy", "loss_fn", "make_grad_fn", "make_train_step"]
 
 
 def cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
@@ -67,14 +67,11 @@ def loss_fn(cfg, params, batch: dict, attn_impl: str = "torch"):
     return loss, {"ce": loss, "aux": aux}
 
 
-def make_train_step(cfg, ocfg: AdamWConfig, attn_impl: str = "torch",
-                    num_microbatches: int = 1):
-    """Returns train_step(params, opt_state, batch) -> (params, opt, metrics),
-    metrics ``loss``, ``ce``, ``aux``, ``grad_norm`` and ``lr`` (0-d
-    tensors).  Gradients come in each param's dtype; with microbatches, as
-    contiguous slices of the batch's leading dim, they are summed in float32
-    and averaged, the loss too, and ``ce``/``aux`` are the last
-    microbatch's."""
+def make_grad_fn(cfg, attn_impl: str = "torch", num_microbatches: int = 1):
+    """Returns grads(params, batch) -> (loss, grads, {"ce", "aux"}).
+    Gradients come in each param's dtype; with microbatches, as contiguous
+    slices of the batch's leading dim, they are summed in float32 and
+    averaged, the loss too, and ``ce``/``aux`` are the last microbatch's."""
 
     def grad_fn(params, batch):
         with torch.enable_grad():
@@ -102,6 +99,16 @@ def make_train_step(cfg, ocfg: AdamWConfig, attn_impl: str = "torch",
             grads_sum = tree_map(torch.add, grads_sum, grads)
         inv = 1.0 / n
         return loss_sum * inv, tree_map(lambda g: g * inv, grads_sum), met
+
+    return compute_grads
+
+
+def make_train_step(cfg, ocfg: AdamWConfig, attn_impl: str = "torch",
+                    num_microbatches: int = 1):
+    """Returns train_step(params, opt_state, batch) -> (params, opt, metrics),
+    metrics ``loss``, ``ce``, ``aux``, ``grad_norm`` and ``lr`` (0-d
+    tensors), the gradients as ``make_grad_fn`` takes them."""
+    compute_grads = make_grad_fn(cfg, attn_impl, num_microbatches)
 
     def train_step(params, opt_state, batch):
         loss, grads, met = compute_grads(params, batch)

@@ -1197,6 +1197,7 @@ backend, world, rank, store = sys.argv[1], int(sys.argv[2]), int(sys.argv[3]), s
 torch.cuda.set_device(0)
 dist.init_process_group(backend, init_method="file://" + store,
                         world_size=world, rank=rank)
+from repro_torch.launch.mesh import destroy_world
 try:
     from torch.distributed.tensor import DTensor, Shard
     from repro_torch import ops
@@ -1252,7 +1253,7 @@ try:
     out["sat_bitwise"] = bool(torch.equal(host, one_device))
     print(json.dumps(out), flush=True)
 finally:
-    dist.destroy_process_group()
+    destroy_world()
 '''
 
 

@@ -207,6 +207,7 @@ import numpy as np
 import torch.distributed as dist
 dist.init_process_group("gloo", init_method="file://" + sys.argv[1],
                         world_size=1, rank=0)
+from repro_torch.launch.mesh import destroy_world
 try:
     from repro_torch import ops
     from repro_torch.core import (random_tree_segmentation, sat_pjit,
@@ -226,7 +227,7 @@ try:
     print(json.dumps({"bad": bad, "loss": loss.tolist(),
                       "images": list(images.shape)}))
 finally:
-    dist.destroy_process_group()
+    destroy_world()
 """
 
 

@@ -64,6 +64,7 @@ world, rank, store, inputs = (int(sys.argv[1]), int(sys.argv[2]), sys.argv[3],
                               sys.argv[4])
 dist.init_process_group("gloo", init_method="file://" + store,
                         world_size=world, rank=rank)
+from repro_torch.launch.mesh import destroy_world
 try:
     from repro_torch import obs, ops
     from repro_torch.core import sat_pjit, signal_coreset
@@ -151,7 +152,7 @@ try:
                         if m.split(".")[0] in ("jax", "jaxlib", "repro"))
     print(json.dumps(out), flush=True)
 finally:
-    dist.destroy_process_group()
+    destroy_world()
 '''
 
 
@@ -380,3 +381,65 @@ def test_sat_pjit_without_a_mesh_is_one_device_s_scan(reference):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             sat_pjit(values)
+
+
+_TEARDOWN_RANK = r'''
+import glob, json, sys
+import torch
+import torch.distributed as dist
+world, rank, store = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3]
+
+
+def gloo_threads():
+    names = []
+    for path in glob.glob("/proc/self/task/*/comm"):
+        try:
+            names.append(open(path).read())
+        except OSError:   # a thread that ended meanwhile
+            pass
+    return sum(n.startswith(("gloo", "pt_gloo")) for n in names)
+
+
+dist.init_process_group("gloo", init_method="file://" + store,
+                        world_size=world, rank=rank)
+from repro_torch.launch.mesh import compat_make_mesh, destroy_world, make_local_mesh
+try:
+    grid = make_local_mesh(world, 1, device_type="cpu")
+    line = compat_make_mesh((world,), ("pod",), device_type="cpu")
+    x = torch.ones(3) * (rank + 1)
+    dist.all_reduce(x, group=grid["data"].get_group())
+    dist.all_reduce(x, group=line.get_group("pod"))
+    before = gloo_threads()
+finally:
+    destroy_world()
+print(json.dumps({"sum": x.tolist(), "before": before, "after": gloo_threads(),
+                  "held": [grid.mesh_dim_names, line.mesh_dim_names],
+                  "initialized": dist.is_initialized()}), flush=True)
+'''
+
+
+@pytest.mark.parametrize("world", [1, 2])
+def test_destroy_world_joins_the_gloo_threads_while_meshes_are_held(tmp_path, world):
+    """The rank holds a (data, model) mesh, a submesh of it and a 1-D mesh
+    when it ends its world: no gloo thread may outlive ``destroy_world``
+    (one left to the interpreter's exit aborts the rank now and then)."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(ROOT / "src")
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", _TEARDOWN_RANK, str(world), str(r), str(tmp_path / "store")],
+        cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True, start_new_session=True) for r in range(world)]
+    try:
+        outs = [p.communicate(timeout=RANK_TIMEOUT_S) for p in procs]
+    finally:
+        for p in procs:
+            _kill(p)
+    for r, (p, (out, err)) in enumerate(zip(procs, outs)):
+        assert p.returncode == 0, f"rank {r} of {world}:\n{err}"
+        res = json.loads(out.strip().splitlines()[-1])
+        total = world * (world + 1) / 2
+        assert res["sum"] == [total * world] * 3
+        assert res["before"] > 0        # the probe sees gloo's threads
+        assert res["after"] == 0
+        assert res["held"] == [["data", "model"], ["pod"]]
+        assert res["initialized"] is False

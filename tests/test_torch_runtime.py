@@ -12,7 +12,10 @@ from repro_torch.checkpoint import CheckpointManager  # noqa: E402
 
 
 def test_runtime_exports_only_the_fault_tolerance_names():
-    assert runtime.__all__ == ["HeartbeatMonitor", "WorkerState", "supervise"]
+    """The reference's names: its fault tolerance and its elastic
+    re-meshing."""
+    from repro import runtime as ref_runtime
+    assert runtime.__all__ == ref_runtime.__all__
 
 
 def _reports(seed):

@@ -527,6 +527,7 @@ world, rank, store, inputs = (int(sys.argv[1]), int(sys.argv[2]), sys.argv[3],
                               sys.argv[4])
 dist.init_process_group("gloo", init_method="file://" + store,
                         world_size=world, rank=rank)
+from repro_torch.launch.mesh import destroy_world
 try:
     from repro_torch.launch.mesh import compat_make_mesh
     from repro_torch.train import compressed_pod_psum
@@ -546,7 +547,7 @@ try:
     # collective with it
     dist.barrier()
 finally:
-    dist.destroy_process_group()
+    destroy_world()
 '''
 
 
