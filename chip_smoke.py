@@ -211,6 +211,21 @@ Phases, one JSON line each:
               checkpoint through restore(shardings=) (each part bitwise its
               slice of the whole), step 3 within the same bars of (b)'s
               (train_dp_launches in the kernel table)
+  lm_dryrun   the dry run (launch/dryrun.py: the partitioned step over
+              DTensors on a fake process group and fake tensors, CPU
+              only, child processes of this script) held to the card: (a)
+              lm_train's step (qwen2-0.5b, bf16, remat, 4 x 2048 in one
+              microbatch, attn_impl="torch") predicted on a (1, 1) fake
+              mesh, then run on the card: argument bytes equal the real
+              state's and batch's, FLOPs equal FlopCounterMode's over the
+              real step, the predicted peak within 10 % of
+              max_memory_allocated after reset_peak_memory_stats (less what
+              was allocated before the state), both printed; (b) train_4k
+              on the 16 x 16 mesh of a fake world of 256 ranks for
+              qwen2-0.5b, falcon-mamba-7b, zamba2-1.2b, qwen3-moe-235b-a22b,
+              deepseek-v2-236b and pixtral-12b, cut to the period's
+              layers (1, zamba2's 6), in parallel: each OK line with its per-rank peak GiB
+              and the phase's seconds; no kernel launched
   coreset_serve  the coreset server on the card: CoresetEngine behind the
               HTTP API on an ephemeral port, no backend pinned, driven only
               by the binary SDK with every kernel's count at 0 just before:
@@ -297,9 +312,11 @@ from __future__ import annotations
 import contextlib
 import hashlib
 import json
+import math
 import os
 import pathlib
 import shutil
+import signal
 import subprocess
 import sys
 import tempfile
@@ -445,6 +462,17 @@ LM_TRAIN_CLI_TIMEOUT_S = 300
 # rank's optimizer bytes within LM_DP_OPT_SHARE_TOL of its 1 / LM_DP_RANKS
 # share; the ranks stopped after LM_DP_TIMEOUT_S
 LM_DP_RANKS, LM_DP_STEPS, LM_DP_TIMEOUT_S = 2, 3, 600
+# the dry run (launch/dryrun.py): (a) its prediction of lm_train's step (the
+# full-width batch, one microbatch) on a (1, 1) fake mesh against the card:
+# argument bytes and FLOPs exactly, the peak within LM_DRYRUN_PEAK_TOL of
+# max_memory_allocated; (b) one train_4k cell a family on the 16 x 16 mesh of
+# a fake world, cut to its period's layers (1, zamba2's 6; the full depths are
+# the CPU sweep's, PERF.md), the cells as processes in parallel, each stopped after
+# LM_DRYRUN_TIMEOUT_S
+LM_DRYRUN_PEAK_TOL = 0.10
+LM_DRYRUN_CELLS = ("qwen2-0.5b", "falcon-mamba-7b", "zamba2-1.2b",
+                   "qwen3-moe-235b-a22b", "deepseek-v2-236b", "pixtral-12b")
+LM_DRYRUN_TIMEOUT_S = 300
 LM_DP_SMALL = dict(n_layers=4)
 LM_DP_LOOP = dict(steps=3, batch=4, seq_len=64)
 LM_DP_SAVE_AT, LM_DP_LOSS_RTOL, LM_DP_OPT_SHARE_TOL = 2, 1e-5, 0.01
@@ -1968,10 +1996,10 @@ def _moe_probe(fn):
         drops.append(float((~keep).sum()) / keep.numel())
         return out
 
-    def forward(p, cfg, x):
+    def forward(p, cfg, x, **kw):
         if not first:
             first.append(x.detach().clone())
-        return real_forward(p, cfg, x)
+        return real_forward(p, cfg, x, **kw)
     moe.dispatch, moe.moe_forward = dispatch, forward
     try:
         return fn(), drops, first[0] if first else None
@@ -3625,6 +3653,161 @@ def _rank_elastic(spec) -> dict:
             "launches": {n: k.launches for n, k in counters.items()}}
 
 
+_DRYRUN_CELL = r'''
+import json, sys
+from repro_torch.launch import dryrun
+from repro_torch.launch.mesh import compat_make_mesh, fake_world
+kind, arch = sys.argv[1], sys.argv[2]
+if kind == "predict":
+    B, L = int(sys.argv[3]), int(sys.argv[4])
+    with fake_world(1):
+        mesh = compat_make_mesh((1, 1), ("data", "model"), device_type="cpu")
+        _, low = dryrun.lower_cell(mesh, arch, "train_4k", microbatches=1,
+                                   batch_override=(B, L))
+    print(json.dumps(dryrun.analyze(low)))
+else:
+    import pathlib, tempfile
+    from repro_torch.configs import get_arch
+    period = get_arch(arch).attn_every or 1
+    with tempfile.TemporaryDirectory() as tmp:
+        rec = dryrun.run_cell(arch, "train_4k", "single", pathlib.Path(tmp),
+                              costing=False, n_layers_override=period)
+    print(json.dumps({"n_layers": period, **rec["full"],
+                      "compile_seconds": rec["compile_seconds"]}))
+'''
+
+
+def _dryrun_child(*args):
+    """A child process of the dry run (a fake world, CPU tensors only): the
+    Popen, its JSON read by ``_dryrun_result``."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(ROOT / "src")
+    env["CUDA_VISIBLE_DEVICES"] = ""
+    return subprocess.Popen([sys.executable, "-c", _DRYRUN_CELL, *args], cwd=ROOT,
+                            env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True, start_new_session=True)
+
+
+def _dryrun_result(proc, what: str) -> dict:
+    try:
+        out, err = proc.communicate(timeout=LM_DRYRUN_TIMEOUT_S)
+    finally:
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.communicate()
+    check(proc.returncode == 0, f"the dry run's {what} exited {proc.returncode}:\n"
+          f"{err[-3000:]}")
+    return json.loads(out.strip().splitlines()[-1])
+
+
+def phase_lm_dryrun(kernels, smi):
+    """The dry run on the card's host: (a) its prediction of lm_train's step
+    (qwen2-0.5b at full width, the 4 x 2048 batch in one microbatch,
+    attn_impl="torch", remat as configured) on a (1, 1) fake mesh, held to
+    the same step on the card: the argument bytes to the real state's and
+    batch's exactly, the FLOPs to FlopCounterMode's over the real step
+    exactly, the peak within LM_DRYRUN_PEAK_TOL of max_memory_allocated
+    (less what was allocated before the state); (b) one train_4k cell a
+    family on the 16 x 16 mesh of a fake world of 256 ranks, at its
+    period's layers, each a process, its OK line with its per-rank peak.
+    No kernel may launch; every child is stopped on the way out."""
+    t_phase = time.perf_counter()
+    for kern in kernels.values():
+        kern.launches = 0
+    B, L, _ = LM_TRAIN_FULL
+    cells = {a: _dryrun_child("cell", a) for a in LM_DRYRUN_CELLS}
+    try:
+        _lm_dryrun(kernels, smi, cells, t_phase)
+    finally:
+        for proc in cells.values():
+            if proc.poll() is None:
+                os.killpg(proc.pid, signal.SIGKILL)
+                proc.communicate()
+
+
+def _lm_dryrun(kernels, smi, cells, t_phase):
+    """``phase_lm_dryrun``'s body, the cells' processes started."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.configs import get_arch
+    from repro_torch.models import init_params
+    from repro_torch.train import AdamWConfig, adamw_init, make_train_step
+    from repro_torch.tree import leaves
+    B, L, _ = LM_TRAIN_FULL
+    predict = _dryrun_result(_dryrun_child("predict", LM_ARCH, str(B), str(L)),
+                             "prediction")
+
+    # (a) the same step on the card
+    cfg = get_arch(LM_ARCH)
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+    opt = adamw_init(params)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    batch = {k: torch.randint(0, cfg.vocab, (B, L), generator=gen, device="cuda",
+                              dtype=torch.int32) for k in ("tokens", "targets")}
+    arg_bytes = sum(t.numel() * t.element_size() for t in leaves([params, opt, batch]))
+    step = make_train_step(cfg, AdamWConfig())
+    with FlopCounterMode(display=False) as fc:
+        out = step(params, opt, batch)
+    flops = fc.get_total_flops()
+    del out
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = step(params, opt, batch)
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - base
+    loss = float(out[2]["loss"])
+    del out, params, opt, batch
+    torch.cuda.empty_cache()
+    mem = predict["memory"]
+    peak_rel = abs(mem["peak_hbm_estimate"] - peak) / peak
+    print(f"lm_dryrun (a): argument bytes predicted {mem['argument_bytes']} card "
+          f"{arg_bytes}; FLOPs predicted {predict['flops']:.6e} card {float(flops):.6e}; "
+          f"peak predicted {mem['peak_hbm_estimate']} card {peak} "
+          f"({peak_rel * 100:.2f} %)", flush=True)
+    check(mem["argument_bytes"] == arg_bytes,
+          f"predicted argument bytes {mem['argument_bytes']} != the card's {arg_bytes}")
+    check(predict["flops"] == float(flops),
+          f"predicted FLOPs {predict['flops']} != FlopCounterMode's {flops}")
+    check(peak_rel <= LM_DRYRUN_PEAK_TOL,
+          f"predicted peak {mem['peak_hbm_estimate']} vs the card's {peak}")
+    check(math.isfinite(loss), f"the card's step gave the loss {loss}")
+    part_a = {"arch": cfg.name, "batch": B, "tokens": L, "microbatches": 1,
+              "remat": cfg.remat, "attn_impl": "torch",
+              "predicted": {"argument_bytes": mem["argument_bytes"],
+                            "flops": predict["flops"],
+                            "peak_bytes": mem["peak_hbm_estimate"],
+                            "temp_bytes": mem["temp_bytes"],
+                            "output_bytes": mem["output_bytes"],
+                            "seconds": predict["seconds"]},
+              "card": {"argument_bytes": arg_bytes, "flops": float(flops),
+                       "peak_bytes": peak, "step_s": step_s, "loss": loss},
+              "peak_rel_err": peak_rel}
+
+    # (b) one cell a family on the 16 x 16 mesh
+    part_b = {}
+    for arch, proc in cells.items():
+        rec = _dryrun_result(proc, arch)
+        gib = rec["memory"]["peak_hbm_estimate"] / 2**30
+        print(f"OK   {arch} x train_4k x single (layers {rec['n_layers']}): peak/dev "
+              f"~{gib:.2f} GiB, colls {rec['collectives']['total'] / 2**20:.1f} MiB, "
+              f"{rec['compile_seconds']:.0f}s", flush=True)
+        check(rec["flops"] > 0 and rec["memory"]["argument_bytes"] > 0,
+              f"the dry run of {arch} counted nothing")
+        part_b[arch] = {"n_layers": rec["n_layers"], "peak_gib": gib,
+                        "flops": rec["flops"], "collectives": rec["collectives"],
+                        "seconds": rec["compile_seconds"]}
+    launches = {n: k.launches for n, k in kernels.items() if k.launches}
+    check(not launches, f"the dry run's phase launched {launches}")
+    seconds = time.perf_counter() - t_phase
+    print(f"lm_dryrun: {seconds:.1f} s", flush=True)
+    emit("lm_dryrun", a_prediction=part_a, b_cells=part_b, device=smi, seconds=seconds)
+
+
 def phase_lm_train_dp(kernels, smi, one_rank_losses):
     """LM training over LM_DP_RANKS gloo ranks sharing the card (each a
     process of this script; this process starts no group): (a) full-width
@@ -4223,6 +4406,7 @@ def run(default_cache) -> int:
     # ---------------------------------------------------- LM training
     train_counts, full_losses = phase_lm_train(kernels, smi)
     train_dp_counts = phase_lm_train_dp(kernels, smi, full_losses)
+    phase_lm_dryrun(kernels, smi)
 
     # ------------------------------------------------- the coreset server
     serve_counts, serve = phase_coreset_serve(kernels, smi)

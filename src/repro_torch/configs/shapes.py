@@ -1,13 +1,59 @@
-"""``reduced_config``: the CPU-test-sized variant of an arch, a copy of the
-reference's ``configs/shapes.py::reduced_config``.  ``input_specs`` (the
-dry-run's abstract inputs) comes with the dry-run."""
+"""Input specs, the dry run's abstract inputs for every (arch x shape)
+cell, and ``reduced_config``, the CPU-test-sized variant of an arch: the
+reference's ``configs/shapes.py``.
+
+``input_specs`` gives meta-device tensors where the reference has
+``ShapeDtypeStruct``s (a shape and a dtype, no storage).  Frontends are
+stubs as there: pixtral gets precomputed patch embeddings, musicgen a
+(B, L, n_codebooks) token grid.
+"""
 from __future__ import annotations
 
 import dataclasses
 
-from .base import ArchConfig
+import torch
 
-__all__ = ["reduced_config"]
+from .base import ArchConfig
+from .registry import get_shape
+
+__all__ = ["input_specs", "reduced_config"]
+
+
+def _spec(shape, dtype) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def input_specs(cfg: ArchConfig, shape_name) -> dict:
+    """Meta tensors for the cell's entry point (``shape_name`` a shape's
+    name, or a shape's dict of ``kind``, ``seq_len`` and ``global_batch``).
+
+    train:   {"tokens", "targets"} full-sequence batches
+    prefill: {"tokens"} full-sequence batch
+    decode:  {"tokens"} single-token batch (cache is built separately)
+    """
+    sh = get_shape(shape_name) if isinstance(shape_name, str) else shape_name
+    B, L = sh["global_batch"], sh["seq_len"]
+    i32 = torch.int32
+    tok_len = 1 if sh["kind"] == "decode" else L
+
+    if cfg.frontend == "audio_codebooks":
+        toks = _spec((B, tok_len, cfg.n_codebooks), i32)
+    elif cfg.frontend == "vision_stub" and sh["kind"] != "decode":
+        # patch embeddings replace the first n_patches positions
+        text_len = max(tok_len - cfg.n_patches, 1)
+        return {
+            "patch_embeds": _spec((B, cfg.n_patches, cfg.d_model), torch.bfloat16),
+            "tokens": _spec((B, text_len), i32),
+            **({"targets": _spec((B, cfg.n_patches + text_len), i32)}
+               if sh["kind"] == "train" else {}),
+        }
+    else:
+        toks = _spec((B, tok_len), i32)
+
+    specs = {"tokens": toks}
+    if sh["kind"] == "train":
+        specs["targets"] = _spec(toks.shape, i32)
+    return specs
 
 
 def reduced_config(cfg: ArchConfig, **overrides) -> ArchConfig:

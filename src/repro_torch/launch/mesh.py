@@ -21,16 +21,23 @@ threads, alive until the interpreter finalizes.  A gloo thread that then
 runs into the finalizing interpreter aborts the rank ("terminate called
 without an active exception", exit -6), after its work is done and only
 now and then, under the load of a whole test run.
+
+``fake_world(n)`` is the dry run's world: one process that is rank 0 of
+``n`` over torch's fake process group, whose collectives move nothing and
+return at once, so that a mesh of the production size can be built and a
+partitioned step run over it (on fake tensors) without the ranks.  It is a
+context manager that ends with ``destroy_world()``: no group outlives it.
 """
 from __future__ import annotations
 
+import contextlib
 import gc
 import math
 import os
 import weakref
 
 __all__ = ["make_production_mesh", "make_local_mesh", "compat_make_mesh",
-           "destroy_world"]
+           "destroy_world", "fake_world"]
 
 # every mesh the constructors built, by id (a DeviceMesh compares equal to
 # another of the same layout, so a WeakSet would keep only one of them)
@@ -97,6 +104,25 @@ def destroy_world() -> None:
     _MESHES.clear()
     dist.destroy_process_group()
     gc.collect()
+
+
+@contextlib.contextmanager
+def fake_world(world_size: int):
+    """This process as rank 0 of a fake world of ``world_size`` ranks, for
+    the body of the ``with``; the world is destroyed on the way out, also
+    when the body raises.  Raises if a world is already up."""
+    import torch.distributed as dist
+    # torch registers the "fake" backend in this module of its own
+    import torch.testing._internal.distributed.fake_pg  # noqa: F401
+    if dist.is_initialized():
+        raise RuntimeError("a process group is already up: a fake world "
+                           "needs the process to itself")
+    dist.init_process_group("fake", rank=0, world_size=int(world_size),
+                            store=dist.HashStore())
+    try:
+        yield
+    finally:
+        destroy_world()
 
 
 def make_production_mesh(*, multi_pod: bool = False, device_type: str = "cuda"):

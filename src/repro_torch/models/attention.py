@@ -27,7 +27,8 @@ from __future__ import annotations
 
 import torch
 
-from .layers import init_linear, init_rmsnorm, linear, rms_norm, rope, torch_dtype
+from .layers import (init_linear, init_rmsnorm, linear, on_shards, rms_norm, rope,
+                     settle, torch_dtype)
 
 __all__ = ["init_gqa", "gqa_forward", "gqa_decode", "init_mla", "mla_forward",
            "mla_decode", "chunked_attention", "resolve_attn_impl", "ATTN_IMPLS"]
@@ -50,10 +51,18 @@ def resolve_attn_impl(impl: str | None) -> str:
 
 # --------------------------------------------------- chunked online softmax
 def chunked_attention(q, k, v, *, causal: bool = True, q_chunk: int = 1024,
-                      k_chunk: int = 1024, impl: str | None = None):
+                      k_chunk: int = 1024, impl: str | None = None,
+                      q_offset: int | None = None):
     """q: (B, Hq, Lq, D); k/v: (B, Hkv, Lk, D).  Returns (B, Hq, Lq, D).
     ``impl="torch"``: online softmax over KV chunks of ``k_chunk``, query
-    chunks of ``q_chunk``, K/V repeated per chunk for the GQA groups."""
+    chunks of ``q_chunk``, K/V repeated per chunk for the GQA groups.
+    ``q_offset``: the first query's position among the keys (default
+    ``Lk - Lq``, the queries the last of the keys).  DTensors run
+    partitioned (``_attention_partitioned``)."""
+    from torch.distributed.tensor import DTensor
+    if isinstance(q, DTensor):
+        return _attention_partitioned(q, k, v, causal=causal, q_chunk=q_chunk,
+                                      k_chunk=k_chunk, impl=impl)
     if resolve_attn_impl(impl) == "cuda":
         from repro_torch.kernels.flash_attention import ops as fa_ops
         return fa_ops.flash_attention(q, k, v, causal=causal)
@@ -62,7 +71,8 @@ def chunked_attention(q, k, v, *, causal: bool = True, q_chunk: int = 1024,
     Dv = v.shape[-1]
     group = Hq // Hkv
     scale = 1.0 / D ** 0.5
-    q_offset = Lk - Lq
+    if q_offset is None:
+        q_offset = Lk - Lq
     qc, kc = min(q_chunk, Lq), min(k_chunk, Lk)
     dev = q.device
     outs = []
@@ -71,9 +81,7 @@ def chunked_attention(q, k, v, *, causal: bool = True, q_chunk: int = 1024,
         if q_blk.shape[2] < qc:
             q_blk = torch.nn.functional.pad(q_blk, (0, 0, 0, qc - q_blk.shape[2]))
         qi_abs = q0 + torch.arange(qc, device=dev)[:, None] + q_offset
-        m = torch.full((B, Hq, qc), _NEG, dtype=torch.float32, device=dev)
-        l = torch.zeros((B, Hq, qc), dtype=torch.float32, device=dev)
-        acc = torch.zeros((B, Hq, qc, Dv), dtype=torch.float32, device=dev)
+        m = l = acc = None
         for k0 in range(0, Lk, kc):
             k_blk, v_blk = k[:, :, k0:k0 + kc], v[:, :, k0:k0 + kc]
             if k_blk.shape[2] < kc:
@@ -88,6 +96,15 @@ def chunked_attention(q, k, v, *, causal: bool = True, q_chunk: int = 1024,
             mask = (ki <= qi_abs) & (ki < Lk) if causal \
                 else (ki < Lk).expand(qc, kc)
             s = torch.where(mask, s, _NEG)
+            if m is None:
+                # the first block starts the running max, sum and product
+                # (as from -inf, 0 and 0: the same values, and no state made
+                # before the scores, so that it lies where the scores do)
+                m = s.amax(dim=-1)
+                p = torch.exp(s - m[..., None])
+                l = p.sum(dim=-1)
+                acc = torch.einsum("bhqk,bhkd->bhqd", p.to(v_blk.dtype), v_blk).float()
+                continue
             m_new = torch.maximum(m, s.amax(dim=-1))
             p = torch.exp(s - m_new[..., None])
             corr = torch.exp(m - m_new)
@@ -97,6 +114,48 @@ def chunked_attention(q, k, v, *, causal: bool = True, q_chunk: int = 1024,
             m = m_new
         outs.append((acc / torch.clamp(l, min=1e-30)[..., None]).to(q.dtype))
     return torch.cat(outs, dim=2)[:, :, :Lq]
+
+
+def _attention_partitioned(q, k, v, *, causal, q_chunk, k_chunk, impl):
+    """The plain attention of DTensor q, k, v on each rank's blocks.  A
+    mesh dim that cuts the batch, or the heads of q, k and v alike, keeps
+    its cut (each rank attends its own rows or heads); one that cuts them
+    otherwise (the head_dim fallback) cuts the queries' sequence instead,
+    the keys and values whole on its ranks (their gradients partial sums),
+    each rank its block of query rows against every key, as the plain
+    attention runs them all, the output's rows then gathered."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    if resolve_attn_impl(impl) != "torch":
+        raise ValueError("a partitioned step attends with attn_impl='torch'")
+    mesh = q.device_mesh
+    qp, kvp, kvg = [], [], []
+    seq = None
+    for i, (a, b, c) in enumerate(zip(q.placements, k.placements, v.placements)):
+        if a == b == c and isinstance(a, Shard) and a.dim in (0, 1):
+            qp.append(a), kvp.append(a), kvg.append(a)
+        elif seq is None and not all(isinstance(x, Replicate) for x in (a, b, c)) \
+                and q.shape[2] % mesh.size(i) == 0:
+            seq = i
+            qp.append(Shard(2)), kvp.append(Replicate()), kvg.append(Partial())
+        else:
+            qp.append(Replicate()), kvp.append(Replicate()), kvg.append(Replicate())
+    Lq, Lk = q.shape[2], k.shape[2]
+
+    def local(ql, kl, vl):
+        off = Lk - Lq
+        if seq is not None:
+            off += mesh.get_local_rank(seq) * ql.shape[2]
+        return chunked_attention(ql, kl, vl, causal=causal, q_chunk=q_chunk,
+                                 k_chunk=k_chunk, impl="torch", q_offset=off)
+
+    o = on_shards(local, (q, k, v), (tuple(qp), tuple(kvp), tuple(kvp)),
+                  list(qp), (tuple(qp), tuple(kvg), tuple(kvg)))
+    if seq is not None:
+        # the rows gathered back (a sequence cut would meet the batch's in
+        # the heads' merge and the output projection's flattened rows)
+        o = o.redistribute(mesh, [Replicate() if i == seq else pl
+                                  for i, pl in enumerate(qp)])
+    return o
 
 
 # ---------------------------------------------------------------------- GQA
@@ -112,9 +171,26 @@ def init_gqa(gen: torch.Generator, cfg) -> dict:
 
 
 def _heads(y: torch.Tensor, n: int) -> torch.Tensor:
-    """(B, L, n * hd) -> (B, n, L, hd)."""
-    B, L, _ = y.shape
-    return y.reshape(B, L, n, -1).transpose(1, 2)
+    """(B, L, n * hd), or (B, L, n, hd) from a weight held in its head
+    view, -> (B, n, L, hd).  (A partitioned step's gradient of it lies as
+    the projection's output does.)"""
+    B, L = y.shape[:2]
+    return settle(y, y).reshape(B, L, n, -1).transpose(1, 2)
+
+
+def _merge_heads(o: torch.Tensor) -> torch.Tensor:
+    """(B, n, L, hd) -> (B, L, n * hd).  In a partitioned step a cut of hd
+    (the head_dim fallback) is gathered first: the flat dim keeps no cut
+    that is not a block of it."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    o = o.transpose(1, 2)
+    if isinstance(o, DTensor) and any(isinstance(p, Shard) and p.dim == 3
+                                      for p in o.placements):
+        o = o.redistribute(o.device_mesh, [
+            Replicate() if isinstance(p, Shard) and p.dim == 3 else p
+            for p in o.placements])
+    o = o.reshape(*o.shape[:2], -1)
+    return settle(o, o)     # (its gradient whole where it is, to unflatten)
 
 
 def gqa_forward(p: dict, cfg, x: torch.Tensor, positions: torch.Tensor,
@@ -128,7 +204,7 @@ def gqa_forward(p: dict, cfg, x: torch.Tensor, positions: torch.Tensor,
     v = _heads(linear(p["wv"], x), cfg.n_kv_heads)
     o = chunked_attention(q, k, v, causal=True, impl=attn_impl,
                           q_chunk=cfg.attn_q_chunk, k_chunk=cfg.attn_k_chunk)
-    out = linear(p["wo"], o.transpose(1, 2).reshape(B, L, -1))
+    out = linear(p["wo"], _merge_heads(o))
     if return_kv:
         return out, (k, v)
     return out
@@ -155,7 +231,7 @@ def gqa_decode(p: dict, cfg, x: torch.Tensor, cache: dict, pos: int):
     s = torch.where(mask, s, _NEG)
     w = torch.softmax(s, dim=-1).to(vv.dtype)
     o = torch.einsum("bhqk,bhkd->bhqd", w, vv)
-    out = linear(p["wo"], o.transpose(1, 2).reshape(B, 1, -1))
+    out = linear(p["wo"], _merge_heads(o))
     return out, cache
 
 
@@ -210,10 +286,11 @@ def mla_forward(p: dict, cfg, x: torch.Tensor, positions: torch.Tensor,
     k_nope = _heads(linear(p["wk_b"], c_kv), H)                # (B, H, L, dn)
     v = _heads(linear(p["wv_b"], c_kv), H)                     # (B, H, L, dv)
     q = torch.cat([q_nope, q_rope], dim=-1)
-    k = torch.cat([k_nope, k_rope.expand(B, H, L, dr)], dim=-1)
+    # (a partitioned step's shared rope key cut as the heads are)
+    k = torch.cat([k_nope, settle(k_rope.expand(B, H, L, dr), k_nope)], dim=-1)
     o = chunked_attention(q, k, v, causal=True, impl="torch",
                           q_chunk=cfg.attn_q_chunk, k_chunk=cfg.attn_k_chunk)
-    out = linear(p["wo"], o.transpose(1, 2).reshape(B, L, -1))
+    out = linear(p["wo"], _merge_heads(o))
     if return_kv:
         return out, (c_kv, k_rope[:, 0])
     return out
@@ -246,5 +323,5 @@ def mla_decode(p: dict, cfg, x: torch.Tensor, cache: dict, pos: int):
     ctx = torch.einsum("bhqs,bsr->bhqr", w.to(c_kv.dtype), c_kv)
     # absorb wv_b into the output projection
     o = torch.einsum("bhqr,rhv->bhqv", ctx, p["wv_b"]["w"].reshape(r_kv, H, dv))
-    out = linear(p["wo"], o.transpose(1, 2).reshape(B, 1, -1))
+    out = linear(p["wo"], _merge_heads(o))
     return out, cache

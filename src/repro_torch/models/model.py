@@ -43,8 +43,8 @@ from . import attention as attn
 from . import moe as moe_mod
 from . import ssm
 from .layers import (embed, head_shape, init_embed, init_linear, init_rmsnorm,
-                     init_swiglu, rms_norm, swiglu, torch_dtype, truncated_normal,
-                     unembed)
+                     init_swiglu, rms_norm, settle, swiglu, torch_dtype,
+                     truncated_normal, unembed)
 
 __all__ = ["init_params", "embed_inputs", "forward", "prefill", "init_cache",
            "decode_step", "cast_params", "param_shapes", "Model"]
@@ -139,46 +139,60 @@ def _codebook_embed(table: torch.Tensor, toks: torch.Tensor) -> torch.Tensor:
 
 
 # ==================================================================== forward
-def _mlp(cfg, lp, h):
-    """The layer's MLP on its normed input: (y, aux), aux None but for MoE."""
+def _mlp(cfg, lp, h, mesh=None):
+    """The layer's MLP on its normed input: (y, aux), aux None but for MoE
+    (its dispatch groups ``mesh``'s data shards)."""
     if cfg.is_moe:
-        return moe_mod.moe_forward(lp["mlp"], cfg, h)
+        return moe_mod.moe_forward(lp["mlp"], cfg, h, mesh=mesh)
     return swiglu(lp["mlp"], h), None
 
 
-def _layer_apply(cfg, lp, x, positions, attn_impl, shared=None):
+def _layer_apply(cfg, lp, x, positions, attn_impl, shared=None, mesh=None):
     """One layer, then the hybrid's shared block where ``shared`` (its
     ``{"attn", "ln"}`` parameters) is given.  Returns (x, the layer's aux
     loss or None)."""
-    h = rms_norm(lp["ln1"], x, cfg.norm_eps)
+    h = settle(rms_norm(lp["ln1"], x, cfg.norm_eps), x)
     aux = None
     if cfg.is_ssm:
         mix = ssm.mamba1_forward if cfg.mamba_version == 1 else ssm.mamba2_forward
-        x = x + mix(lp["mixer"], cfg, h)
+        x = x + settle(mix(lp["mixer"], cfg, h), x)
     else:
         mix = attn.mla_forward if cfg.is_mla else attn.gqa_forward
-        x = x + mix(lp["attn"], cfg, h, positions, attn_impl)
-        y, aux = _mlp(cfg, lp, rms_norm(lp["ln2"], x, cfg.norm_eps))
-        x = x + y
+        x = x + settle(mix(lp["attn"], cfg, h, positions, attn_impl), x)
+        y, aux = _mlp(cfg, lp, settle(rms_norm(lp["ln2"], x, cfg.norm_eps), x), mesh)
+        x = x + settle(y, x)
     if shared is not None:
-        h = rms_norm(shared["ln"], x, cfg.norm_eps)
-        x = x + attn.gqa_forward(shared["attn"], cfg, h, positions, attn_impl)
+        h = settle(rms_norm(shared["ln"], x, cfg.norm_eps), x)
+        x = x + settle(attn.gqa_forward(shared["attn"], cfg, h, positions, attn_impl), x)
     return x, aux
 
 
+def _positions(x: torch.Tensor) -> torch.Tensor:
+    """(B, L) positions 0..L-1 of a (B, L, d) batch, where its rows are."""
+    from torch.distributed.tensor import DTensor
+    B, L = x.shape[:2]
+    if not isinstance(x, DTensor):
+        return torch.arange(L, device=x.device)[None].expand(B, L)
+    local = x.to_local()
+    pos = torch.arange(L, device=local.device)[None].expand(local.shape[0], L)
+    return DTensor.from_local(pos, x.device_mesh, x.placements, run_check=False,
+                              shape=(B, L), stride=(0, 1))
+
+
 def forward(cfg, params, batch: dict, attn_impl: str | None = None,
-            return_hidden: bool = False) -> tuple:
+            return_hidden: bool = False, mesh=None) -> tuple:
     """-> (logits, aux_loss), or (hidden, aux_loss) with return_hidden=True:
     the hidden states after the final norm, which training feeds to a
     chunked cross-entropy so that the (B, L, V) logits never exist at once;
     aux_loss is the sum of the MoE layers' (a float32 0 for the others).
     ``attn_impl`` None runs the flash-attention kernel on the card and
     raises without one; ``"torch"`` pins the plain attention, the one that
-    trains (the kernel has no backward), and the only one MLA runs."""
+    trains (the kernel has no backward), and the only one MLA runs.
+    ``mesh``: the mesh a partitioned step runs on (the MoE layers' dispatch
+    groups are its data shards); None is one group."""
     attn_impl = attn.resolve_attn_impl(attn_impl)
-    x = embed_inputs(cfg, params, batch)
-    B, L, _ = x.shape
-    positions = torch.arange(L, device=x.device)[None].expand(B, L)
+    x = settle(embed_inputs(cfg, params, batch), batch["tokens"])
+    positions = _positions(x)
     shared = ({"attn": params["shared_attn"], "ln": params["shared_ln"]}
               if _has_shared(cfg) else None)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -186,12 +200,13 @@ def forward(cfg, params, batch: dict, attn_impl: str | None = None,
         sh = shared if _shared_after(cfg, i) else None
         if cfg.remat and x.requires_grad:
             x, a = torch.utils.checkpoint.checkpoint(
-                _layer_apply, cfg, lp, x, positions, attn_impl, sh, use_reentrant=False)
+                _layer_apply, cfg, lp, x, positions, attn_impl, sh, mesh,
+                use_reentrant=False)
         else:
-            x, a = _layer_apply(cfg, lp, x, positions, attn_impl, sh)
+            x, a = _layer_apply(cfg, lp, x, positions, attn_impl, sh, mesh)
         if a is not None:
             aux = aux + a
-    x = rms_norm(params["final_ln"], x, cfg.norm_eps)
+    x = settle(rms_norm(params["final_ln"], x, cfg.norm_eps), x)
     if return_hidden:
         return x, aux
     return unembed(params["head"], x, head_shape(cfg)), aux
@@ -237,13 +252,13 @@ def init_cache(cfg, batch_size: int, max_len: int, device=None) -> dict:
     return cache
 
 
-def decode_step(cfg, params, cache: dict, batch: dict) -> tuple:
+def decode_step(cfg, params, cache: dict, batch: dict, mesh=None) -> tuple:
     """One new token for every sequence. batch["tokens"]: (B, 1), or
     (B, 1, C) for the audio frontend.  Returns (logits, cache): logits
     (B, 1, vocab), or (B, 1, C, vocab); the cache is written in place (the
     KV caches at its position, the SSM windows and states whole), and its
     position advances by one."""
-    x = embed_inputs(cfg, params, batch)
+    x = settle(embed_inputs(cfg, params, batch), batch["tokens"])
     pos = cache["pos"]
     layers = cache["layers"]
     for i, lp in enumerate(params["layers"]):
@@ -251,28 +266,28 @@ def decode_step(cfg, params, cache: dict, batch: dict) -> tuple:
         if cfg.is_ssm:
             mix = ssm.mamba1_decode if cfg.mamba_version == 1 else ssm.mamba2_decode
             y, _ = mix(lp["mixer"], cfg, h, {k: t[i] for k, t in layers.items()})
-            x = x + y
+            x = x + settle(y, x)
         else:
             dec = attn.mla_decode if cfg.is_mla else attn.gqa_decode
             y, _ = dec(lp["attn"], cfg, h, {k: t[i] for k, t in layers.items()}, pos)
-            x = x + y
-            x = x + _mlp(cfg, lp, rms_norm(lp["ln2"], x, cfg.norm_eps))[0]
+            x = x + settle(y, x)
+            x = x + settle(_mlp(cfg, lp, rms_norm(lp["ln2"], x, cfg.norm_eps), mesh)[0], x)
         if _shared_after(cfg, i):
             si = (i + 1) // cfg.attn_every - 1
             sc = cache["shared"]
             h = rms_norm(params["shared_ln"], x, cfg.norm_eps)
             y, _ = attn.gqa_decode(params["shared_attn"], cfg, h,
                                    {"k": sc["k"][si], "v": sc["v"][si]}, pos)
-            x = x + y
+            x = x + settle(y, x)
     x = rms_norm(params["final_ln"], x, cfg.norm_eps)
     cache["pos"] = pos + 1
     return unembed(params["head"], x, head_shape(cfg)), cache
 
 
-def prefill(cfg, params, batch: dict, attn_impl: str | None = None):
+def prefill(cfg, params, batch: dict, attn_impl: str | None = None, mesh=None):
     """Prefill = forward pass producing logits (cache omitted, as in the
     reference: decode builds its own)."""
-    return forward(cfg, params, batch, attn_impl)
+    return forward(cfg, params, batch, attn_impl, mesh=mesh)
 
 
 class Model:

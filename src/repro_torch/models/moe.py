@@ -8,9 +8,12 @@ expert's run), placed into an (E, C, d) buffer, run through a batched
 expert SwiGLU, and gathered back weighted by their gates.  The aux
 load-balancing loss is Switch/GShard's, ``coef · E · Σ_e f_e · p̄_e``.
 
-Dispatch runs in one group (G = 1): the reference makes one group a
-data-parallel shard from its mesh, which the port has not yet (ROADMAP
-queue 1 item 5); without a mesh the reference's G is 1 too.
+Dispatch runs in groups, one a data-parallel shard of the mesh the caller
+passes (G = pod x data, halved until it divides the tokens, as in the
+reference's ``_dispatch_groups``): each group of ``Tg`` contiguous tokens
+sorts and places its own picks, at a capacity ``max(int(Tg·k·cf/E), 4)``
+an expert, while the aux loss's ``f`` and ``p̄`` are taken over all the
+tokens.  Without a mesh G is 1, as the reference's is without one.
 
 ``combine`` sums each token's contributions in the reference's order: its
 scatter-add visits the sorted picks in turn, so a token's ``top_k`` rows
@@ -22,12 +25,14 @@ changes from run to run).
 """
 from __future__ import annotations
 
+import math
+
 import torch
 import torch.nn.functional as F
 
-from .layers import init_swiglu, swiglu, torch_dtype, truncated_normal
+from .layers import init_swiglu, on_shards, swiglu, torch_dtype, truncated_normal
 
-__all__ = ["init_moe", "moe_forward"]
+__all__ = ["init_moe", "moe_forward", "dispatch_groups"]
 
 
 def init_moe(gen: torch.Generator, cfg) -> dict:
@@ -74,12 +79,18 @@ def dispatch(x: torch.Tensor, experts: torch.Tensor, gates: torch.Tensor,
     return buf[:E * C].reshape(E, C, -1), (slot, t_s, g_s, keep)
 
 
-def combine(y: torch.Tensor, meta, T: int) -> torch.Tensor:
+def combine(y: torch.Tensor, meta, T: int, first: int | None = None) -> torch.Tensor:
     """The reference's ``combine_one``: each kept pick's expert output times
     its gate (in ``y``'s dtype), summed a token at a time in ascending
-    expert id.  y: (E, C, d); ``meta`` from ``dispatch``.  Returns (T, d)."""
+    expert id.  y: (E, C, d); ``meta`` from ``dispatch``.  Returns (T, d).
+    ``first``: ``y`` holds experts ``first .. first + E - 1`` only (a rank's
+    block of them), and the sum is of their picks only."""
     slot, t_s, g_s, keep = meta
     E, C, d = y.shape
+    if first is not None:
+        slot = slot - first * C
+        keep = keep & (slot >= 0) & (slot < E * C)
+        slot = slot.clamp(0, E * C - 1)
     contrib = torch.where(keep[:, None],
                           y.reshape(E * C, d)[slot] * g_s[:, None].to(y.dtype), 0)
     k = slot.numel() // T
@@ -100,11 +111,98 @@ def route(p: dict, cfg, xt: torch.Tensor):
     return probs, gates, experts
 
 
-def moe_forward(p: dict, cfg, x: torch.Tensor):
-    """x: (B, L, d) -> (y, aux_loss)."""
+def dispatch_groups(mesh, T: int) -> int:
+    """The dispatch groups for ``T`` tokens on ``mesh`` (a ``DeviceMesh``,
+    an ``AbstractMesh`` or None): its pod x data shards, halved until they
+    divide T."""
+    G = 1
+    if mesh is not None:
+        names = getattr(mesh, "mesh_dim_names", None)
+        sizes = (dict(zip(names, mesh.shape)) if names is not None
+                 else dict(mesh.shape))
+        G = max(sizes.get("pod", 1) * sizes.get("data", 1), 1)
+    while T % G:
+        G //= 2
+    return max(G, 1)
+
+
+def _experts(p: dict, h: torch.Tensor) -> torch.Tensor:
+    """The batched expert SwiGLU on (E, N, d) rows."""
+    y = torch.bmm(h, p["wi"]) * F.silu(torch.bmm(h, p["wg"]))
+    return torch.bmm(y, p["wo"])
+
+
+def _moe_partitioned(p: dict, cfg, x, G: int):
+    """``moe_forward`` of DTensor hidden states whose rows the data axes cut:
+    each rank sorts and places its own groups' picks (``dispatch`` and
+    ``combine`` on its blocks, no gather), the experts' product runs where
+    the expert weights are (the "model" axis cuts the experts), and the aux
+    loss takes its counts and mean probabilities over every rank's rows."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
     B, L, d = x.shape
     E, topk = cfg.n_experts, cfg.moe_top_k
     T = B * L
+    xt = x.reshape(T, d)
+    mesh = xt.device_mesh
+    rows = tuple(pl if pl == Shard(0) else Replicate() for pl in xt.placements)
+    n_rows = math.prod(mesh.size(i) for i, pl in enumerate(rows) if pl == Shard(0))
+    if G % n_rows:
+        raise NotImplementedError(f"{G} dispatch groups over {n_rows} row shards")
+    G_loc, Tg = G // n_rows, T // G
+    C = capacity(cfg, Tg)
+    probs, gates, experts = route(p, cfg, xt)
+    part = tuple(Partial() if pl == Shard(0) else Replicate() for pl in rows)
+
+    def counts(e):
+        pk = e.reshape(-1)
+        return torch.zeros(E, device=e.device).index_add_(
+            0, pk, torch.ones(pk.shape, device=e.device))
+    f = on_shards(counts, (experts,), (rows,), list(part), (rows,)) / (T * topk)
+    aux = cfg.router_aux_coef * E * torch.sum(f * probs.mean(dim=0))
+
+    def dispatch_local(xl, el, gl):
+        parts = [dispatch(xl[g * Tg:(g + 1) * Tg], el[g * Tg:(g + 1) * Tg],
+                          gl[g * Tg:(g + 1) * Tg], E, C) for g in range(G_loc)]
+        h = torch.stack([hg for hg, _ in parts], dim=1).reshape(E, G_loc * C, d)
+        meta = [torch.stack([m[i] for _, m in parts]) for i in range(4)]
+        return (h, *meta)
+    hs = tuple(Shard(1) if pl == Shard(0) else Replicate() for pl in rows)
+    h, *meta = on_shards(dispatch_local, (xt, experts, gates), (rows, rows, rows),
+                         (hs, rows, rows, rows, rows), (rows, rows, rows))
+    y = _experts(p, h)
+    # each rank sums the picks of the experts it holds: a partial sum over
+    # the dims that cut the experts
+    ys = tuple(Shard(0) if pl == Shard(0) else h_pl
+               for pl, h_pl in zip(y.placements, hs))
+    cut = [i for i, pl in enumerate(ys) if pl == Shard(0)]
+    if len(cut) > 1:
+        raise NotImplementedError("experts cut over more than one mesh dim")
+    outp = tuple(Partial() if i in cut else pl for i, pl in enumerate(rows))
+
+    def combine_local(yl, slot, t_s, g_s, keep):
+        E_loc = yl.shape[0]
+        first = mesh.get_local_rank(cut[0]) * E_loc if cut else None
+        yl = yl.reshape(E_loc, G_loc, C, d)
+        return torch.cat([combine(yl[:, g], (slot[g], t_s[g], g_s[g], keep[g]), Tg, first)
+                          for g in range(G_loc)])
+    out = on_shards(combine_local, (y, *meta), (ys, rows, rows, rows, rows), list(outp),
+                    (ys, rows, rows, rows, rows)).to(x.dtype)
+    if "shared" in p:
+        out = out + swiglu(p["shared"], xt)
+    return out.reshape(B, L, d), aux
+
+
+def moe_forward(p: dict, cfg, x: torch.Tensor, mesh=None):
+    """x: (B, L, d) -> (y, aux_loss), dispatched in ``mesh``'s groups (a
+    DTensor ``x``'s own mesh where none is given)."""
+    from torch.distributed.tensor import DTensor
+    B, L, d = x.shape
+    E, topk = cfg.n_experts, cfg.moe_top_k
+    T = B * L
+    if isinstance(x, DTensor):
+        return _moe_partitioned(p, cfg, x, dispatch_groups(mesh or x.device_mesh, T))
+    G = dispatch_groups(mesh, T)
+    Tg = T // G
     xt = x.reshape(T, d)
     probs, gates, experts = route(p, cfg, xt)
 
@@ -113,10 +211,19 @@ def moe_forward(p: dict, cfg, x: torch.Tensor):
         0, picks, torch.ones(picks.shape, device=x.device)) / (T * topk)
     aux = cfg.router_aux_coef * E * torch.sum(f * probs.mean(dim=0))
 
-    h, meta = dispatch(xt, experts, gates, E, capacity(cfg, T))
-    y = torch.bmm(h, p["wi"]) * F.silu(torch.bmm(h, p["wg"]))
-    y = torch.bmm(y, p["wo"])
-    out = combine(y, meta, T).to(x.dtype)
+    C = capacity(cfg, Tg)
+    if G == 1:
+        h, meta = dispatch(xt, experts, gates, E, C)
+        out = combine(_experts(p, h), meta, T)
+    else:
+        # every group's picks placed apart; the experts run on all the
+        # groups' rows at once, (E, G·C, d)
+        parts = [dispatch(xt[g * Tg:(g + 1) * Tg], experts[g * Tg:(g + 1) * Tg],
+                          gates[g * Tg:(g + 1) * Tg], E, C) for g in range(G)]
+        h = torch.stack([hg for hg, _ in parts], dim=1).reshape(E, G * C, d)
+        y = _experts(p, h).reshape(E, G, C, d)
+        out = torch.cat([combine(y[:, g], m, Tg) for g, (_, m) in enumerate(parts)])
+    out = out.to(x.dtype)
     if "shared" in p:
         out = out + swiglu(p["shared"], xt)
     return out.reshape(B, L, d), aux

@@ -27,7 +27,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from .layers import init_linear, linear, torch_dtype, truncated_normal
+from .layers import (init_linear, keep_shards, linear, on_shards, settle,
+                     torch_dtype, truncated_normal)
 
 __all__ = ["init_mamba1", "mamba1_forward", "mamba1_decode",
            "init_mamba2", "mamba2_forward", "mamba2_decode"]
@@ -61,7 +62,15 @@ def init_mamba1(gen: torch.Generator, cfg) -> dict:
 def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
                  window: int) -> torch.Tensor:
     """x: (B, L, di); depthwise causal conv along L, as ``window`` shifted
-    multiply-adds in x's dtype (the reference's shift-and-scale form)."""
+    multiply-adds in x's dtype (the reference's shift-and-scale form).  Of
+    DTensors, on each rank's rows and channels."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    if isinstance(x, DTensor):
+        at = keep_shards(x, (0, 2))
+        w_at = tuple(Shard(0) if p == Shard(2) else Replicate() for p in at)
+        w_grad = tuple(Partial() if p == Shard(0) else q for p, q in zip(at, w_at))
+        return on_shards(lambda x_, w_, b_: _causal_conv(x_, w_, b_, window),
+                         (x, w, b), (at, w_at, w_at), list(at), (at, w_grad, w_grad))
     L = x.shape[1]
     xp = F.pad(x, (0, 0, window - 1, 0))
     out = xp[:, 0:L] * w[:, 0]
@@ -83,11 +92,30 @@ def _doubling_scan(a: torch.Tensor, b: torch.Tensor):
     return a, b
 
 
+def _shared_operand(at: tuple) -> tuple:
+    """The placements of a (B, L, s) operand that every channel or head of
+    a scan placed ``at`` reads: its rows where the scan's are, whole over
+    the dims that cut the channels; and its gradient's, a partial sum over
+    those dims."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    c_at = tuple(p if p == Shard(0) else Replicate() for p in at)
+    c_grad = tuple(Partial() if isinstance(p, Shard) and p.dim != 0 else q
+                   for p, q in zip(at, c_at))
+    return c_at, c_grad
+
+
 def _mamba1_ssm_chunked(dA: torch.Tensor, dBx: torch.Tensor, C: torch.Tensor,
                         chunk: int) -> torch.Tensor:
     """Diagonal linear recurrence h_t = dA_t * h_{t-1} + dBx_t, y_t = <C_t, h_t>.
 
-    dA, dBx: (B, L, di, s); C: (B, L, s).  Returns y: (B, L, di)."""
+    dA, dBx: (B, L, di, s); C: (B, L, s).  Returns y: (B, L, di).  Of
+    DTensors, on each rank's rows and channels (the scan runs along L)."""
+    from torch.distributed.tensor import DTensor
+    if isinstance(dA, DTensor):
+        at = keep_shards(dA, (0, 2))
+        c_at, c_grad = _shared_operand(at)
+        return on_shards(lambda a, b, c: _mamba1_ssm_chunked(a, b, c, chunk),
+                         (dA, dBx, C), (at, at, c_at), list(at), (at, at, c_grad))
     B, L, di, s = dA.shape
     Q = min(chunk, L)
     pad = (-L) % Q
@@ -113,7 +141,9 @@ def mamba1_forward(p: dict, cfg, x: torch.Tensor) -> torch.Tensor:
     xz = linear(p["in_proj"], x)
     xin, z = xz[..., :di], xz[..., di:]
     xin = F.silu(_causal_conv(xin, p["conv"], p["conv_b"], cfg.ssm_conv))
-    proj = linear(p["x_proj"], xin)
+    # (x_proj's product, partial sums where a mesh cuts d_inner, summed
+    # where the rows are: dt_proj and the scan read it whole)
+    proj = settle(linear(p["x_proj"], xin), x)
     delta = F.softplus(linear(p["dt_proj"], proj[..., :r]).float())   # (B, L, di)
     Bm = proj[..., r:r + s].float()                                   # (B, L, s)
     Cm = proj[..., r + s:].float()
@@ -188,7 +218,15 @@ def _mamba2_ssd_chunked(a: torch.Tensor, xd: torch.Tensor, Bm: torch.Tensor,
                         Cm: torch.Tensor, chunk: int) -> torch.Tensor:
     """Scalar-per-head recurrence S_t = a_t S_{t-1} + B_t xd_t^T, y_t =
     C_t S_t, chunk by chunk.  a: (B, L, H); xd: (B, L, H, P) (Δ-scaled
-    inputs); Bm, Cm: (B, L, s).  Returns y: (B, L, H, P)."""
+    inputs); Bm, Cm: (B, L, s).  Returns y: (B, L, H, P).  Of DTensors, on
+    each rank's rows and heads (the chunks run along L)."""
+    from torch.distributed.tensor import DTensor
+    if isinstance(xd, DTensor):
+        at = keep_shards(xd, (0, 2))
+        c_at, c_grad = _shared_operand(at)
+        return on_shards(lambda a_, x_, b_, c_: _mamba2_ssd_chunked(a_, x_, b_, c_, chunk),
+                         (a, xd, Bm, Cm), (at, at, c_at, c_at), list(at),
+                         (at, at, c_grad, c_grad))
     B, L, H, P = xd.shape
     Q = min(chunk, L)
     pad = (-L) % Q

@@ -10,7 +10,8 @@ embeddings and its greedy generation, the coreset server booted on
 an ephemeral port answering a loss query and a batch through the SDK, a
 cluster coordinator gathering a build from two in-process workers, a
 train step, a compressed gradient, a checkpoint and a crash-and-resume
-``train_loop`` on the token stream, and a CPU rank of a one-rank gloo mesh
+``train_loop`` on the token stream, a reduced dry-run cell (qwen2 at one
+layer on a (2, 2) mesh of a fake world), and a CPU rank of a one-rank gloo mesh
 scoring and scanning over it) or anywhere in its source (train/,
 checkpoint/, runtime/, data/tokens.py, launch/train.py, models/ssm.py and
 models/moe.py among it), in
@@ -158,6 +159,13 @@ with tempfile.TemporaryDirectory() as ckpt:
     trained = train_loop(lm, steps=3, batch=2, seq_len=8, ckpt_dir=ckpt + "/b",
                          save_every=2, fail_at=2, device="cpu")["step"]
 HeartbeatMonitor().report("w0", 1)
+from repro_torch.launch import dryrun
+from repro_torch.launch.mesh import compat_make_mesh, fake_world
+with fake_world(4):
+    dmesh = compat_make_mesh((2, 2), ("data", "model"), device_type="cpu")
+    _, dlow = dryrun.lower_cell(dmesh, "qwen2-0.5b", "train_4k", n_layers_override=1,
+                                microbatches=1, batch_override=(4, 64))
+    drec = dryrun.analyze(dlow)
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "repro"))
 print(json.dumps({"loss": loss, "blocks": cs.num_blocks, "bad": bad,
@@ -172,7 +180,9 @@ print(json.dumps({"loss": loss, "blocks": cs.num_blocks, "bad": bad,
                   "moe": moe_tokens, "frontends": frontends,
                   "served": [served.loss, served.backend, served.served_from],
                   "batch": batch.losses.tolist(),
-                  "cluster": [gathers, gathered == one]}))
+                  "cluster": [gathers, gathered == one],
+                  "dryrun": [drec["flops"] > 0, drec["memory"]["argument_bytes"] > 0,
+                             drec["collectives"]["total"] > 0]}))
 """
 
 
@@ -199,6 +209,7 @@ def test_cpu_slice_runs_without_jax_or_reference():
     assert res["batch"] == [loss] * 3
     assert res["cluster"] == [1, True]
     assert res["train"] == [1, True, "torch.int8", 3]
+    assert res["dryrun"] == [True, True, True]
 
 
 _MESH_RANK = """

@@ -287,3 +287,87 @@ def test_mla_refuses_the_kernel_path_as_the_reference_does(layer0):
     with pytest.raises(ValueError, match='attn_impl="torch"'):
         models.prefill(tcfg, tp, {"tokens": torch.zeros((1, 4), dtype=torch.long)},
                        attn_impl="cuda")
+
+
+# ------------------------------------------------------------ dispatch groups
+def _reference_grouped(monkeypatch, rcfg, mlp, x, G):
+    """The reference's ``moe_forward`` on x (B, L, d) under an abstract
+    mesh of G data shards (its dispatch groups), jitted (its sharding
+    constraints need a traced program), with its ``dispatch_one`` closure
+    (over that call's Tg and C)."""
+    from repro.sharding import compat_abstract_mesh
+    taken = {}
+
+    class _Jax:
+        def __getattr__(self, name):
+            return getattr(jax, name)
+
+        @staticmethod
+        def vmap(fn, *a, **kw):
+            taken[fn.__name__] = fn
+            return jax.vmap(fn, *a, **kw)
+    monkeypatch.setattr(ref_moe, "jax", _Jax())
+    with jax.sharding.use_abstract_mesh(compat_abstract_mesh((G,), ("data",))):
+        assert ref_moe._dispatch_groups(rcfg) == G
+        out, aux = jax.jit(lambda p, x: ref_moe.moe_forward(p, rcfg, x))(mlp, x)
+    monkeypatch.undo()
+    return out, aux, taken["dispatch_one"]
+
+
+@pytest.mark.parametrize("G", [2, 4])
+@pytest.mark.parametrize("arch", ARCHS)
+def test_grouped_dispatch_matches_the_reference_s_groups(layer0, monkeypatch, arch, G):
+    """G dispatch groups (a mesh of G data shards) at a capacity that drops,
+    float32: each group's picks and which of them drop are the reference's
+    (its ``dispatch_one`` on the group), the layer's output is within 1e-5
+    of the reference's grouped layer, and the aux loss, over all the
+    groups' picks and probabilities, within 1e-6 (float32 sums in another
+    order)."""
+    from repro_torch.sharding import compat_abstract_mesh
+    rcfg, tcfg, rlp, tlp = layer0[arch, "float32"]
+    rcfg, tcfg = (dataclasses.replace(c, capacity_factor=0.5) for c in (rcfg, tcfg))
+    B, L, E, k = 4, 16, tcfg.n_experts, tcfg.moe_top_k
+    T, Tg = B * L, B * L // G
+    x = _x(rcfg, B, L, seed=11)
+    tx = torch.as_tensor(x)
+    assert router_margin(tcfg, tlp["mlp"]["router"], tx) > ROUTER_MARGIN
+    want, waux, dispatch_one = _reference_grouped(monkeypatch, rcfg, rlp["mlp"],
+                                                  jnp.asarray(x), G)
+    mesh = compat_abstract_mesh((G,), ("data",))
+    assert moe.dispatch_groups(mesh, T) == G
+    got, aux = moe.moe_forward(tlp["mlp"], tcfg, tx, mesh=mesh)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(float(aux), float(waux), rtol=1e-6)
+    # the picks and drops, group by group
+    probs, gates, experts = moe.route(tlp["mlp"], tcfg, tx.reshape(T, -1))
+    r_probs = jax.nn.softmax(jnp.asarray(x.reshape(T, -1)) @ rlp["mlp"]["router"]["w"], -1)
+    r_gates, r_experts = jax.lax.top_k(r_probs, k)
+    assert np.array_equal(experts.numpy(), np.asarray(r_experts))
+    C = moe.capacity(tcfg, Tg)
+    dropped = 0
+    for g in range(G):
+        rows = slice(g * Tg, (g + 1) * Tg)
+        _, meta = moe.dispatch(tx.reshape(T, -1)[rows], experts[rows], gates[rows], E, C)
+        _, (w_slot, w_t, _, w_keep) = dispatch_one(
+            jnp.asarray(x.reshape(T, -1)[rows]), r_experts[rows],
+            r_gates[rows] / r_gates[rows].sum(-1, keepdims=True))
+        assert np.array_equal(meta[3].numpy(), np.asarray(w_keep))
+        assert np.array_equal(meta[1].numpy(), np.asarray(w_t))
+        assert np.array_equal(meta[0].numpy(), np.asarray(w_slot))
+        dropped += int((~meta[3]).sum())
+    assert dropped, "no pick dropped: the capacity does not bind"
+
+
+def test_one_group_keeps_the_ungrouped_layer_s_bits(layer0):
+    """G = 1 (no mesh, or a mesh of one data shard) is the layer as it was:
+    bitwise in bfloat16, the combine's order of adds included."""
+    from repro_torch.sharding import compat_abstract_mesh
+    _, tcfg, _, tlp = layer0["deepseek-v2-236b", "bfloat16"]
+    tx = torch.as_tensor(_x(tcfg, 2, 16, seed=12)).to(torch.bfloat16)
+    base, base_aux = moe.moe_forward(tlp["mlp"], tcfg, tx)
+    one, one_aux = moe.moe_forward(tlp["mlp"], tcfg, tx,
+                                   mesh=compat_abstract_mesh((1, 4), ("data", "model")))
+    assert torch.equal(base, one) and torch.equal(base_aux, one_aux)
+    assert moe.dispatch_groups(None, 32) == 1
+    assert moe.dispatch_groups(compat_abstract_mesh((2, 4, 2), ("pod", "data", "model")), 32) == 8
+    assert moe.dispatch_groups(compat_abstract_mesh((16, 16), ("data", "model")), 24) == 8
