@@ -9,17 +9,17 @@ write path) with row patches of the slice-1 signal and a line-scan stream of
 eight 256 x 1024 frames; slice 4 (LM serving) with qwen2-0.5b at full width
 (24 layers, d_model 896, 14 query and 2 KV heads of 64, vocab 151,936) and
 random weights from a seeded generator; the SSM families (models/ssm.py)
-with falcon-mamba-7b (64 Mamba1 layers, d_model 4096, d_inner 8192, state
-16, vocab 65,024) and zamba2-1.2b (38 Mamba2 layers, d_model 2048, 64
-heads of 64, state 64, one shared GQA block of 32 heads every 6 layers)
-at full size; the MoE families (models/moe.py, MLA in models/attention.py)
+with falcon-mamba-7b (Mamba1, d_model 4096, d_inner 8192, state 16, vocab
+65,024) and zamba2-1.2b (Mamba2, d_model 2048, 64 heads of 64, state 64,
+one shared GQA block of 32 heads every 6 layers) at full width, cut in
+depth to 16 of 64 and 18 of 38 layers; the MoE families (models/moe.py, MLA in models/attention.py)
 with qwen3-moe-235b-a22b (128 experts, top 8, 64 query and 4 KV heads of
 128) and deepseek-v2-236b (MLA, 160 routed and 2 shared experts, top 6) at
 full width, cut in depth to 6 and 4 layers; the modality frontends
-(models/model.py's embed_inputs and head) with musicgen-medium (48 layers,
+(models/model.py's embed_inputs and head) with musicgen-medium (24 of 48 layers,
 d_model 1536, 24 query and 24 KV heads of 64, 4 codebooks of 2048) and
-pixtral-12b (40 layers, d_model 5120, 32 query and 8 KV heads of 128, vocab
-131,072, 256 patch embeddings) at full size; LM training (train/, checkpoint/,
+pixtral-12b (20 of 40 layers, d_model 5120, 32 query and 8 KV heads of 128, vocab
+131,072, 256 patch embeddings) at full width; LM training (train/, checkpoint/,
 runtime/, launch/train.py) with the same model at full width, 4 x 2048
 tokens a step; the coreset server (service/,
 client/) with slice 1's signal, its trees and batches over HTTP, a 20-tree
@@ -112,10 +112,12 @@ Phases, one JSON line each:
               of 32 tokens after 4 x 64; host seconds, tokens/s, ms a step,
               and the device's busy time (torch.profiler) in a prefill and
               a decode step
-  lm_serve_ssm  falcon-mamba-7b, then zamba2-1.2b, at full size (bf16,
+  lm_serve_ssm  falcon-mamba-7b (16 of 64 layers), then zamba2-1.2b (18 of
+              38), at full width (bf16,
               seeded random weights), every kernel's count at 0 before
               each part: a 4 x 2048 prefill (finite logits; falcon launches
-              no kernel, zamba2's shared block the bf16 kernel 6 times;
+              no kernel, zamba2's shared block the bf16 kernel once every
+              6 layers;
               each of its outputs within 2e-2 of attn_impl="torch" on the
               same input, its logits no farther from the float32 model's
               than the plain path's, times 1.1); the float32
@@ -151,13 +153,14 @@ Phases, one JSON line each:
               of a prefill, the 2 x active parameters x tokens bound, one MoE
               layer alone and its parts (CUDA events), ms a decode step and
               its busy time, peak memory; moe_launches in the kernel table
-  lm_serve_frontends  musicgen-medium, then pixtral-12b, at full size (bf16,
+  lm_serve_frontends  musicgen-medium (24 of 48 layers), then pixtral-12b
+              (20 of 40), at full width (bf16,
               seeded random weights), each freed before the next, every
               kernel's count at 0 before each part: (a) a 4 x 2048 prefill
               (musicgen's (4, 2048, 4) codebook tokens, logits (4, 2048, 4,
               2048); pixtral's 256 seeded patch embeddings before 1,792
               text tokens, logits (4, 2048, 131072)), the bf16 kernel once a
-              layer (48, 40), finite logits, a second prefill bitwise equal;
+              layer, finite logits, a second prefill bitwise equal;
               (b) each layer's attention, the kernel against
               attn_impl="torch" on the same input within 2e-2; (c) float32
               (musicgen whole, pixtral's first layer with its embedding,
@@ -211,6 +214,27 @@ Phases, one JSON line each:
               checkpoint through restore(shardings=) (each part bitwise its
               slice of the whole), step 3 within the same bars of (b)'s
               (train_dp_launches in the kernel table)
+  lm_train_tp  the partitioned step (train/partitioned.py) over gloo ranks
+              sharing the card, processes of this script, their world on
+              launch/transport.py (each collective staged through host
+              copies and counted by kind) and their mesh a "cuda" one: (a)
+              qwen2-0.5b as configured through train_loop over a (1, 2) mesh
+              (heads, FFN and vocab cut over "model"), lm_train's 4 x 2048
+              batch, 3 steps: the ranks' losses bitwise equal; step ms,
+              tokens/s, each kind's calls, bytes and host-copy / collective
+              / copy-back ms, each rank's peak memory and parameters; (b)
+              the reduced float32 qwen2 over (1, 2) and (2, 2) against one
+              rank on the card (losses within 1e-5 relative, weights within
+              1e-4), saved at step 2 over (1, 2) and resumed from it on one
+              rank; (c) the reduced float32 qwen3-moe over (2, 1) and (2, 2)
+              (dispatch groups from the mesh, experts cut over "model" at
+              (2, 2)) against (2, 1) on two CPU gloo ranks (losses within
+              1e-5, weights within 1e-4, once no router pick is within 1e-5
+              of a tie), the share of picks dropped at capacity; (d) the dry
+              run's prediction of (a)'s step on a (1, 2) fake mesh against a
+              fourth step counted on the ranks: argument bytes, FLOPs and
+              the collectives' calls and bytes by kind equal, the peak
+              within 10 % (train_tp_launches in the kernel table)
   lm_dryrun   the dry run (launch/dryrun.py: the partitioned step over
               DTensors on a fake process group and fake tensors, CPU
               only, child processes of this script) held to the card: (a)
@@ -224,7 +248,8 @@ Phases, one JSON line each:
               on the 16 x 16 mesh of a fake world of 256 ranks for
               qwen2-0.5b, falcon-mamba-7b, zamba2-1.2b, qwen3-moe-235b-a22b,
               deepseek-v2-236b and pixtral-12b, cut to the period's
-              layers (1, zamba2's 6), in parallel: each OK line with its per-rank peak GiB
+              layers (1, zamba2's 6), in parallel, started once lm_train_tp's
+              timed steps are over: each OK line with its per-rank peak GiB
               and the phase's seconds; no kernel launched
   coreset_serve  the coreset server on the card: CoresetEngine behind the
               HTTP API on an ephemeral port, no backend pinned, driven only
@@ -395,7 +420,7 @@ LM_DECODE_TOL = 2e-3
 # than the bf16 plain path does, times this margin (both read ~1.5e-2)
 LM_F32_MARGIN = 1.1
 # the state-space families (models/ssm.py): falcon-mamba-7b (Mamba1) and
-# zamba2-1.2b (Mamba2 with a shared GQA block every 6 layers) at full size
+# zamba2-1.2b (Mamba2 with a shared GQA block every 6 layers) at full width
 # with lm_serve's traffic and bars; the shared block's launches of the bf16
 # kernel in one prefill (n_layers // attn_every); the reduced float32 models
 # on the card against the CPU within SSM_CPU_TOL (abs + rel, lm_train (a)'s
@@ -407,6 +432,9 @@ LM_F32_MARGIN = 1.1
 # application of the shared block (the kernel against attn_impl="torch" on
 # the same input), and the logits as lm_serve's LM_F32_MARGIN does
 SSM_ARCHS = ("falcon-mamba-7b", "zamba2-1.2b")
+# both cut in depth so that the whole script, lm_train_tp included, keeps
+# its time limit (at full depth: PR 29's figures, PERF.md §5)
+SSM_LAYERS = {"falcon-mamba-7b": 16, "zamba2-1.2b": 18}
 SSM_CPU_TOL = 1e-4
 SSM_CPU_PROMPT, SSM_CPU_GEN = (2, 24), 16
 # the MoE families (models/moe.py, MLA): each arch at full width with its
@@ -423,8 +451,10 @@ MOE_ATTN = {"qwen3-moe-235b-a22b": None, "deepseek-v2-236b": "torch"}
 # musicgen-medium's (B, L, 4) codebook tokens and (B, L, 4, 2048) logits,
 # pixtral-12b's n_patches = 256 patch embeddings (seeded standard normals
 # in bf16, as the reference's tests draw them) before 1,792 text tokens;
-# both at full size, not cut, with lm_serve's traffic and bars.  The
-# float32 cross-check runs musicgen whole (7.35 GB) and pixtral's first
+# both at full width, cut in depth to FRONTEND_LAYERS so that the whole
+# script keeps its time limit (at full depth: PR 31's figures, PERF.md §5),
+# with lm_serve's traffic and bars.  The float32 cross-check runs musicgen
+# whole and pixtral's first
 # FRONTEND_F32_LAYERS layer, embedding, head and final norm (its whole
 # float32 model, 49 GB, does not fit beside the bf16 one); pixtral's
 # decode and generate take text only, as the reference's do, and musicgen
@@ -432,6 +462,7 @@ MOE_ATTN = {"qwen3-moe-235b-a22b": None, "deepseek-v2-236b": "torch"}
 # codebooks: the reference's own test)
 FRONTEND_ARCHS = ("musicgen-medium", "pixtral-12b")
 FRONTEND_F32_LAYERS = {"pixtral-12b": 1}
+FRONTEND_LAYERS = {"musicgen-medium": 24, "pixtral-12b": 20}
 # LM training (train/, checkpoint/, runtime/, launch/train.py): (a) the
 # reduced qwen2 in float32, LM_TRAIN_XCHECK (batch, tokens, steps) on the
 # card and on the CPU from the same weights, with LM_TRAIN_OPT (warmup and
@@ -476,6 +507,19 @@ LM_DRYRUN_TIMEOUT_S = 300
 LM_DP_SMALL = dict(n_layers=4)
 LM_DP_LOOP = dict(steps=3, batch=4, seq_len=64)
 LM_DP_SAVE_AT, LM_DP_LOSS_RTOL, LM_DP_OPT_SHARE_TOL = 2, 1e-5, 0.01
+# the partitioned step over ranks (train/partitioned.py, launch/transport.py):
+# (a) lm_train's full-width batch over LM_TP_MESH for LM_TP_STEPS steps, then
+# one more counted for (d); (b) LM_DP_SMALL / LM_DP_LOOP over LM_TP_MESH and
+# LM_TP_MESH4 against one rank, saved at LM_DP_SAVE_AT over LM_TP_MESH; (c)
+# LM_TP_MOE reduced, float32, for LM_DP_LOOP over LM_TP_MOE_MESHES against
+# (2, 1) on CPU ranks, within LM_TP_MOE_RTOL (losses) and LM_TRAIN_TOL
+# (weights) once the smallest gap of a token's k-th over its (k+1)-th router
+# probability exceeds LM_TP_ROUTER_MARGIN; the ranks stopped after
+# LM_TP_TIMEOUT_S
+LM_TP_MESH, LM_TP_MESH4, LM_TP_STEPS, LM_TP_TIMEOUT_S = (1, 2), (2, 2), 3, 600
+LM_TP_MOE = "qwen3-moe-235b-a22b"
+LM_TP_MOE_MESHES = ((2, 1), (2, 2))
+LM_TP_MOE_RTOL, LM_TP_ROUTER_MARGIN = 1e-5, 1e-5
 # the coreset server (service/, client/): slice 1's signal registered as a
 # synthetic spec (generated server-side, nothing uploaded), built, then a
 # weaker (k, eps) that the cache must serve dominated; SERVE_CLIENTS threads
@@ -1834,7 +1878,8 @@ def _shared_block_errs(cfg, params, batch: dict) -> list:
 
 
 def _serve_ssm(arch: str, kernels) -> dict:
-    """One SSM-family model at full size on the card, lm_serve's parts."""
+    """One SSM-family model at full width on the card (its depth cut to
+    SSM_LAYERS where listed), lm_serve's parts."""
     import dataclasses
     import numpy as np
     import torch
@@ -1846,6 +1891,7 @@ def _serve_ssm(arch: str, kernels) -> dict:
     t_model = time.perf_counter()
     torch.cuda.reset_peak_memory_stats()
     cfg = get_arch(arch)
+    cfg = dataclasses.replace(cfg, n_layers=SSM_LAYERS.get(arch, cfg.n_layers))
     params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
     torch.cuda.synchronize()
     n_params = sum(t.numel() for t in leaves(params))
@@ -1939,7 +1985,8 @@ def _serve_ssm(arch: str, kernels) -> dict:
     del cache, params
     torch.cuda.empty_cache()
     flops = 2 * n_params * B * L
-    return {"arch": arch, "params": n_params, "config_param_count": cfg.param_count(),
+    return {"arch": arch, "n_layers": cfg.n_layers, "params": n_params,
+            "config_param_count": cfg.param_count(),
             "weights_bytes": 2 * n_params,
             "prefill": {"batch": B, "tokens": L, "host_s": prefill_s, "cold_host_s": cold_s,
                         "host_s_runs": warm, "tokens_per_s": B * L / prefill_s,
@@ -1968,8 +2015,8 @@ def _serve_ssm(arch: str, kernels) -> dict:
 
 
 def phase_lm_serve_ssm(kernels) -> dict:
-    """The SSM families at full size on the card (falcon-mamba-7b, then
-    zamba2-1.2b), every kernel's count at 0 before each part.  Returns the
+    """The SSM families at full width on the card (falcon-mamba-7b at
+    SSM_LAYERS' depth, then zamba2-1.2b), every kernel's count at 0 before each part.  Returns the
     kernels' launches in zamba2's bf16 prefill."""
     import torch
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2226,8 +2273,8 @@ def phase_lm_serve_moe(kernels) -> dict:
 
 
 def _serve_frontend(arch: str, kernels) -> dict:
-    """One frontend arch at full size on the card, parts (a)-(e) of the
-    lm_serve_frontends phase."""
+    """One frontend arch at full width on the card (its depth cut to
+    FRONTEND_LAYERS), parts (a)-(e) of the lm_serve_frontends phase."""
     import dataclasses
     import numpy as np
     import torch
@@ -2238,7 +2285,7 @@ def _serve_frontend(arch: str, kernels) -> dict:
     from repro_torch.tree import leaves
     t_model = time.perf_counter()
     torch.cuda.reset_peak_memory_stats()
-    cfg = get_arch(arch)
+    cfg = dataclasses.replace(get_arch(arch), n_layers=FRONTEND_LAYERS[arch])
     params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t_model
@@ -2374,9 +2421,9 @@ def _serve_frontend(arch: str, kernels) -> dict:
 
 
 def phase_lm_serve_frontends(kernels) -> dict:
-    """The modality frontends at full size on the card (musicgen-medium,
-    then pixtral-12b), every kernel's count at 0 before each part.  Returns
-    the kernels' launches in the bf16 prefills."""
+    """The modality frontends at full width on the card, cut in depth
+    (musicgen-medium, then pixtral-12b), every kernel's count at 0 before
+    each part.  Returns the kernels' launches in the bf16 prefills."""
     import torch
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -3451,25 +3498,34 @@ def mesh_rank(spec: dict) -> dict:
     ``spec`` (backend, world, rank, store), then ``spec["part"]``."""
     import torch
     import torch.distributed as dist
-    torch.cuda.set_device(0)
-    dist.init_process_group(spec["backend"], init_method="file://" + spec["store"],
-                            world_size=spec["world"], rank=spec["rank"])
+    from repro_torch.launch import transport
+    if spec.get("device", "cuda") == "cuda":
+        torch.cuda.set_device(0)
+    if spec["backend"] == transport.BACKEND:
+        transport.start_world("file://" + spec["store"], spec["world"], spec["rank"])
+    else:
+        dist.init_process_group(spec["backend"], init_method="file://" + spec["store"],
+                                world_size=spec["world"], rank=spec["rank"])
     from repro_torch.launch.mesh import destroy_world
     try:
         return {"duplicate": _rank_duplicate, "one": _rank_one,
                 "gloo": _rank_gloo, "train_dp": _rank_train_dp,
-                "elastic": _rank_elastic}[spec["part"]](spec)
+                "elastic": _rank_elastic, "train_tp": _rank_train_tp,
+                "train_tp4": _rank_train_tp,
+                "train_tp_cpu": _rank_train_tp}[spec["part"]](spec)
     finally:
         destroy_world()
 
 
-def start_ranks(part: str, backend: str, world: int, tmp: pathlib.Path, **extra):
+def start_ranks(part: str, backend: str, world: int, tmp: pathlib.Path,
+                env_extra=None, **extra):
     """``world`` processes of this script, each a rank of ``part`` in a
     session of its own, their group's store and their output files under
-    ``tmp``."""
+    ``tmp``, ``env_extra`` added to their environment."""
     env = {k: v for k, v in os.environ.items()
            if k not in ("PYTHONPATH", "REPRO_TORCH_OPS_BACKEND")}
     env["PYTHONPATH"] = str(ROOT / "src")
+    env.update(env_extra or {})
     procs = []
     for r in range(world):
         spec = {"part": part, "backend": backend, "world": world, "rank": r,
@@ -3653,6 +3709,191 @@ def _rank_elastic(spec) -> dict:
             "launches": {n: k.launches for n, k in counters.items()}}
 
 
+def _tp_moe_cfg():
+    import dataclasses
+    from repro_torch.configs import get_arch, reduced_config
+    return dataclasses.replace(reduced_config(get_arch(LM_TP_MOE)), dtype="float32")
+
+
+@contextlib.contextmanager
+def _moe_probes():
+    """While open, every MoE layer's routing and dispatch are watched: the
+    smallest gap of a token's k-th over its (k+1)-th router probability
+    (``margin``) and the picks dropped at capacity (``dropped`` of
+    ``picks``)."""
+    import torch
+    from torch.distributed.tensor import DTensor
+    from repro_torch.models import moe
+    route, dispatch = moe.route, moe.dispatch
+    seen = {"margin": math.inf, "dropped": 0, "picks": 0}
+
+    def routed(p, cfg, xt):
+        probs, gates, experts = route(p, cfg, xt)
+        loc = probs.to_local() if isinstance(probs, DTensor) else probs
+        top = torch.topk(loc.detach(), cfg.moe_top_k + 1, dim=-1).values
+        seen["margin"] = min(seen["margin"], float((top[:, -2] - top[:, -1]).min()))
+        return probs, gates, experts
+
+    def dispatched(*a, **k):
+        h, meta = dispatch(*a, **k)
+        keep = meta[3]
+        seen["dropped"] += int((~keep).sum())
+        seen["picks"] += keep.numel()
+        return h, meta
+    moe.route, moe.dispatch = routed, dispatched
+    try:
+        yield seen
+    finally:
+        moe.route, moe.dispatch = route, dispatch
+
+
+def _whole_params(cfg, mesh, params):
+    """A train_loop result's params, whole (the partitioned step's are
+    DTensors: gathered, a collective)."""
+    from repro_torch.sharding.dtensor import StateLayout
+    from repro_torch.train.partitioned import partitioned
+    return StateLayout(cfg, mesh).whole_params(params) if partitioned(cfg, mesh) else params
+
+
+def _local_bytes(tree) -> int:
+    from torch.distributed.tensor import DTensor
+    from repro_torch.tree import leaves
+    return sum(t.to_local().numel() * t.to_local().element_size() if isinstance(t, DTensor)
+               else t.numel() * t.element_size() for t in leaves(tree))
+
+
+def _tp_full_width(spec) -> dict:
+    """lm_train_tp (a) and (d) on this rank: qwen2-0.5b over LM_TP_MESH for
+    LM_TP_STEPS steps, then a step counted as the dry run counts one."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.data import TokenStream
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.launch.train import train_loop
+    from repro_torch.train import AdamWConfig
+    from repro_torch.train.partitioned import Partitioned
+    from repro_torch.tree import leaves
+    mesh = make_local_mesh(*LM_TP_MESH, device_type="cuda")
+    cfg = get_arch(LM_ARCH)
+    B, L, _ = LM_TRAIN_FULL
+    torch.cuda.reset_peak_memory_stats()
+    full = train_loop(cfg, steps=LM_TP_STEPS, batch=B, seq_len=L, mesh=mesh,
+                      device="cuda", log_every=1)
+    train_peak = torch.cuda.max_memory_allocated()
+    part = Partitioned(cfg, mesh, "cuda")
+    step = part.make_step(AdamWConfig(total_steps=LM_TP_STEPS))
+    batch = part.batch(TokenStream(cfg.vocab, B, L, seed=0).batch_at(LM_TP_STEPS))
+    args = (full["params"], full["opt"], batch)
+    arg_bytes = _local_bytes(args)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated() - arg_bytes
+    torch.cuda.reset_peak_memory_stats()
+    with dryrun.counting() as counter:
+        out = step(*args)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    counted = {"argument_bytes": arg_bytes, "flops": float(counter.flops),
+               "peak_bytes": peak, "loss": float(out[2]["loss"]),
+               "by_kind": part.last_sync["by_kind"],
+               "counter_collectives": dict(counter.collectives),
+               "counter_calls": dict(counter.calls)}
+    res = {"losses": full["losses"], "grad_norms": full["grad_norms"],
+           "step_s": full["step_s"], "sync": full["sync"],
+           "peak_memory_bytes": train_peak,
+           "params_local": sum(t.to_local().numel() for t in leaves(full["params"])),
+           "params": sum(t.numel() for t in leaves(full["params"])),
+           "transport": part.transport, "counted_step": counted}
+    del full, out, args, batch
+    torch.cuda.empty_cache()
+    return res
+
+
+@contextlib.contextmanager
+def _init_from(path):
+    """train_loop's init replaced by the params in ``path`` (an npz of
+    ``_save_params``) while the context is open: the CPU ranks of
+    lm_train_tp (c) start from the card's init for seed 0."""
+    import numpy as np
+    import torch
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models.model import param_shapes
+    from repro_torch.tree import flatten, unflatten
+    init = launch_train.init_params
+
+    def load(cfg, gen):
+        npz = np.load(path)
+        shapes = param_shapes(cfg)
+        keys, metas = flatten(shapes)
+        return unflatten(shapes, [torch.as_tensor(npz[k]).to(gen.device, m.dtype)
+                                  for k, m in zip(keys, metas)])
+    launch_train.init_params = load
+    try:
+        yield
+    finally:
+        launch_train.init_params = init
+
+
+def _tag(shape) -> str:
+    return "x".join(map(str, shape))
+
+
+def _rank_train_tp(spec) -> dict:
+    """A rank of lm_train_tp: on the card, (a) and (d) where ``spec["full"]``
+    (``_tp_full_width``); (b) the reduced float32 qwen2 over ``spec["small"]``
+    straight for LM_DP_LOOP, and again to LM_DP_SAVE_AT with a checkpoint
+    where ``spec["ckpt"]``; (c) the reduced float32 qwen3-moe over
+    ``spec["moe"]``, on ``spec["device"]`` (the CPU ranks' run (c) only).
+    Params of rank 0 written whole to ``spec["out"]``."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.launch.train import train_loop
+    counters = _kernel_counters()
+    for kern in counters.values():
+        kern.launches = 0
+    dev = spec.get("device", "cuda")
+    out = {}
+    if spec.get("full"):
+        t0 = time.perf_counter()
+        out["full"] = _tp_full_width(spec)
+        out["full"]["seconds"] = time.perf_counter() - t0
+        if dist.get_rank() == 0:
+            # the other groups may start: (a)'s timed steps are over
+            pathlib.Path(spec["full_done"]).touch()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    if spec.get("small"):
+        mesh = make_local_mesh(*spec["small"], device_type=dev)
+        cfg = _dp_small_cfg()
+        with _train_loop_optimizer(**LM_TRAIN_OPT):
+            straight = train_loop(cfg, mesh=mesh, device=dev, log_every=100, **LM_DP_LOOP)
+            whole = _whole_params(cfg, mesh, straight["params"])
+            if dist.get_rank() == 0:
+                _save_params(f"{spec['out']}/small_{_tag(spec['small'])}.npz", whole)
+            saved = None
+            if spec.get("ckpt"):
+                saved = train_loop(cfg, mesh=mesh, device=dev, log_every=100,
+                                   ckpt_dir=spec["ckpt"], save_every=LM_DP_SAVE_AT,
+                                   **dict(LM_DP_LOOP, steps=LM_DP_SAVE_AT))["losses"]
+        out["small"] = {"losses": straight["losses"], "digest": _params_sha256(whole),
+                        "saved_losses": saved, "sync": straight["sync"][-1]}
+    if spec.get("moe"):
+        mesh = make_local_mesh(*spec["moe"], device_type=dev)
+        cfg = _tp_moe_cfg()
+        with _train_loop_optimizer(**LM_TRAIN_OPT), _moe_probes() as seen, \
+                _init_from(spec["moe_init"]):
+            run = train_loop(cfg, mesh=mesh, device=dev, log_every=100, **LM_DP_LOOP)
+        whole = _whole_params(cfg, mesh, run["params"])
+        if dist.get_rank() == 0:
+            tag = "cpu" if dev == "cpu" else _tag(spec["moe"])
+            _save_params(f"{spec['out']}/moe_{tag}.npz", whole)
+        out["moe"] = {"losses": run["losses"], "digest": _params_sha256(whole),
+                      "margin": seen["margin"], "dropped": seen["dropped"],
+                      "picks": seen["picks"], "sync": run["sync"][-1]}
+    out["launches"] = {n: k.launches for n, k in counters.items()}
+    return out
+
+
 _DRYRUN_CELL = r'''
 import json, sys
 from repro_torch.launch import dryrun
@@ -3660,8 +3901,9 @@ from repro_torch.launch.mesh import compat_make_mesh, fake_world
 kind, arch = sys.argv[1], sys.argv[2]
 if kind == "predict":
     B, L = int(sys.argv[3]), int(sys.argv[4])
-    with fake_world(1):
-        mesh = compat_make_mesh((1, 1), ("data", "model"), device_type="cpu")
+    shape = tuple(int(x) for x in sys.argv[5:7]) if len(sys.argv) > 5 else (1, 1)
+    with fake_world(shape[0] * shape[1]):
+        mesh = compat_make_mesh(shape, ("data", "model"), device_type="cpu")
         _, low = dryrun.lower_cell(mesh, arch, "train_4k", microbatches=1,
                                    batch_override=(B, L))
     print(json.dumps(dryrun.analyze(low)))
@@ -3700,7 +3942,12 @@ def _dryrun_result(proc, what: str) -> dict:
     return json.loads(out.strip().splitlines()[-1])
 
 
-def phase_lm_dryrun(kernels, smi):
+def _dryrun_cells() -> dict:
+    """lm_dryrun (b)'s cells, one child process an arch, started."""
+    return {a: _dryrun_child("cell", a) for a in LM_DRYRUN_CELLS}
+
+
+def phase_lm_dryrun(kernels, smi, cells=None):
     """The dry run on the card's host: (a) its prediction of lm_train's step
     (qwen2-0.5b at full width, the 4 x 2048 batch in one microbatch,
     attn_impl="torch", remat as configured) on a (1, 1) fake mesh, held to
@@ -3709,13 +3956,13 @@ def phase_lm_dryrun(kernels, smi):
     exactly, the peak within LM_DRYRUN_PEAK_TOL of max_memory_allocated
     (less what was allocated before the state); (b) one train_4k cell a
     family on the 16 x 16 mesh of a fake world of 256 ranks, at its
-    period's layers, each a process, its OK line with its per-rank peak.
-    No kernel may launch; every child is stopped on the way out."""
+    period's layers, each a process (``cells``: already started, else
+    started here), its OK line with its per-rank peak.  No kernel may
+    launch; every child is stopped on the way out."""
     t_phase = time.perf_counter()
     for kern in kernels.values():
         kern.launches = 0
-    B, L, _ = LM_TRAIN_FULL
-    cells = {a: _dryrun_child("cell", a) for a in LM_DRYRUN_CELLS}
+    cells = cells or _dryrun_cells()
     try:
         _lm_dryrun(kernels, smi, cells, t_phase)
     finally:
@@ -3921,6 +4168,252 @@ def phase_lm_train_dp(kernels, smi, one_rank_losses):
           f"training over ranks launched {[n for n, c in launches.items() if c]}")
     emit("lm_train_dp", a_full_width=part_a, b_two_vs_one_rank=part_b,
          c_elastic=part_c, device=smi, seconds=time.perf_counter() - t_phase)
+    return launches
+
+
+def _stage_ms(syncs) -> dict:
+    """Kind -> the median over ``syncs`` (steps' ``by_kind``) of its calls,
+    bytes and host-copy / collective / copy-back ms."""
+    import numpy as np
+    kinds = sorted({k for s in syncs for k in s})
+    return {k: {"calls": int(np.median([s.get(k, {}).get("calls", 0) for s in syncs])),
+                "bytes": int(np.median([s.get(k, {}).get("bytes", 0) for s in syncs])),
+                **{st[:-2] + "_ms": float(np.median([s.get(k, {}).get(st, 0.0)
+                                                     for s in syncs])) * 1e3
+                   for st in ("to_host_s", "collective_s", "back_s")}}
+            for k in kinds}
+
+
+def _close_params(path_a, path_b) -> float:
+    """max |a - b| over every leaf of two params npz files."""
+    import numpy as np
+    a, b = np.load(path_a), np.load(path_b)
+    return max(float(np.abs(a[k] - b[k]).max()) for k in b.files)
+
+
+def phase_lm_train_tp(kernels, smi, on_full_done=None):
+    """The partitioned step over gloo ranks sharing the card (processes of
+    this script on launch.transport's backend; this process starts no
+    group): (a) full-width qwen2-0.5b over (1, 2); (b) the reduced float32
+    qwen2 over (1, 2) and (2, 2) against one rank, and the (1, 2) checkpoint
+    on one rank; (c) the reduced float32 qwen3-moe over (2, 1) and (2, 2)
+    against (2, 1) on CPU ranks; (d) the dry run's prediction of (a)'s step
+    against one counted on the ranks.  ``on_full_done()`` is called once
+    (a)'s timed steps and (d)'s counted one are over.  Returns every
+    kernel's launches over the ranks' paths (none)."""
+    t_phase = time.perf_counter()
+    check(set(_kernel_counters()) == set(kernels),
+          f"the ranks count other kernels than the table's: {sorted(kernels)}")
+    B, L, _ = LM_TRAIN_FULL
+    predict = _dryrun_child("predict", LM_ARCH, str(B), str(L), *map(str, LM_TP_MESH))
+    groups = []
+    try:
+        return _lm_train_tp(kernels, smi, predict, groups, t_phase, on_full_done)
+    finally:
+        for proc in [predict] + [p for procs in groups for p, _, _ in procs]:
+            if proc.poll() is None:
+                with contextlib.suppress(ProcessLookupError):
+                    os.killpg(proc.pid, signal.SIGKILL)
+                proc.wait()
+
+
+def _wait_for(path: pathlib.Path, procs, what: str, timeout_s: float) -> None:
+    """Until ``path`` exists; a rank of ``procs`` that fails first fails
+    the run (``finish_ranks`` stops them all and reports it)."""
+    deadline = time.perf_counter() + timeout_s
+    while not path.exists():
+        if any(p.poll() not in (None, 0) for p, _, _ in procs):
+            finish_ranks(procs, what, timeout_s)
+        check(time.perf_counter() < deadline, f"the {what} ranks ran over {timeout_s} s")
+        time.sleep(0.1)
+
+
+def _lm_train_tp(kernels, smi, predict, groups, t_phase, on_full_done):
+    """``phase_lm_train_tp``'s body, the prediction's process started; the
+    groups of rank processes it starts are appended to ``groups``."""
+    import numpy as np
+    from repro_torch.launch import transport
+    from repro_torch.launch.train import train_loop
+    B, L, _ = LM_TRAIN_FULL
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_tp_") as tmp:
+        tmp = pathlib.Path(tmp)
+        be = transport.BACKEND
+        # (c)'s every run from the card's init for seed 0 (train_loop's own)
+        moe_init = str(tmp / "moe_init.npz")
+        _save_params(moe_init, _dp_init_params(_tp_moe_cfg()))
+        t0 = time.perf_counter()
+        two = start_ranks("train_tp", be, 2, tmp, out=str(tmp), full=True,
+                          full_done=str(tmp / "full_done"),
+                          small=list(LM_TP_MESH), ckpt=str(tmp / "ckpt"),
+                          moe=list(LM_TP_MOE_MESHES[0]), moe_init=moe_init)
+        groups.append(two)
+        # the other ranks start once (a)'s timed steps are over, beside the
+        # two ranks' (b) and (c)
+        _wait_for(tmp / "full_done", two, "lm_train_tp", LM_TP_TIMEOUT_S)
+        t_full = time.perf_counter() - t0
+        if on_full_done is not None:
+            on_full_done()
+        cpu = start_ranks("train_tp_cpu", be, 2, tmp, env_extra={"CUDA_VISIBLE_DEVICES": ""},
+                          device="cpu", out=str(tmp), moe=[2, 1], moe_init=moe_init)
+        groups.append(cpu)
+        four = start_ranks("train_tp4", be, 4, tmp, out=str(tmp), moe_init=moe_init,
+                           small=list(LM_TP_MESH4), moe=list(LM_TP_MOE_MESHES[1]))
+        groups.append(four)
+        ranks2 = finish_ranks(two, "lm_train_tp", LM_TP_TIMEOUT_S)
+        ranks4 = finish_ranks(four, "lm_train_tp 4 ranks", LM_TP_TIMEOUT_S)
+        ranks_cpu = finish_ranks(cpu, "lm_train_tp CPU", LM_TP_TIMEOUT_S)
+        t_ranks = time.perf_counter() - t0
+
+        # (a) full width
+        fulls = [r["full"] for r in ranks2]
+        a0 = fulls[0]
+        for r in fulls[1:]:
+            check(r["losses"] == a0["losses"] and r["grad_norms"] == a0["grad_norms"],
+                  f"the ranks' losses or grad norms differ: {[f['losses'] for f in fulls]}")
+        check(len(a0["losses"]) == LM_TP_STEPS
+              and all(map(math.isfinite, a0["losses"] + a0["grad_norms"])),
+              f"full-width losses {a0['losses']}, grad norms {a0['grad_norms']}")
+        for r in fulls:
+            share = r["params_local"] / r["params"]
+            check(0.4 < share < 0.6, f"a rank holds {r['params_local']} of "
+                                     f"{r['params']} parameters")
+        step_ms = float(np.median(a0["step_s"][1:])) * 1e3
+        syncs = [s["by_kind"] for r in fulls for s in r["sync"][1:]]
+        part_a = {
+            "arch": LM_ARCH, "mesh": list(LM_TP_MESH), "layout": "tp",
+            "transport": a0["transport"], "batch": B, "tokens": L,
+            "steps": LM_TP_STEPS, "losses": a0["losses"], "grad_norms": a0["grad_norms"],
+            "step_s": [r["step_s"] for r in fulls],
+            "median_step_ms_2_to_last": step_ms, "tokens_per_s": B * L / (step_ms / 1e3),
+            "collectives_by_kind": _stage_ms(syncs),
+            "collective_ms": sum(v[k] for v in _stage_ms(syncs).values()
+                                 for k in ("to_host_ms", "collective_ms", "back_ms")),
+            "collective_bytes": sum(v["bytes"] for v in _stage_ms(syncs).values()),
+            "peak_memory_bytes": [r["peak_memory_bytes"] for r in fulls],
+            "params_per_rank": [r["params_local"] for r in fulls],
+            "params": a0["params"], "losses_bitwise_across_ranks": True,
+            "ranks_seconds": a0["seconds"], "until_done_seconds": t_full}
+        print(f"lm_train_tp (a): {step_ms:.1f} ms a step, "
+              f"{part_a['tokens_per_s']:.0f} tokens/s, collectives "
+              f"{part_a['collective_ms']:.1f} ms / {part_a['collective_bytes']} B, "
+              f"peak {part_a['peak_memory_bytes']} B a rank", flush=True)
+
+        # (b) the reduced float32 model against one rank on the card
+        cfg = _dp_small_cfg()
+        with _train_loop_optimizer(**LM_TRAIN_OPT):
+            one = train_loop(cfg, device="cuda", log_every=100, **LM_DP_LOOP)
+        _save_params(tmp / "small_one.npz", one["params"])
+        init = tmp / "small_init.npz"
+        _save_params(init, _dp_init_params(cfg))
+        part_b = {"config": LM_DP_SMALL, "dtype": "float32", **LM_DP_LOOP,
+                  "optimizer": LM_TRAIN_OPT, "one_rank_losses": one["losses"]}
+        for tag, ranks in (("1x2", ranks2), ("2x2", ranks4)):
+            smalls = [r["small"] for r in ranks]
+            b0 = smalls[0]
+            check(all(r["losses"] == b0["losses"] and r["digest"] == b0["digest"]
+                      for r in smalls), f"the {tag} ranks' reduced-model runs differ")
+            loss_rel = max(abs(a - b) / abs(b) for a, b in zip(b0["losses"], one["losses"]))
+            w_abs = _close_params(tmp / f"small_{tag}.npz", tmp / "small_one.npz")
+            moved = _close_params(tmp / f"small_{tag}.npz", init)
+            check(loss_rel <= LM_DP_LOSS_RTOL and w_abs <= LM_TRAIN_TOL
+                  and moved > 10 * LM_TRAIN_TOL,
+                  f"{tag} against one rank: losses {b0['losses']} vs {one['losses']}, "
+                  f"weights {w_abs} (moved {moved})")
+            part_b[tag] = {"losses": b0["losses"], "max_loss_rel_err": loss_rel,
+                           "params_max_abs_err": w_abs, "params_moved": moved,
+                           "collectives": b0["sync"]["by_kind"]}
+        b12 = ranks2[0]["small"]
+        check(b12["saved_losses"] == b12["losses"][:LM_DP_SAVE_AT],
+              "the checkpointed run's losses are not the straight run's")
+        with _train_loop_optimizer(**LM_TRAIN_OPT):
+            resumed = train_loop(cfg, device="cuda", log_every=100,
+                                 ckpt_dir=str(tmp / "ckpt"),
+                                 save_every=LM_DP_LOOP["steps"], **LM_DP_LOOP)
+        _save_params(tmp / "small_resumed.npz", resumed["params"])
+        r_loss = abs(resumed["losses"][0] - b12["losses"][-1]) / abs(b12["losses"][-1])
+        r_abs = _close_params(tmp / "small_resumed.npz", tmp / "small_1x2.npz")
+        check(len(resumed["losses"]) == LM_DP_LOOP["steps"] - LM_DP_SAVE_AT
+              and r_loss <= LM_DP_LOSS_RTOL and r_abs <= LM_TRAIN_TOL,
+              f"the (1, 2) checkpoint on one rank: {resumed['losses']} "
+              f"(loss rel {r_loss}, weights {r_abs})")
+        part_b["resume_1x2_on_one_rank"] = {
+            "restored_step": LM_DP_SAVE_AT, "loss_rel_err": r_loss,
+            "params_max_abs_err": r_abs}
+
+        # (c) MoE over data ranks against two CPU ranks
+        c_ref = ranks_cpu[0]["moe"]
+        check(all(r["moe"]["losses"] == c_ref["losses"] for r in ranks_cpu),
+              "the CPU ranks' MoE runs differ")
+        part_c = {"arch": LM_TP_MOE, "dtype": "float32", **LM_DP_LOOP,
+                  "cpu_2x1_losses": c_ref["losses"]}
+        for tag, ranks in (("2x1", ranks2), ("2x2", ranks4)):
+            moes = [r["moe"] for r in ranks]
+            m0 = moes[0]
+            check(all(m["losses"] == m0["losses"] and m["digest"] == m0["digest"]
+                      for m in moes), f"the {tag} ranks' MoE runs differ")
+            margin = min(m["margin"] for m in moes + [c_ref])
+            check(margin > LM_TP_ROUTER_MARGIN,
+                  f"a near-tie in the routing ({[m['margin'] for m in moes + [c_ref]]}): "
+                  "a pick may flip")
+            loss_rel = max(abs(a - b) / abs(b) for a, b in zip(m0["losses"], c_ref["losses"]))
+            w_abs = _close_params(tmp / f"moe_{tag}.npz", tmp / "moe_cpu.npz")
+            check(loss_rel <= LM_TP_MOE_RTOL and w_abs <= LM_TRAIN_TOL,
+                  f"MoE {tag} on the card against (2, 1) on the CPU: losses "
+                  f"{m0['losses']} vs {c_ref['losses']}, weights {w_abs}")
+            dropped = sum(m["dropped"] for m in moes) / sum(m["picks"] for m in moes)
+            print(f"lm_train_tp (c) {tag}: dropped at capacity {dropped:.4f}", flush=True)
+            part_c[tag] = {"losses": m0["losses"], "max_loss_rel_err": loss_rel,
+                           "params_max_abs_err": w_abs, "router_margin": margin,
+                           "dropped_share": dropped,
+                           "collectives": m0["sync"]["by_kind"]}
+
+    # (d) the dry run's prediction of (a)'s step
+    pred = _dryrun_result(predict, "(1, 2) prediction")
+    got = a0["counted_step"]
+    for r in fulls[1:]:
+        c = r["counted_step"]
+        check(c["argument_bytes"] == got["argument_bytes"] and c["flops"] == got["flops"]
+              and {k: v["calls"] for k, v in c["by_kind"].items()}
+              == {k: v["calls"] for k, v in got["by_kind"].items()},
+              "the ranks counted different steps")
+    want_kinds = {k: {"calls": pred["collective_calls"].get(k, 0),
+                      "bytes": pred["collectives"].get(k, 0)}
+                  for k in set(pred["collective_calls"]) | set(got["by_kind"])}
+    got_kinds = {k: {"calls": got["by_kind"].get(k, {}).get("calls", 0),
+                     "bytes": got["by_kind"].get(k, {}).get("bytes", 0)}
+                 for k in want_kinds}
+    mem = pred["memory"]
+    peak_rel = abs(mem["peak_hbm_estimate"] - got["peak_bytes"]) / got["peak_bytes"]
+    print(f"lm_train_tp (d): argument bytes predicted {mem['argument_bytes']} ranks "
+          f"{got['argument_bytes']}; FLOPs predicted {pred['flops']:.6e} ranks "
+          f"{got['flops']:.6e}; collectives predicted {want_kinds} ranks {got_kinds}; "
+          f"peak predicted {mem['peak_hbm_estimate']} ranks {got['peak_bytes']} "
+          f"({peak_rel * 100:.2f} %)", flush=True)
+    part_d = {"mesh": list(LM_TP_MESH),
+              "predicted": {"argument_bytes": mem["argument_bytes"], "flops": pred["flops"],
+                            "collectives": want_kinds, "peak_bytes": mem["peak_hbm_estimate"],
+                            "seconds": pred["seconds"]},
+              "ranks": {"argument_bytes": got["argument_bytes"], "flops": got["flops"],
+                        "collectives": got_kinds, "peak_bytes": got["peak_bytes"]},
+              "peak_rel_err": peak_rel}
+    check(mem["argument_bytes"] == got["argument_bytes"],
+          f"predicted argument bytes {mem['argument_bytes']} != the ranks' "
+          f"{got['argument_bytes']}")
+    check(pred["flops"] == got["flops"],
+          f"predicted FLOPs {pred['flops']} != the ranks' {got['flops']}")
+    check(want_kinds == got_kinds,
+          f"predicted collectives {want_kinds} != the ranks' {got_kinds}")
+    check(peak_rel <= LM_DRYRUN_PEAK_TOL,
+          f"predicted peak {mem['peak_hbm_estimate']} vs the ranks' {got['peak_bytes']}")
+
+    launches = {name: sum(r["launches"][name] for r in ranks2 + ranks4 + ranks_cpu)
+                for name in kernels}
+    check(not any(launches.values()),
+          f"the partitioned step launched {[n for n, c in launches.items() if c]}")
+    seconds = time.perf_counter() - t_phase
+    print(f"lm_train_tp: {seconds:.1f} s", flush=True)
+    emit("lm_train_tp", a_full_width=part_a, b_reduced=part_b, c_moe=part_c,
+         d_prediction=part_d, device=smi, ranks_seconds=t_ranks, seconds=seconds)
     return launches
 
 
@@ -4406,7 +4899,18 @@ def run(default_cache) -> int:
     # ---------------------------------------------------- LM training
     train_counts, full_losses = phase_lm_train(kernels, smi)
     train_dp_counts = phase_lm_train_dp(kernels, smi, full_losses)
-    phase_lm_dryrun(kernels, smi)
+    # lm_dryrun (b)'s cells (CPU only) run beside lm_train_tp's untimed
+    # part, once its full-width steps are over
+    cells = {}
+    try:
+        train_tp_counts = phase_lm_train_tp(
+            kernels, smi, on_full_done=lambda: cells.update(_dryrun_cells()))
+        phase_lm_dryrun(kernels, smi, cells)
+    finally:
+        for proc in cells.values():
+            if proc.poll() is None:
+                os.killpg(proc.pid, signal.SIGKILL)
+                proc.communicate()
 
     # ------------------------------------------------- the coreset server
     serve_counts, serve = phase_coreset_serve(kernels, smi)
@@ -4451,6 +4955,7 @@ def run(default_cache) -> int:
                       "mesh_launches": mesh_counts.get(r["name"], 0),
                       "train_launches": train_counts[r["name"]],
                       "train_dp_launches": train_dp_counts[r["name"]],
+                      "train_tp_launches": train_tp_counts[r["name"]],
                       "ssm_launches": ssm_counts[r["name"]],
                       "moe_launches": moe_counts[r["name"]],
                       "frontend_launches": frontend_counts[r["name"]],

@@ -20,10 +20,12 @@ Design points:
     its device; with ``shardings=`` (the elastic path, a tree of
     ``NamedSharding``s of the template's structure, ``None`` where a leaf
     is whole) each rank takes its own part of each array, on a mesh of any
-    number of ranks.  Whoever writes a sharded state writes it whole: the
-    ZeRO-1 trainer gathers its optimizer state and one rank writes host 0's
-    file (``train.zero1.Zero1Checkpoints``), the reference's
-    single-controller picture, so R ranks' checkpoint restores onto R';
+    number of ranks, or (a ``StateLayout``) the state placed as DTensors.
+    Whoever writes a sharded state writes it whole: the ZeRO-1 trainer
+    gathers its optimizer state, the partitioned one its whole state, and
+    one rank writes host 0's file (``train.zero1.Zero1Checkpoints``,
+    ``train.partitioned.PartitionedCheckpoints``), the reference's
+    single-controller picture, so any mesh's checkpoint restores onto any;
   * ``max_to_keep`` garbage-collects old steps after commit.
 """
 from __future__ import annotations
@@ -160,7 +162,12 @@ class CheckpointManager:
         ``NamedSharding``s (``repro_torch.sharding``) or None; a leaf with
         one comes back as this rank's part of the stored array (its
         ``local`` at the rank's coordinate in the sharding's mesh).  Every
-        rank reads and decompresses the whole file and keeps its parts."""
+        rank reads and decompresses the whole file and keeps its parts.
+        ``shardings`` may instead be a ``sharding.dtensor.StateLayout``: the
+        template is then a whole train state, and it comes back placed as
+        DTensors (``StateLayout.place_state``), each rank's blocks."""
+        if hasattr(shardings, "place_state"):
+            return shardings.place_state(self.restore(step, template))
         step_dir = self.dir / f"step_{step:08d}"
         for name, (ext, _, decompress) in _CODECS.items():
             shard = step_dir / f"host_{self.host_id}{ext}"

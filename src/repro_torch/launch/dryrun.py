@@ -17,7 +17,9 @@ the step is read as it runs, on rank 0's local shards:
     XLA's count, which is of its fused program);
   * ``collectives``: the result bytes of each collective, by kind (as the
     reference sums the result shapes of its HLO's collectives), with
-    ``total``; ``CommDebugMode`` counts the same ops (``comm_counts``);
+    ``total``, and ``collective_calls`` the calls by kind (what
+    ``launch.transport`` counts on real ranks); ``CommDebugMode`` counts
+    the same ops (``comm_counts``);
   * ``memory``: ``argument_bytes`` (the placed state and batch),
     ``output_bytes`` (what the step returns), ``alias_bytes`` (returned
     tensors that are arguments written in place: decode's cache), the peak
@@ -60,7 +62,8 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils.flop_counter import flop_registry
 
 __all__ = ["auto_microbatches", "build_cell", "shardings_for", "lower_cell",
-           "analyze", "run_cell", "table", "main", "RankCounter", "Lowered"]
+           "analyze", "run_cell", "table", "main", "RankCounter", "Lowered",
+           "counting"]
 
 _COLLECTIVES = {"all_reduce": "all-reduce", "all_reduce_": "all-reduce",
                 "all_gather_into_tensor": "all-gather",
@@ -164,6 +167,7 @@ class RankCounter(TorchDispatchMode):
         self.flops = 0
         self.bytes = 0
         self.collectives: dict[str, int] = {}
+        self.calls: dict[str, int] = {}
         self.live = 0
         self.peak = 0
         self._seen: dict[int, weakref.ref] = {}
@@ -201,9 +205,20 @@ class RankCounter(TorchDispatchMode):
         if kind is not None:
             self.collectives[kind] = self.collectives.get(kind, 0) + sum(
                 _nbytes(t) for t in outs)
+            self.calls[kind] = self.calls.get(kind, 0) + 1
         for t in outs:
             self.watch(t)
         return out
+
+
+@contextlib.contextmanager
+def counting():
+    """A ``RankCounter`` over the body, as the dry run counts a step: on a
+    real rank it counts the same local ops (``watch`` the arguments for the
+    live bytes)."""
+    counter = RankCounter()
+    with _InPropagation.patched(), counter:
+        yield counter
 
 
 # ------------------------------------------------------------------ cells
@@ -350,6 +365,7 @@ def analyze(lowered: Lowered) -> dict:
         "flops": float(c.flops),
         "bytes": float(c.bytes),
         "collectives": coll,
+        "collective_calls": dict(c.calls),
         "comm_counts": lowered.comm_counts,
         "memory": {
             "argument_bytes": arg,

@@ -9,15 +9,24 @@ given (without a card and without it, it raises), e.g.:
   python -m repro_torch.launch.train --arch qwen2-0.5b --reduced --steps 50 --device cpu
 
 ``train_loop(mesh=None)`` trains on one device.  Over a ``DeviceMesh`` it
-is a rank program (SPMD: every rank of the mesh calls it alike) that trains
-data parallel with ZeRO-1 (``train.zero1``): each rank takes its rows of
-every batch, the gradients are averaged over the data ranks before the
-clip, each rank updates its part of AdamW's state and the parameters are
-gathered back; losses and grad norms are the global ones.  A "model" axis
-of more than one rank and an MoE model over more than one data rank raise
-``NotImplementedError`` (a later slice).  ``--production-mesh`` trains over
-``make_production_mesh()``: it joins torchrun's world (or starts a world of
-this one process) and raises unless the world has its 256 ranks.
+is a rank program (SPMD: every rank of the mesh calls it alike), and its
+params and optimizer lie where the reference's ``param_specs`` and
+``opt_specs`` put them (layout "tp", ZeRO-1); losses and grad norms are the
+global ones.  A dense model at model 1 trains data parallel by
+``train.zero1``: each rank takes its rows of every batch, the gradients are
+averaged over the data ranks before the clip, each rank updates its part of
+AdamW's state and the parameters are gathered back.  A "model" axis above 1
+(heads, FFN, vocab and experts cut over it) and an MoE model over more than
+one data rank train by the partitioned step (``train.partitioned``), the
+state and batch DTensors.  ``--production-mesh`` trains over
+``make_production_mesh()`` (16 x 16, model 16): it joins torchrun's world
+(or starts a world of this one process) and raises unless the world has its
+256 ranks.
+
+On the CPU, a mesh's ranks are gloo processes; ranks that share a card are
+gloo processes too (NCCL refuses two ranks on one card), their world on
+``launch.transport.BACKEND`` (``start_world``) and their mesh a "cuda" one:
+each collective is staged through host copies and counted.
 """
 from __future__ import annotations
 
@@ -36,6 +45,8 @@ from repro_torch.launch.serve import resolve_device
 from repro_torch.models import init_params
 from repro_torch.runtime.fault_tolerance import supervise
 from repro_torch.train import AdamWConfig, adamw_init, make_train_step
+from repro_torch.train.partitioned import (Partitioned, PartitionedCheckpoints,
+                                           partitioned)
 from repro_torch.train.zero1 import Zero1, Zero1Checkpoints
 from repro_torch.tree import leaves
 
@@ -49,36 +60,40 @@ def train_loop(cfg, *, steps: int, batch: int, seq_len: int, mesh=None,
                device: str | None = None) -> dict:
     """Returns final {"params", "opt", "step", "losses", "grad_norms",
     "step_s", "sync"}: a loss, a grad norm, the host seconds and (over a
-    mesh) the sync's seconds and bytes of every step run (a replayed step
-    again).  ``device`` None is the card, raising without one; the params
-    are drawn from ``torch.Generator(device)`` seeded with ``seed``, alike
-    on every rank.  ``mesh``: None (one device) or a ``DeviceMesh`` this
-    rank is in; over a mesh ``opt`` holds this rank's ZeRO-1 part, a
-    checkpoint the whole state (written by the mesh's first rank) and
-    resuming restores each rank's part of it, from a run over any number
-    of ranks."""
+    mesh) the step's collectives' seconds and bytes of every step run (a
+    replayed step again).  ``device`` None is the card, raising without one;
+    the params are drawn from ``torch.Generator(device)`` seeded with
+    ``seed``, alike on every rank.  ``mesh``: None (one device) or a
+    ``DeviceMesh`` this rank is in; over a mesh ``params`` and ``opt`` hold
+    this rank's parts (ZeRO-1: whole params and the rank's optimizer part;
+    the partitioned step: DTensors), a checkpoint the whole state (written
+    by the mesh's first rank) and resuming restores each rank's part of it,
+    from a run over any mesh."""
     device = resolve_device(device)
-    zero = Zero1(cfg, mesh, device) if mesh is not None else None
+    engine = None
+    if mesh is not None:
+        engine = (Partitioned if partitioned(cfg, mesh) else Zero1)(cfg, mesh, device)
     ocfg = AdamWConfig(total_steps=steps)
     stream = TokenStream(cfg.vocab, batch, seq_len, seed=seed,
                          n_codebooks=cfg.n_codebooks)
 
     params = init_params(cfg, torch.Generator(device=device).manual_seed(seed))
-    opt = adamw_init(params) if zero is None else zero.init_opt(params)
     n_params = sum(t.numel() for t in leaves(params))
-    where = "" if zero is None else (
-        f" mesh={dict(zip(mesh.mesh_dim_names, mesh.shape))} zero1 "
-        f"transport={zero.transport}")
-    print(f"[train] arch={cfg.name} params={n_params / 1e6:.1f}M "
-          f"batch={batch} seq={seq_len} steps={steps} device={device}{where}")
-    if zero is None:
+    if engine is None:
+        opt = adamw_init(params)
         step_fn = make_train_step(cfg, ocfg, num_microbatches=microbatches)
     else:
-        step_fn = zero.make_step(ocfg, num_microbatches=microbatches)
+        params, opt = engine.init(params)
+        step_fn = engine.make_step(ocfg, num_microbatches=microbatches)
+    where = "" if engine is None else " " + engine.describe()
+    print(f"[train] arch={cfg.name} params={n_params / 1e6:.1f}M "
+          f"batch={batch} seq={seq_len} steps={steps} device={device}{where}")
 
     mgr = CheckpointManager(ckpt_dir) if ckpt_dir else None
-    if mgr and zero is not None:
-        mgr = Zero1Checkpoints(mgr, zero)
+    if mgr and isinstance(engine, Zero1):
+        mgr = Zero1Checkpoints(mgr, engine)
+    elif mgr and engine is not None:
+        mgr = PartitionedCheckpoints(mgr, engine)
     state = {"params": params, "opt": opt, "step": 0}
     if mgr and resume:
         last = mgr.latest_step()
@@ -99,14 +114,15 @@ def train_loop(cfg, *, steps: int, batch: int, seq_len: int, mesh=None,
             raise RuntimeError("injected failure (test)")
         t0 = time.perf_counter()
         b = stream.batch_at(step)
-        if zero is not None:
-            b = zero.local_batch(b)
-        b = {k: torch.as_tensor(v, device=device) for k, v in b.items()}
+        if engine is None:
+            b = {k: torch.as_tensor(v, device=device) for k, v in b.items()}
+        else:
+            b = engine.batch(b)
         p, o, m = step_fn(state["params"], state["opt"], b)
         loss, gnorm = float(m["loss"]), float(m["grad_norm"])   # waits for the step
         step_s.append(time.perf_counter() - t0)
-        if zero is not None:
-            sync.append(zero.last_sync)
+        if engine is not None:
+            sync.append(engine.last_sync)
         losses.append(loss)
         grad_norms.append(gnorm)
         if step % log_every == 0:
@@ -184,12 +200,17 @@ def main(argv=None) -> None:
 def _join_world(device: str | None) -> bool:
     """Start this process's torch.distributed world unless one is running:
     torchrun's (its environment variables) if it set them, else a world of
-    this one process.  gloo on the CPU, NCCL on the cards.  Returns whether
-    it started one."""
+    this one process.  gloo on the CPU (``launch.transport.BACKEND``, its
+    collectives counted), NCCL on the cards.  Returns whether it started
+    one."""
     import torch.distributed as dist
     if dist.is_initialized():
         return False
-    backend = "gloo" if device == "cpu" else "nccl"
+    backend = "nccl"
+    if device == "cpu":
+        from repro_torch.launch import transport
+        transport.register()
+        backend = transport.BACKEND
     if "WORLD_SIZE" in os.environ:
         dist.init_process_group(backend)
     else:

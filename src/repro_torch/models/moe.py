@@ -185,8 +185,10 @@ def _moe_partitioned(p: dict, cfg, x, G: int):
         yl = yl.reshape(E_loc, G_loc, C, d)
         return torch.cat([combine(yl[:, g], (slot[g], t_s[g], g_s[g], keep[g]), Tg, first)
                           for g in range(G_loc)])
+    # a rank's gates take the gradient of its own experts' picks only: a
+    # partial sum over the dims that cut the experts, as the output
     out = on_shards(combine_local, (y, *meta), (ys, rows, rows, rows, rows), list(outp),
-                    (ys, rows, rows, rows, rows)).to(x.dtype)
+                    (ys, rows, rows, outp, rows)).to(x.dtype)
     if "shared" in p:
         out = out + swiglu(p["shared"], xt)
     return out.reshape(B, L, d), aux

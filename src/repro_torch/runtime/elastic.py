@@ -5,7 +5,9 @@ must be preserved (TP degree is baked into layouts/divisibility), pick the
 largest (data, model) grid that fits — data parallelism absorbs the loss.
 ``reshard_state``: each rank's part of a whole state tree on the new mesh
 (restore and reshard are the same placement; see
-``CheckpointManager.restore(shardings=)``).
+``CheckpointManager.restore(shardings=)``), in the form its trainer holds
+it: ZeRO-1's parts (a dense model at model 1), or the state placed as
+DTensors for the partitioned step (``train.partitioned``).
 
 The mesh is a torch ``DeviceMesh`` over the world's first data × model
 ranks; a rank past them has no coordinate in it (SPMD: every rank of the
@@ -35,7 +37,14 @@ def plan_mesh(n_healthy: int, model_size: int, axis_names=("data", "model"),
 def reshard_state(state: dict, cfg, new_mesh) -> dict:
     """Re-place {params, opt} onto a new mesh after an elastic resize: this
     rank's part of each whole leaf (views), as ``state_shardings`` places
-    it.  ``cfg`` stands where the reference takes the params' shapes."""
+    it, or, where ``train_loop`` trains ``cfg`` on ``new_mesh`` by the
+    partitioned step, the state placed as its DTensors (``opt`` whole, as
+    ``adamw_init`` makes it).  ``cfg`` stands where the reference takes the
+    params' shapes."""
+    from ..train.partitioned import partitioned
+    if partitioned(cfg, new_mesh):
+        from ..sharding.dtensor import StateLayout
+        return StateLayout(cfg, new_mesh).place_state(state)
     at = state_shardings(cfg, new_mesh)
     out = dict(state)
     out["params"] = tree_map(lambda t, s: s.local(t), state["params"], at["params"])

@@ -57,7 +57,13 @@ def place(t: torch.Tensor, mesh, placements) -> "torch.Tensor":
                             device="meta")
         return DTensor.from_local(local, mesh, placements, run_check=False,
                                   shape=t.shape, stride=t.stride())
-    return distribute_tensor(t.detach(), mesh, placements, src_data_rank=None)
+    out = distribute_tensor(t.detach(), mesh, placements, src_data_rank=None)
+    local = out.to_local()
+    if local.untyped_storage().nbytes() > local.numel() * local.element_size():
+        # a block that is a view of the whole would keep the whole alive
+        out = DTensor.from_local(local.clone(), mesh, placements, run_check=False,
+                                 shape=out.shape, stride=out.stride())
+    return out
 
 
 def _local_shape(shape, mesh, placements) -> tuple:
@@ -180,6 +186,42 @@ class StateLayout:
             out[name] = {k: place(self._opt_whole(k, ls), self.mesh, self.opt_at[k])
                          for k in self.opt_keys}
         out["step"] = place(opt["step"], self.mesh, [Replicate()] * self.mesh.ndim)
+        return out
+
+    # ------------------------------------------------ the one-device state
+    def whole_params(self, params) -> dict:
+        """The placed parameters gathered whole (a collective: every rank of
+        the mesh calls it), in the port's shapes."""
+        return unflatten(self.template, [t.full_tensor().reshape(shape) for t, shape in
+                                         zip(leaves(params), self.port_shapes)])
+
+    def whole_opt(self, opt) -> dict:
+        """The placed optimizer state gathered whole (a collective) as
+        ``adamw_init``'s tree: ``{"master", "m", "v"}`` port trees and
+        ``"step"``."""
+        out = {}
+        for name in ("master", "m", "v"):
+            ls = [None] * len(self.keys)
+            for k in self.opt_keys:
+                full = opt[name][k].full_tensor()
+                idx = self.opt_members[k]
+                if k.startswith("layers/*/"):
+                    for j, i in enumerate(idx):
+                        ls[i] = full[j].reshape(self.port_shapes[i])
+                else:
+                    ls[idx[0]] = full.reshape(self.port_shapes[idx[0]])
+                del full
+            out[name] = unflatten(self.template, ls)
+        out["step"] = opt["step"].full_tensor()
+        return out
+
+    def place_state(self, state: dict) -> dict:
+        """A whole train state ``{"params", "opt", "step"}`` (``opt``
+        optional) in the one-device format (a checkpoint's) placed: this
+        rank keeps its blocks."""
+        out = {**state, "params": self.params(state["params"])}
+        if "opt" in state:
+            out["opt"] = self.opt_state(state["opt"])
         return out
 
     # ------------------------------------------------- the optimizer step

@@ -458,11 +458,18 @@ class NamedSharding:
 
 
 def _placements(spec: P, mesh) -> tuple:
+    """A spec's placements: a ``Shard`` on each mesh axis the spec names,
+    except an axis of size 1, which cuts nothing and places as
+    ``Replicate()`` (as in ``port_shardings``): DTensor's view rules cannot
+    propagate a ``Shard`` over a mesh dim of size 1 (a one-row batch at
+    data 1)."""
     Shard, Replicate = _shard_types()
+    sizes = axis_sizes(mesh)
     out = {a: Replicate() for a in _axis_names(mesh)}
     for dim, entry in enumerate(spec):
         for a in _axis_entries(entry):
-            out[a] = Shard(dim)
+            if sizes[a] > 1:
+                out[a] = Shard(dim)
     return tuple(out.values())
 
 
@@ -472,7 +479,7 @@ def _axis_entries(entry) -> tuple:
 
 def named(mesh, tree_of_specs):
     """A ``NamedSharding`` a spec, its placements on the reference's
-    layout (a ``Shard`` on each mesh axis the spec names)."""
+    layout (``_placements``)."""
     return _like(tree_of_specs, [NamedSharding(mesh, _placements(s, mesh), s)
                                  for s in flatten(tree_of_specs)[1]])
 

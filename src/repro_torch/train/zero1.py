@@ -28,9 +28,10 @@ training on the card, since NCCL refuses two ranks on one card) stages
 every collective through host copies: ``transport`` "host"; on a mesh of
 the tensors' own device type it is "direct".
 
-A "model" axis of more than one rank (tensor and expert parallel) and an
-MoE model over more than one data rank (its dispatch groups and aux loss
-over the data ranks) raise ``NotImplementedError``: a later slice.
+It trains a dense model at model = 1.  A "model" axis of more than one
+rank (tensor and expert parallel) and an MoE model over more than one data
+rank train by the partitioned step (``train.partitioned``), which
+``train_loop`` takes there.
 """
 from __future__ import annotations
 
@@ -47,10 +48,6 @@ from .train_step import make_grad_fn
 
 __all__ = ["Zero1", "Zero1Checkpoints"]
 
-_LATER = ("comes with the port's tensor- and expert-parallel slice "
-          "(ROADMAP.md queue 1)")
-
-
 class Zero1:
     """A mesh's data-parallel step and state for ``cfg`` on ``device``
     (this rank's).  ``coord`` is this rank's coordinate in the mesh, one
@@ -61,15 +58,13 @@ class Zero1:
 
     def __init__(self, cfg, mesh, device):
         import torch.distributed as dist
+        from .partitioned import partitioned
+        if partitioned(cfg, mesh):
+            raise ValueError(f"ZeRO-1 trains a dense model at model 1, not {cfg.name} "
+                             f"on {dict(zip(mesh.mesh_dim_names, mesh.shape))}: "
+                             "that is train.partitioned's")
         sizes = axis_sizes(mesh)
-        if sizes.get("model", 1) > 1:
-            raise NotImplementedError(
-                f"training over a 'model' axis of {sizes['model']} ranks {_LATER}")
         self.n_data = math.prod(sizes[a] for a in data_axes(mesh))
-        if cfg.is_moe and self.n_data > 1:
-            raise NotImplementedError(
-                f"an MoE model over {self.n_data} data ranks (dispatch groups "
-                f"and the aux loss over the data ranks) {_LATER}")
         coord = mesh.get_coordinate()
         if coord is None:
             raise ValueError("this rank is not in the mesh: it has no part in "
@@ -103,6 +98,18 @@ class Zero1:
         self._shared = [d is None or not isinstance(s.placements[d], (Shard, Own))
                         for s in self._opt_at]
         self.last_sync, self.stages = {}, {}
+
+    def describe(self) -> str:
+        return (f"mesh={dict(zip(self.mesh.mesh_dim_names, self.mesh.shape))} "
+                f"layout=tp zero1 step=zero1 transport={self.transport}")
+
+    def init(self, params) -> tuple:
+        return params, self.init_opt(params)
+
+    def batch(self, b: dict) -> dict:
+        """This rank's rows of the global batch, on its device."""
+        return {k: torch.as_tensor(v, device=self.device)
+                for k, v in self.local_batch(b).items()}
 
     # ------------------------------------------------------------ layout
     def local_batch(self, batch: dict) -> dict:

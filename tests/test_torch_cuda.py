@@ -1296,3 +1296,96 @@ def test_one_nccl_rank_mesh_engine_is_the_unmeshed_engine_bitwise(cuda, tmp_path
 def test_two_gloo_ranks_on_the_card_match_one_device(cuda, tmp_path):
     outs = _mesh_ranks("gloo", 2, tmp_path)
     assert all(o["rel"] <= 1e-4 and o["sat_bitwise"] for o in outs)
+
+
+def test_the_collective_probe_on_the_card(cuda):
+    """``scripts/gloo_cuda_probe.py``: two gloo ranks sharing the card run
+    all_reduce, all_gather_into_tensor, reduce_scatter_tensor and
+    all_to_all_single on CUDA tensors, each held to the host result; the
+    staged transport (``launch.transport``) gives it for every kind and
+    counts each call once."""
+    import json
+    import subprocess
+    import sys
+    from pathlib import Path
+    root = Path(__file__).resolve().parents[1]
+    out = subprocess.run([sys.executable, str(root / "scripts" / "gloo_cuda_probe.py")],
+                         cwd=root, capture_output=True, text=True, timeout=600)
+    assert out.returncode == 0, out.stderr
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    assert res["device"] == "cuda"
+    for r in res["ranks"]:
+        for kind in ("all_reduce", "all_gather_into_tensor", "reduce_scatter_tensor",
+                     "all_to_all_single"):
+            assert r[kind]["staged"] == "ok", (kind, r[kind])
+        assert sorted(r["stats"]) == ["all-gather", "all-reduce", "all-to-all",
+                                      "reduce-scatter"]
+        assert all(s["calls"] == 1 and s["bytes"] > 0 for s in r["stats"].values())
+
+
+_TP_STEP_RANK = r'''
+import dataclasses, json, sys
+import torch
+world, rank, store = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3]
+torch.cuda.set_device(0)
+torch.backends.cuda.matmul.allow_tf32 = False
+from repro_torch.launch import transport
+transport.start_world("file://" + store, world, rank)
+from repro_torch.launch.mesh import destroy_world
+try:
+    from repro_torch.configs import get_arch, reduced_config
+    from repro_torch.launch import train as launch_train
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.sharding.dtensor import StateLayout
+    from repro_torch.train import AdamWConfig
+    from repro_torch.tree import leaves
+    launch_train.AdamWConfig = lambda **_: AdamWConfig(lr=1e-3, warmup_steps=1)
+    cfg = dataclasses.replace(reduced_config(get_arch("qwen2-0.5b")), dtype="float32")
+    kw = dict(steps=1, batch=4, seq_len=32, device="cuda", log_every=100)
+    one = launch_train.train_loop(cfg, **kw)
+    mesh = make_local_mesh(1, 2, device_type="cuda")
+    st = launch_train.train_loop(cfg, mesh=mesh, **kw)
+    whole = StateLayout(cfg, mesh).whole_params(st["params"])
+    print(json.dumps({
+        "loss": st["losses"][0], "one_loss": one["losses"][0],
+        "weights": max(float((a - b).abs().max())
+                       for a, b in zip(leaves(whole), leaves(one["params"]))),
+        "on_card": all(t.to_local().is_cuda for t in leaves(st["params"])),
+        "kinds": sorted(st["sync"][0]["by_kind"])}), flush=True)
+finally:
+    destroy_world()
+'''
+
+
+def test_a_model_axis_train_step_on_the_card_is_one_device_s(cuda, tmp_path):
+    """The reduced float32 qwen2's first step over a (1, 2) "cuda" mesh of
+    two gloo ranks sharing the card (``train_loop(mesh=)``, the staged
+    transport) against the same step on one device: loss within 1e-5,
+    weights within 1e-4."""
+    import json
+    import os
+    import signal
+    import subprocess
+    import sys
+    from pathlib import Path
+    root = Path(__file__).resolve().parents[1]
+    env = {k: v for k, v in os.environ.items() if k not in ("PYTHONPATH", ops.ENV_VAR)}
+    env["PYTHONPATH"] = str(root / "src")
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", _TP_STEP_RANK, "2", str(r), str(tmp_path / "store")],
+        cwd=root, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        start_new_session=True) for r in range(2)]
+    try:
+        outs = [p.communicate(timeout=300) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                os.killpg(p.pid, signal.SIGKILL)
+            p.communicate()
+    for p, (_, err) in zip(procs, outs):
+        assert p.returncode == 0, err
+    for out, _ in outs:
+        res = json.loads(out.strip().splitlines()[-1])
+        assert abs(res["loss"] - res["one_loss"]) <= 1e-5 * abs(res["one_loss"])
+        assert res["weights"] <= 1e-4 and res["on_card"]
+        assert "all-reduce" in res["kinds"]

@@ -155,6 +155,29 @@ def test_zero1_collectives_move_the_bytes_the_specs_imply():
     assert set(coll) == {"reduce-scatter", "all-gather", "all-reduce", "total"}
 
 
+@pytest.mark.parametrize("arch,layers", [("qwen2-0.5b", 2), ("qwen3-moe-235b-a22b", 1)])
+@pytest.mark.parametrize("mesh_shape", [(1, 1), (1, 2)], ids=["1x1", "1x2"])
+def test_the_dry_run_takes_a_one_row_batch(arch, layers, mesh_shape):
+    """A global batch of one row (64 tokens) on a mesh whose data axis is 1:
+    ``batch_specs`` cuts it over "data" (1 divides 1), which places as
+    ``Replicate()``, so that DTensor's view rules propagate; the step runs
+    and a rank holds less at (1, 2) than at (1, 1)."""
+    recs = {}
+    for shape in {(1, 1), mesh_shape}:
+        with fake_world(math.prod(shape)):
+            mesh = compat_make_mesh(shape, ("data", "model"), device_type="cpu")
+            _, low = dryrun.lower_cell(mesh, arch, "train_4k", n_layers_override=layers,
+                                       batch_override=(1, 64), microbatches=1)
+            recs[shape] = dryrun.analyze(low)
+    rec = recs[mesh_shape]
+    assert rec["flops"] > 0 and rec["memory"]["argument_bytes"] > 0
+    if mesh_shape == (1, 2):
+        assert rec["collectives"]["total"] > 0
+        assert rec["memory"]["argument_bytes"] < recs[(1, 1)]["memory"]["argument_bytes"]
+    else:
+        assert rec["collectives"]["total"] == 0
+
+
 # ------------------------------------------------------------ real ranks
 _PARTITIONED = r'''
 import dataclasses, json, sys

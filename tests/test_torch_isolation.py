@@ -11,8 +11,9 @@ an ephemeral port answering a loss query and a batch through the SDK, a
 cluster coordinator gathering a build from two in-process workers, a
 train step, a compressed gradient, a checkpoint and a crash-and-resume
 ``train_loop`` on the token stream, a reduced dry-run cell (qwen2 at one
-layer on a (2, 2) mesh of a fake world), and a CPU rank of a one-rank gloo mesh
-scoring and scanning over it) or anywhere in its source (train/,
+layer on a (2, 2) mesh of a fake world), a CPU rank of a one-rank gloo mesh
+scoring and scanning over it, and two CPU ranks training one partitioned
+step of ``train_loop`` over a (1, 2) mesh) or anywhere in its source (train/,
 checkpoint/, runtime/, data/tokens.py, launch/train.py, models/ssm.py and
 models/moe.py among it), in
 chip_smoke.py, in the port's scripts and in its examples.  Importing the
@@ -254,6 +255,40 @@ def test_a_cpu_mesh_rank_runs_without_jax_or_reference(tmp_path):
     assert res["bad"] == []
     assert len(res["loss"]) == 1 and res["loss"][0] > 0
     assert res["images"] == [3, 32, 24]
+
+
+_TP_RANK = """
+import json, sys
+world, rank, store = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3]
+from repro_torch.launch import transport
+transport.start_world("file://" + store, world, rank)
+from repro_torch.launch.mesh import destroy_world
+try:
+    import dataclasses
+    from repro_torch.configs import get_arch, reduced_config
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.launch.train import train_loop
+    cfg = dataclasses.replace(reduced_config(get_arch("qwen2-0.5b"), n_layers=1),
+                              dtype="float32")
+    mesh = make_local_mesh(1, 2, device_type="cpu")
+    st = train_loop(cfg, steps=1, batch=2, seq_len=8, mesh=mesh, device="cpu")
+    bad = sorted(m for m in sys.modules
+                 if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+    print(json.dumps({"bad": bad, "losses": st["losses"],
+                      "kinds": sorted(st["sync"][0]["by_kind"])}))
+finally:
+    destroy_world()
+"""
+
+
+def test_a_tensor_parallel_step_runs_without_jax_or_reference(tmp_path):
+    from torch_ranks import run_ranks
+    outs = run_ranks(_TP_RANK, 2, tmp_path)
+    for res in outs:
+        assert res["bad"] == []
+        assert len(res["losses"]) == 1 and res["losses"][0] > 0
+        assert res["losses"] == outs[0]["losses"]
+        assert "all-reduce" in res["kinds"]
 
 
 def test_importing_the_package_loads_no_mesh_and_starts_no_group():

@@ -3,13 +3,15 @@ uninterrupted run (the reference's bar, rtol 1e-5 / atol 1e-6, and here
 bitwise), the losses of ``train_loop`` against the reference's
 ``train_loop`` from the same weights (rtol 1e-4), the CLI with
 ``--device cpu`` and its resume, the refusal without a card, and
-``--production-mesh``'s 256 ranks.  Data parallel with ZeRO-1 over 2 and 4
-gloo ranks (child processes, ``torch_ranks``): losses within 1e-5 and
-weights within 1e-4 of the reference's train step jitted on one device and
-over a (2, 1) mesh of forced host devices, with an optimizer that moves the
-weights far past that bar, the optimizer parts covering
-each leaf once; ``NotImplementedError`` for a "model" axis of more than one
-rank and for an MoE model over data ranks."""
+``--production-mesh``'s 256 ranks.  Over 2 and 4 gloo ranks (child
+processes, ``torch_ranks``, their world on ``launch.transport``): data
+parallel with ZeRO-1, and the partitioned step over a "model" axis of 2
+((1, 2), (2, 2), (2, 1, 2)); losses within 1e-5 and weights within 1e-4 of
+the reference's train step jitted on one device and over a (2, 1) and a
+(1, 2) mesh of forced host devices, with an optimizer that moves the
+weights far past that bar, the ZeRO-1 optimizer parts covering each leaf
+once.  (MoE over data ranks, the one-row batch and the partitioned
+checkpoints: ``test_torch_train_tp.py``.)"""
 import dataclasses
 import json
 import os
@@ -144,6 +146,11 @@ LOSS_RTOL, WEIGHT_ATOL = 1e-5, 1e-4
 DP_MESHES = {"2x1": ((2, 1), ("data", "model")),
              "4x1": ((4, 1), ("data", "model")),
              "2x2x1": ((2, 2, 1), ("pod", "data", "model"))}
+# the partitioned step: heads, FFN and vocab cut over "model"
+TP_MESHES = {"1x2": ((1, 2), ("data", "model")),
+             "2x2": ((2, 2), ("data", "model")),
+             "2x1x2": ((2, 1, 2), ("pod", "data", "model"))}
+MESHES = {**DP_MESHES, **TP_MESHES}
 
 
 def _ref_cfg(**reduced):
@@ -195,7 +202,7 @@ def dp_runs(reference, tmp_path_factory):
     def get(mesh):
         if mesh not in runs:
             tmp = tmp_path_factory.mktemp(f"dp{mesh}")
-            shape, axes = DP_MESHES[mesh]
+            shape, axes = MESHES[mesh]
             spec = {"arch": ARCH, "reduced": REDUCED, "init": str(reference["init"]),
                     "shape": shape, "axes": axes, "loops": {"dp": dict(LOOP, opt=OCFG)},
                     "out": str(tmp)}
@@ -205,11 +212,12 @@ def dp_runs(reference, tmp_path_factory):
     return get
 
 
-@pytest.mark.parametrize("mesh", sorted(DP_MESHES))
+@pytest.mark.parametrize("mesh", sorted(MESHES))
 def test_train_loop_over_gloo_ranks_matches_the_reference_s(reference, dp_runs, mesh):
     """Every rank's losses within 1e-5 of the reference's one-device run and
     its weights within 1e-4; losses, grad norms and gathered params the
-    same bits on every rank."""
+    same bits on every rank; every step's collectives counted by the
+    transport."""
     res, parts = dp_runs(mesh)
     first = res[0]["runs"]["dp"]
     for r in res:
@@ -220,6 +228,9 @@ def test_train_loop_over_gloo_ranks_matches_the_reference_s(reference, dp_runs, 
         assert run["digest"] == first["digest"]
         assert len(run["sync"]) == LOOP["steps"]
         assert all(s["sync_bytes"] > 0 and s["sync_s"] > 0 for s in run["sync"])
+        if mesh in TP_MESHES:
+            assert all(s["transport"] == "gloo_host" and s["by_kind"]["all-reduce"]["calls"]
+                       for s in run["sync"])
     np.testing.assert_allclose(first["losses"], reference["losses"], rtol=LOSS_RTOL)
     keys, want = reference["params"]
     for key, w in zip(keys, want):
@@ -279,7 +290,7 @@ assert jax.device_count() == 2, jax.devices()
 cfg = dataclasses.replace(reduced_config(ARCHS[spec["arch"]], **spec["reduced"]),
                           dtype="float32")
 loop = spec["loop"]
-mesh = make_local_mesh(2, 1)
+mesh = make_local_mesh(*spec["mesh"])
 params = init_params(cfg, jax.random.PRNGKey(0))
 opt = adamw_init(params)
 pspec = named(mesh, param_specs(params, mesh))
@@ -303,15 +314,17 @@ print(json.dumps({"losses": losses}))
 """
 
 
-def test_two_ranks_match_the_reference_s_two_device_mesh(tmp_path, dp_runs):
-    """The reference's train step jitted over a (2, 1) mesh of two forced
-    host devices (a child process, so that the flag precedes jax's start),
-    as its train_loop places it: params by param_specs, the optimizer by
+def _against_the_reference_s_mesh(tmp_path, dp_runs, mesh):
+    """The reference's train step jitted over ``mesh`` of two forced host
+    devices (a child process, so that the flag precedes jax's start), as
+    its train_loop places it: params by param_specs, the optimizer by
     opt_specs (ZeRO-1).  Its train_loop itself fails there at the second
     step (jit's in_shardings against the layout XLA gave the first step's
-    outputs), so the step's out_shardings are those same specs."""
+    outputs), so the step's out_shardings are those same specs.  The port's
+    ranks over the same mesh: losses within 1e-5, weights within 1e-4."""
+    shape, _ = MESHES[mesh]
     spec = {"arch": ARCH, "reduced": REDUCED, "loop": LOOP, "opt": OCFG,
-            "out": str(tmp_path / "ref2.npz")}
+            "mesh": list(shape), "out": str(tmp_path / "ref2.npz")}
     env = dict(os.environ, XLA_FLAGS="--xla_force_host_platform_device_count=2",
                JAX_PLATFORMS="cpu", PYTHONPATH=str(ROOT / "src"))
     proc = subprocess.run([sys.executable, "-c", _REF_ON_TWO_DEVICES, json.dumps(spec)],
@@ -328,48 +341,20 @@ def test_two_ranks_match_the_reference_s_two_device_mesh(tmp_path, dp_runs):
             node = node.setdefault(k, {})
         node[last] = ref[key]
     keys, params = flatten(models.params_from_jax(_port_cfg(**REDUCED), tree))
-    res, parts = dp_runs("2x1")
+    res, parts = dp_runs(mesh)
     np.testing.assert_allclose(res[0]["runs"]["dp"]["losses"], want, rtol=LOSS_RTOL)
     for key, w in zip(keys, params):
         np.testing.assert_allclose(parts[0]["params/" + key], w.numpy(), rtol=0,
                                    atol=WEIGHT_ATOL, err_msg=key)
 
 
-_REFUSE_RANK = r"""
-import json, sys
-import torch.distributed as dist
-world, rank, store = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3]
-dist.init_process_group("gloo", init_method="file://" + store,
-                        world_size=world, rank=rank)
-from repro_torch.launch.mesh import destroy_world
-try:
-    from repro_torch.configs import get_arch, reduced_config
-    from repro_torch.launch.mesh import compat_make_mesh
-    from repro_torch.launch.train import train_loop
-    out = {}
-    for name, arch, shape, layers in json.loads(sys.argv[4]):
-        cfg = reduced_config(get_arch(arch), n_layers=layers)
-        mesh = compat_make_mesh(shape, ("data", "model"), device_type="cpu")
-        try:
-            train_loop(cfg, steps=1, batch=4, seq_len=8, device="cpu", mesh=mesh)
-            out[name] = "trained"
-        except NotImplementedError as exc:
-            out[name] = [type(exc).__name__, str(exc)]
-    print(json.dumps(out), flush=True)
-finally:
-    destroy_world()
-"""
+def test_two_ranks_match_the_reference_s_two_device_mesh(tmp_path, dp_runs):
+    """ZeRO-1 over (2, 1) against the reference's (2, 1) mesh."""
+    _against_the_reference_s_mesh(tmp_path, dp_runs, "2x1")
 
 
-@pytest.mark.parametrize("world", [2])
-def test_a_mesh_of_two_ranks_raises_not_implemented(tmp_path, world):
-    """A "model" axis of two ranks, and an MoE model over two data ranks:
-    the tensor- and expert-parallel slice."""
-    cases = [("model_axis", ARCH, (1, world), 2),
-             ("moe", "qwen3-moe-235b-a22b", (world, 1), 2)]
-    for r in run_ranks(_REFUSE_RANK, world, tmp_path, json.dumps(cases)):
-        assert r["model_axis"][0] == "NotImplementedError"
-        assert f"'model' axis of {world} ranks" in r["model_axis"][1]
-        assert r["moe"][0] == "NotImplementedError"
-        assert f"MoE model over {world} data ranks" in r["moe"][1]
-        assert "expert-parallel slice" in r["moe"][1]
+def test_a_model_axis_of_two_ranks_matches_the_reference_s_two_device_mesh(
+        tmp_path, dp_runs):
+    """The partitioned step over (1, 2) (heads, FFN and vocab cut over
+    "model") against the reference's (1, 2) mesh."""
+    _against_the_reference_s_mesh(tmp_path, dp_runs, "1x2")

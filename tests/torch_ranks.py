@@ -53,17 +53,23 @@ def run_ranks(program: str, world: int, tmp: Path, *args: str,
 # arguments, and under "opt" the AdamWConfig that train_loop builds in that
 # run, put in its place as the weights are).  A rank in
 # the mesh writes each run's params and its ZeRO-1 master parts to
-# ``{out}/{run}_rank{rank}.npz``; with ``restore`` ({"dir", "step"}) it
-# also restores that checkpoint whole and with ``shardings=``, and reports
-# whether each part is its placement's slice of the whole, bitwise.
+# ``{out}/{run}_rank{rank}.npz`` (the partitioned step's gathered whole);
+# with ``restore`` ({"dir", "step"}) it also restores that checkpoint whole
+# and with ``shardings=``, and reports whether each part is its placement's
+# slice of the whole, bitwise (and, where the mesh trains by the
+# partitioned step, whether the state placed by ``restore(shardings=
+# StateLayout)`` is ``reshard_state``'s and gathers back to the whole).
+# With ``margin``, the smallest gap of a token's k-th over its (k+1)-th
+# router probability over every MoE layer of every step is ``margin``.
 TRAIN_RANK = r'''
 import dataclasses, hashlib, json, sys
 import numpy as np
+import torch
 import torch.distributed as dist
 world, rank, store = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3]
 spec = json.loads(sys.argv[4])
-dist.init_process_group("gloo", init_method="file://" + store,
-                        world_size=world, rank=rank)
+from repro_torch.launch import transport
+transport.start_world("file://" + store, world, rank)
 from repro_torch.launch.mesh import destroy_world
 try:
     from repro_torch.configs import get_arch, reduced_config
@@ -72,7 +78,9 @@ try:
     from repro_torch.models import params_from_jax
     from repro_torch.runtime import plan_mesh
     from repro_torch.train import AdamWConfig
+    from repro_torch.sharding.dtensor import StateLayout
     from repro_torch.tree import flatten
+    from torch.distributed.tensor import DTensor
     cfg = dataclasses.replace(reduced_config(get_arch(spec["arch"]), **spec["reduced"]),
                               dtype="float32")
     init = np.load(spec["init"])
@@ -89,11 +97,28 @@ try:
     else:
         mesh = compat_make_mesh(spec["shape"], spec["axes"], device_type="cpu")
     out = {"coord": mesh.get_coordinate(), "shape": list(mesh.shape), "runs": {}}
+    margins = []
+    if spec.get("margin"):
+        from repro_torch.models import moe
+        route = moe.route
+
+        def tracked(p, cfg, xt):
+            probs, gates, experts = route(p, cfg, xt)
+            loc = probs.to_local() if isinstance(probs, DTensor) else probs
+            top = torch.topk(loc.detach(), cfg.moe_top_k + 1, dim=-1).values
+            margins.append(float((top[:, -2] - top[:, -1]).min()))
+            return probs, gates, experts
+        moe.route = tracked
     for name, loop in (spec["loops"].items() if out["coord"] is not None else ()):
         loop = dict(loop)
         opt = loop.pop("opt")
         launch_train.AdamWConfig = lambda **_: AdamWConfig(**opt)
         st = launch_train.train_loop(cfg, mesh=mesh, device="cpu", log_every=100, **loop)
+        if isinstance(flatten(st["params"])[1][0], DTensor):
+            # the partitioned step's state: written whole
+            lay = StateLayout(cfg, mesh)
+            st["params"] = lay.whole_params(st["params"])
+            st["opt"] = lay.whole_opt(st["opt"])
         keys, ps = flatten(st["params"])
         mkeys, ms = flatten(st["opt"]["master"])
         np.savez(f"{spec['out']}/{name}_rank{rank}.npz",
@@ -125,6 +150,22 @@ try:
                            for pi, wi, ai in zip(p, w, a)),
             "elements": sum(t.numel() for t in flatten(part["opt"])[1]),
             "whole_elements": sum(t.numel() for t in flatten(whole["opt"])[1])}
+        from repro_torch.train.partitioned import partitioned
+        if partitioned(cfg, mesh):
+            from repro_torch.runtime import reshard_state
+            lay = StateLayout(cfg, mesh)
+            placed = mgr.restore(spec["restore"]["step"], template, shardings=lay)
+            again = reshard_state(whole, cfg, mesh)
+            pl, ag = flatten(placed)[1], flatten(again)[1]
+            back = lay.whole_params(placed["params"])
+            out["restored"]["placed"] = {
+                "dtensors": sum(isinstance(t, DTensor) for t in pl),
+                "is_reshard_state": all(
+                    torch.equal(x.to_local(), y.to_local()) if isinstance(x, DTensor)
+                    else same(x, y) for x, y in zip(pl, ag)),
+                "gathers_whole": all(torch.equal(x, y) for x, y in zip(
+                    flatten(back)[1], flatten(whole["params"])[1]))}
+    out["margin"] = min(margins) if margins else None
     out["bad"] = sorted(m for m in sys.modules
                         if m.split(".")[0] in ("jax", "jaxlib", "repro"))
     print(json.dumps(out), flush=True)
