@@ -12,13 +12,13 @@ random weights from a seeded generator; the SSM families (models/ssm.py)
 with falcon-mamba-7b (Mamba1, d_model 4096, d_inner 8192, state 16, vocab
 65,024) and zamba2-1.2b (Mamba2, d_model 2048, 64 heads of 64, state 64,
 one shared GQA block of 32 heads every 6 layers) at full width, cut in
-depth to 16 of 64 and 18 of 38 layers; the MoE families (models/moe.py, MLA in models/attention.py)
+depth to 8 of 64 and 12 of 38 layers; the MoE families (models/moe.py, MLA in models/attention.py)
 with qwen3-moe-235b-a22b (128 experts, top 8, 64 query and 4 KV heads of
 128) and deepseek-v2-236b (MLA, 160 routed and 2 shared experts, top 6) at
 full width, cut in depth to 6 and 4 layers; the modality frontends
-(models/model.py's embed_inputs and head) with musicgen-medium (24 of 48 layers,
+(models/model.py's embed_inputs and head) with musicgen-medium (12 of 48 layers,
 d_model 1536, 24 query and 24 KV heads of 64, 4 codebooks of 2048) and
-pixtral-12b (20 of 40 layers, d_model 5120, 32 query and 8 KV heads of 128, vocab
+pixtral-12b (10 of 40 layers, d_model 5120, 32 query and 8 KV heads of 128, vocab
 131,072, 256 patch embeddings) at full width; LM training (train/, checkpoint/,
 runtime/, launch/train.py) with the same model at full width, 4 x 2048
 tokens a step; the coreset server (service/,
@@ -112,7 +112,7 @@ Phases, one JSON line each:
               of 32 tokens after 4 x 64; host seconds, tokens/s, ms a step,
               and the device's busy time (torch.profiler) in a prefill and
               a decode step
-  lm_serve_ssm  falcon-mamba-7b (16 of 64 layers), then zamba2-1.2b (18 of
+  lm_serve_ssm  falcon-mamba-7b (8 of 64 layers), then zamba2-1.2b (12 of
               38), at full width (bf16,
               seeded random weights), every kernel's count at 0 before
               each part: a 4 x 2048 prefill (finite logits; falcon launches
@@ -153,8 +153,8 @@ Phases, one JSON line each:
               of a prefill, the 2 x active parameters x tokens bound, one MoE
               layer alone and its parts (CUDA events), ms a decode step and
               its busy time, peak memory; moe_launches in the kernel table
-  lm_serve_frontends  musicgen-medium (24 of 48 layers), then pixtral-12b
-              (20 of 40), at full width (bf16,
+  lm_serve_frontends  musicgen-medium (12 of 48 layers), then pixtral-12b
+              (10 of 40), at full width (bf16,
               seeded random weights), each freed before the next, every
               kernel's count at 0 before each part: (a) a 4 x 2048 prefill
               (musicgen's (4, 2048, 4) codebook tokens, logits (4, 2048, 4,
@@ -312,6 +312,25 @@ Phases, one JSON line each:
               rank a band; mesh_launches in the kernel table); host ms of a
               scorer call, a sat_pjit and each collective on both meshes
               beside the one-device scorer's and sat_pjit's
+  coreset_gates  the server's four gates and the paper's four examples
+              (scripts/*_gate_torch.py, examples/*_torch.py), each run
+              unpinned in this process (the gate's main(argv), the
+              example's __main__ by runpy), its stdout captured, every
+              kernel's count and the dispatch counts at 0 just before it:
+              coalesce and trace at the serve phase's 4096 x 4096 signal,
+              k = 64 (16 and 8 concurrent 64-leaf queries), stream and
+              overload at their own sizes (overload at its defaults, 3.0 s
+              of overload and 1.5 s of baseline); each gate's last line
+              "[<name>] PASS" and its return code 0 (a SKIP fails), every
+              op dispatched to cuda; each example's stdout, its seconds and
+              speed-ups masked, equal to the same example's run pinned on
+              numpy in a child process, client_quickstart's two lines of
+              losses scored by the float32 kernels held within 1e-3 of
+              numpy's float64 answers; sat_moments_f64, sat_stack_f64,
+              fitting_loss, fitting_loss_batched and hist_f64_node
+              launched, the float32 histogram and attention kernels not.
+              Each run's seconds, dispatches, launches and its own printed
+              figures (gates_launches in the kernel table)
   autotune    last, and the only phase with a warm tuning cache (every
               phase runs with REPRO_TORCH_AUTOTUNE_CACHE pointed at a file
               in a temporary directory, cold until here; the default cache
@@ -326,7 +345,8 @@ Phases, one JSON line each:
               with no backend and no config, which must take the selected
               backend and the planned config's kernel
 
-then the kernel table, nvidia-smi's line, and a last line
+then a timeline line (the wall seconds of each part of the run), the
+kernel table, nvidia-smi's line, and a last line
 {"ok": true, "device": {...}}.  Any failed check exits non-zero before the
 last line.  Without a CUDA device, or without the repository around it, the
 script exits non-zero and prints no result.  It imports torch and numpy and
@@ -434,7 +454,7 @@ LM_F32_MARGIN = 1.1
 SSM_ARCHS = ("falcon-mamba-7b", "zamba2-1.2b")
 # both cut in depth so that the whole script, lm_train_tp included, keeps
 # its time limit (at full depth: PR 29's figures, PERF.md §5)
-SSM_LAYERS = {"falcon-mamba-7b": 16, "zamba2-1.2b": 18}
+SSM_LAYERS = {"falcon-mamba-7b": 8, "zamba2-1.2b": 12}
 SSM_CPU_TOL = 1e-4
 SSM_CPU_PROMPT, SSM_CPU_GEN = (2, 24), 16
 # the MoE families (models/moe.py, MLA): each arch at full width with its
@@ -462,7 +482,7 @@ MOE_ATTN = {"qwen3-moe-235b-a22b": None, "deepseek-v2-236b": "torch"}
 # codebooks: the reference's own test)
 FRONTEND_ARCHS = ("musicgen-medium", "pixtral-12b")
 FRONTEND_F32_LAYERS = {"pixtral-12b": 1}
-FRONTEND_LAYERS = {"musicgen-medium": 24, "pixtral-12b": 20}
+FRONTEND_LAYERS = {"musicgen-medium": 12, "pixtral-12b": 10}
 # LM training (train/, checkpoint/, runtime/, launch/train.py): (a) the
 # reduced qwen2 in float32, LM_TRAIN_XCHECK (batch, tokens, steps) on the
 # card and on the CPU from the same weights, with LM_TRAIN_OPT (warmup and
@@ -538,6 +558,30 @@ SERVE_FOREST, SERVE_PROBE_S, SERVE_TOL = 20, 0.5, 1e-3
 # 1024, so two workers take a band:delta; worker CLUSTER_VICTIM is
 # terminated, then restarted empty on its port, and the coordinator probes a
 # down worker again CLUSTER_REPROBE_S after marking it down
+# coreset_gates: the gates as (script, argv), coalesce and trace at the serve
+# phase's signal; stream and overload at their own sizes, which their
+# contracts fix (overload at its defaults, not --smoke); the examples at
+# their documented sizes, each beside its run pinned on numpy
+_SERVE_ARGS = ["--rows", str(SERVE_SIGNAL["n"]), "--cols", str(SERVE_SIGNAL["m"]),
+               "--k", str(SERVE_SIGNAL["k"])]
+GATES = (("coalesce_gate_torch", _SERVE_ARGS), ("trace_gate_torch", _SERVE_ARGS),
+         ("overload_gate_torch", []), ("stream_gate_torch", []))
+# the gates after which the examples' numpy twins start: the timed overload
+# gate has run, and the stream gate (no timing contract) overlaps them
+TWINS_AFTER = "overload_gate_torch"
+EXAMPLES = ("quickstart_torch", "image_compression_torch",
+            "automl_tuning_torch", "client_quickstart_torch")
+# the lines of an example whose numbers are losses the server scored with
+# the float32 loss kernels: held to numpy's float64 answers within SERVE_TOL
+EXAMPLE_SERVED_LINES = {"client_quickstart_torch": ("tree loss ", "batch of ")}
+# the kernels the eight must launch (the streamed signals' appends and
+# replacements recompress through sat_stack, so sat_delta_f64 is not among
+# them), and the float32 histogram and attention kernels they must not
+GATES_LAUNCHED = ("sat_moments_f64", "sat_stack_f64", "fitting_loss",
+                  "fitting_loss_batched", "hist_f64_node")
+GATES_NOT_LAUNCHED = ("hist_fused_f32", "hist_partials_f32", "hist_legacy_f32",
+                      "flash_attention_bf16", "flash_attention_f32")
+EXAMPLE_TIMEOUT_S = 300
 CLUSTER_WORKERS, CLUSTER_DELTA = 4, (960, 1216)
 CLUSTER_VICTIM, CLUSTER_REPROBE_S = 2, 1.0
 # the mesh (core/sharded.py's mesh half, CoresetEngine(mesh=)): one NCCL rank,
@@ -2771,13 +2815,27 @@ def latencies(answers) -> dict:
             for kind in ("single", "batch")}
 
 
+# the numpy oracle's losses by (coreset fingerprint, trees): coreset_cluster
+# serves coreset_serve's trees from the same coreset, so it reads them here
+_ORACLE: dict = {}
+
+
+def oracle_losses(cs, fingerprint: str, rects, labels):
+    """(T,) numpy-oracle losses of (T, K, 4) trees on ``cs``, whose
+    fingerprint is ``fingerprint``, computed once for each set of trees."""
+    from repro_torch import ops
+    key = (fingerprint, hashlib.sha256(rects.tobytes() + labels.tobytes()).hexdigest())
+    if key not in _ORACLE:
+        _ORACLE[key] = ops.fitting_loss_batched(cs, rects, labels, backend="numpy")
+    return _ORACLE[key]
+
+
 def served_worst(served, cs, built) -> float:
     """Every served (kind, rects, labels, response) against the numpy
     oracle on the served coreset ``cs``: each from ``built``'s coreset,
     each single scored on the card, every loss finite; the largest
     relative error, which must be within SERVE_TOL."""
     import numpy as np
-    from repro_torch import ops
     worst = 0.0
     for kind, rects, labels, r in served:
         check(r.fingerprint == built.fingerprint and r.eps_eff == built.eps_eff,
@@ -2785,11 +2843,10 @@ def served_worst(served, cs, built) -> float:
         if kind == "single":
             check(r.backend == "cuda", f"a single query scored on {r.backend}")
             got = np.array([r.loss])
-            want = ops.fitting_loss_batched(cs, rects[None], labels[None],
-                                            backend="numpy")
+            want = oracle_losses(cs, built.fingerprint, rects[None], labels[None])
         else:
             got = r.losses
-            want = ops.fitting_loss_batched(cs, rects, labels, backend="numpy")
+            want = oracle_losses(cs, built.fingerprint, rects, labels)
         check(got.shape == want.shape and np.isfinite(got).all(),
               "served losses not finite or of the wrong shape")
         worst = max(worst, float(rel_err(got, want).max()))
@@ -4535,6 +4592,214 @@ def phase_coreset_mesh(smi, serve, sat_f32_ms):
     return launches
 
 
+# seconds and speed-ups in the examples' stdout, which differ from run to run
+_TIMING_FIELDS = (
+    (r"\b\d+\.\d+s\b", "<s>"),               # "built in 1.27s", "took 1.38s"
+    (r"\bx\d+\.\d+\b", "x<speedup>"),        # automl_tuning's speed-up
+    # automl_tuning's table: its last column is the method's seconds
+    (r"^((?:full|coreset|uniform) +\d+ +\d+ +-?\d+\.\d) +\d+\.\d+$", r"\1 <s>"),
+)
+
+
+def mask_timings(text: str) -> str:
+    """An example's stdout with its seconds and speed-ups masked."""
+    import re
+    for pattern, mask in _TIMING_FIELDS:
+        text = re.sub(pattern, mask, text, flags=re.M)
+    return text
+
+
+def compare_example(name: str, card: str, plain: str) -> dict:
+    """An example's masked stdout on the card against its run pinned on
+    numpy: every line equal, but for the lines of EXAMPLE_SERVED_LINES,
+    whose words must be equal and whose numbers within SERVE_TOL (relative)
+    plus one unit of their last printed digit.  Returns the served lines
+    held so and every difference found (``errors``)."""
+    import re
+    number = re.compile(r"-?\d+(?:\.(\d+))?")
+    a, b = mask_timings(card).splitlines(), mask_timings(plain).splitlines()
+    errors = [] if len(a) == len(b) and a else [
+        f"{len(a)} lines on the card, {len(b)} on numpy"]
+    held = []
+    for x, y in zip(a, b):
+        if x == y:
+            continue
+        if not (x.startswith(EXAMPLE_SERVED_LINES.get(name, ()))
+                and number.sub("#", x) == number.sub("#", y)):
+            errors.append(f"{x!r} on the card, {y!r} on numpy")
+            continue
+        for gx, gy in zip(number.finditer(x), number.finditer(y)):
+            got, want = float(gx.group()), float(gy.group())
+            unit = 10.0 ** -len(gy.group(1) or "")
+            if abs(got - want) > SERVE_TOL * abs(want) + unit:
+                errors.append(f"{got} on the card, {want} on numpy, in {x!r}")
+        held.append({"card": x, "numpy": y})
+    return {"lines": len(a), "equal": a == b, "served_lines_held": held,
+            "errors": errors}
+
+
+# each gate's figures: (pattern, conversion) on its stdout
+_GATE_FIGURES = {
+    "coalesce_gate_torch": {
+        "scoring_dispatches": (r"-> (\d+) scoring dispatches", int),
+        "coalesced": (r"query_coalesced_total \+= (\d+)", int),
+        "fused_batch_size": (r"fused_batch_size: (\[[^\]]*\])", json.loads),
+        "loss_parity_rel": (r"loss parity rel=(\S+)", float)},
+    "trace_gate_torch": {
+        "coverage_pct": (r"coverage ([\d.]+)%", float),
+        "fan_in_best": (r"\(best (\d+),", int),
+        "chrome_events": (r"chrome export: (\d+) events", int)},
+    "stream_gate_torch": {
+        "fingerprint": (r"fingerprint (\w+) ==", str),
+        "compress_mb": (r"(\d+) MB compress", int),
+        "chunks": (r"in (\d+) chunks", int)},
+    "overload_gate_torch": {
+        "capacity_rps": (r"capacity=(\d+) rps", int),
+        "baseline_p95_ms": (r"baseline: .*p95=([\d.]+) ms", float),
+        "offered_rps": (r"offered=(\d+) rps", int),
+        "admitted_rate_rps": (r"admitted rate (\d+)", int)},
+}
+_TENANT = (r"\] +(\w+): ok=(\d+) rejected=(\d+) expired_504=(\d+) errors=(\d+) "
+           r"p95=([\d.]+) ms")
+
+
+def gate_figures(name: str, out: str) -> dict:
+    """The figures a gate printed, parsed from its stdout (None where a
+    line is missing); the overload gate's each tenant's too."""
+    import re
+    figures = {}
+    for key, (pattern, conv) in _GATE_FIGURES[name].items():
+        m = re.search(pattern, out)
+        figures[key] = None if m is None else conv(m.group(1))
+    tenants = {t: dict(zip(("ok", "rejected", "expired_504", "errors"),
+                           map(int, rest[:4])), p95_ms=float(rest[4]))
+               for t, *rest in re.findall(_TENANT, out)}
+    return figures | ({"tenants": tenants} if tenants else {})
+
+
+def _captured(fn):
+    """``fn()`` with this process's stdout captured: its return code (a
+    SystemExit's too, whose message is kept) and the text."""
+    import io
+    buf = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(buf):
+            rc = fn()
+    except SystemExit as exc:
+        rc = exc.code if isinstance(exc.code, int) else 1
+        if isinstance(exc.code, str):
+            buf.write(exc.code + "\n")
+    return rc, buf.getvalue()
+
+
+def _counted(kernels, fn) -> dict:
+    """``_captured(fn)`` with every kernel's count and the dispatch counts
+    at 0 just before it, read just after.  The garbage the script's earlier
+    phases left is collected first, so that no full collection of it lands
+    in a timed window; the Python threads alive then are counted."""
+    import gc
+    import threading
+    from repro_torch import ops
+    gc.collect()
+    threads = threading.active_count()
+    for kern in kernels.values():
+        kern.launches = 0
+    ops.reset_dispatch_counts()
+    t0 = time.perf_counter()
+    rc, out = _captured(fn)
+    return {"seconds": time.perf_counter() - t0, "rc": rc, "stdout": out,
+            "threads_before": threads,
+            "dispatches": {f"{o}/{b}": c for (o, b), c in ops.dispatch_counts().items()},
+            "launches": {name: k.launches for name, k in kernels.items()}}
+
+
+def _run_example(path: str) -> int:
+    import runpy
+    runpy.run_path(path, run_name="__main__")
+    return 0
+
+
+def _load_gate(name: str):
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(name, ROOT / "scripts" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def phase_coreset_gates(kernels, smi):
+    """The server's four gates and the paper's four examples on the card,
+    each unpinned in this process (a gate's ``main(argv)``, an example's
+    ``__main__`` by runpy) with its stdout captured and every count at 0
+    just before it; each example's masked stdout against its run pinned on
+    numpy in a child process (started once the timed overload gate is over).
+    Every gate's and example's figures are emitted before the checks.
+    Returns the launches summed over all eight."""
+    t_phase = time.perf_counter()
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env.update(PYTHONPATH=str(ROOT / "src"), REPRO_TORCH_OPS_BACKEND="numpy")
+    gates, twins, examples, plain = {}, {}, {}, {}
+    try:
+        for name, argv in GATES:
+            mod = _load_gate(name)
+            gates[name] = {"argv": argv,
+                           **_counted(kernels, lambda: mod.main(list(argv)))}
+            gates[name]["figures"] = gate_figures(name, gates[name]["stdout"])
+            if name == TWINS_AFTER:
+                twins = {ex: subprocess.Popen(
+                    [sys.executable, str(ROOT / "examples" / f"{ex}.py")], cwd=ROOT,
+                    env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                    text=True, start_new_session=True) for ex in EXAMPLES}
+        for name in EXAMPLES:
+            path = str(ROOT / "examples" / f"{name}.py")
+            examples[name] = _counted(kernels, lambda: _run_example(path))
+        for name, proc in twins.items():
+            out, err = proc.communicate(timeout=EXAMPLE_TIMEOUT_S)
+            plain[name] = (proc.returncode, out, err)
+    finally:
+        for proc in twins.values():
+            if proc.poll() is None:
+                os.killpg(proc.pid, signal.SIGKILL)
+                proc.communicate()
+
+    launches = {name: sum(r["launches"][name] for r in (*gates.values(), *examples.values()))
+                for name in kernels}
+    compared = {name: compare_example(name, r["stdout"], plain[name][1])
+                for name, r in examples.items()}
+    emit("coreset_gates",
+         gates={name: {key: r[key] for key in ("argv", "seconds", "rc", "dispatches",
+                                               "figures", "threads_before")}
+                | {"launches": {k: c for k, c in r["launches"].items() if c},
+                   "stdout": r["stdout"].splitlines()} for name, r in gates.items()},
+         examples={name: {"seconds": r["seconds"], "rc": r["rc"],
+                          "dispatches": r["dispatches"],
+                          "launches": {k: c for k, c in r["launches"].items() if c},
+                          "numpy_rc": plain[name][0], **compared[name],
+                          "stdout": r["stdout"].splitlines(),
+                          "numpy_stdout": plain[name][1].splitlines()}
+                   for name, r in examples.items()},
+         launches=launches, device=smi, seconds=time.perf_counter() - t_phase)
+
+    for name, r in gates.items():
+        last = r["stdout"].strip().splitlines()[-1:] or [""]
+        check(r["rc"] == 0 and last[0] == f"[{name}] PASS",
+              f"{name} exited {r['rc']}, its last line {last[0]!r}")
+    for name, r in (*gates.items(), *examples.items()):
+        check(r["dispatches"] and all(k.endswith("/cuda") for k in r["dispatches"]),
+              f"{name} dispatched {r['dispatches']}")
+    for name, r in examples.items():
+        rc, _, err = plain[name]
+        check(r["rc"] == 0 and rc == 0, f"{name} exited {r['rc']} on the card, "
+                                        f"{rc} on numpy: {err[-2000:]}")
+        check(not compared[name]["errors"],
+              f"{name} on the card against numpy: {compared[name]['errors']}")
+    for name in GATES_LAUNCHED:
+        check(launches[name] > 0, f"kernel {name} was not launched by the gates")
+    for name in GATES_NOT_LAUNCHED:
+        check(launches[name] == 0, f"the gates launched {name} {launches[name]} times")
+    return launches
+
+
 def _file_state(path: pathlib.Path):
     st = path.stat() if path.exists() else None
     return None if st is None else (st.st_size, st.st_mtime_ns)
@@ -4691,8 +4956,15 @@ def run(default_cache) -> int:
     from repro_torch.kernels.sat2d import kernel as sat_kernel
     from repro_torch.trees import best_segmentation
 
+    # the wall seconds of each part of the run, emitted before the kernel table
+    marks = [("start", time.perf_counter())]
+
+    def mark(name):
+        marks.append((name, time.perf_counter()))
+
     smi = phase_device()
     ptxas = phase_build()
+    mark("build")
 
     n = m = 4096
     k, eps, leaves, batch = 64, 0.3, 64, 256
@@ -4728,6 +5000,7 @@ def run(default_cache) -> int:
          times_ms={r["name"]: {key: r[key] for key in (
              "ms", "wall_ms", "plain_ms", "library_ms", "bound_ms")} for r in rows},
          at_shapes={r["name"]: r["at_shapes"] for r in rows if "at_shapes" in r})
+    mark("kernels")
 
     # ------------------------------------------------------------- main path
     for r in rows:
@@ -4799,6 +5072,7 @@ def run(default_cache) -> int:
     for name, c in counts.items():
         check(c > 0, f"kernel {name} was not launched")
     phase_build_stages(y, ps, k, eps, cs)
+    mark("build_path")
 
     # ------------------------------------------- slice 2: the §5 tuning path
     ys = sensor_matrix(9358, 15, seed=0)
@@ -4814,14 +5088,17 @@ def run(default_cache) -> int:
          ptxas={r["name"]: r["ptxas"] for r in hist_rows if "ptxas" in r},
          node_kernel={k: v for k, v in hist_rows[1].items() if k != "kernel"},
          seconds=time.perf_counter() - t0)
+    mark("hist_kernels")
     del roots["raster_2^24"]
     rows += hist_rows
 
     kernels = {r["name"]: r["kernel"] for r in rows}
     tuning_counts = phase_tuning(ys, train, test, kernels)
+    mark("tuning")
     counts.update({name: c for name, c in tuning_counts.items()
                    if name.startswith("hist_")})
     variant_counts = phase_variants(roots["coreset_root"], kernels)
+    mark("variants")
     counts.update(variant_counts)
     own_counts.update(variant_counts)
 
@@ -4841,6 +5118,7 @@ def run(default_cache) -> int:
     rows += write_rows
     kernels = {r["name"]: r["kernel"] for r in rows}
     write, write_launches = phase_write_path(ps, patches, kernels)
+    mark("write_path")
     check(write_launches["sat_delta_f64"] == len(patches),
           f"{write_launches['sat_delta_f64']} delta launches for {len(patches)} patches")
     check(write["dispatches"] == {"delta_sat/cuda": len(patches)},
@@ -4875,6 +5153,7 @@ def run(default_cache) -> int:
     del d32, d64, rc32
     emit("write_counts", launches=path3, outside_main_path=own3,
          float32_delta_scaled_err=d32_err)
+    mark("stream")
     for name, c in own3.items():
         check(c == 1, f"{c} launches of {name} in one call")
     for name, c in path3.items():
@@ -4888,17 +5167,24 @@ def run(default_cache) -> int:
     emit("lm_kernels", checked=[r["name"] for r in fa_rows],
          at_shapes={r["name"]: r["at_shapes"] for r in fa_rows},
          seconds=time.perf_counter() - t0)
+    mark("lm_kernels")
     rows += fa_rows
     kernels = {r["name"]: r["kernel"] for r in rows}
     lm_counts = phase_lm_serve(kernels, {r["name"]: r for r in fa_rows})
+    mark("lm_serve")
     counts.update(lm_counts)
     ssm_counts = phase_lm_serve_ssm(kernels)
+    mark("lm_serve_ssm")
     moe_counts = phase_lm_serve_moe(kernels)
+    mark("lm_serve_moe")
     frontend_counts = phase_lm_serve_frontends(kernels)
+    mark("lm_serve_frontends")
 
     # ---------------------------------------------------- LM training
     train_counts, full_losses = phase_lm_train(kernels, smi)
+    mark("lm_train")
     train_dp_counts = phase_lm_train_dp(kernels, smi, full_losses)
+    mark("lm_train_dp")
     # lm_dryrun (b)'s cells (CPU only) run beside lm_train_tp's untimed
     # part, once its full-width steps are over
     cells = {}
@@ -4911,19 +5197,28 @@ def run(default_cache) -> int:
             if proc.poll() is None:
                 os.killpg(proc.pid, signal.SIGKILL)
                 proc.communicate()
+    mark("lm_train_tp+lm_dryrun")
 
     # ------------------------------------------------- the coreset server
     serve_counts, serve = phase_coreset_serve(kernels, smi)
+    mark("coreset_serve")
 
     # ------------------------------------- the distributed serving plane
     cluster_counts = phase_coreset_cluster(kernels, smi, serve)
+    mark("coreset_cluster")
 
     # ------------------------------------------------------------ the mesh
     mesh_counts = phase_coreset_mesh(
         smi, serve, next(r["ms"] for r in rows if r["name"] == "sat_moments_f32"))
+    mark("coreset_mesh")
+
+    # ---------------------------------- the server's gates and the examples
+    gates_counts = phase_coreset_gates(kernels, smi)
+    mark("coreset_gates")
 
     # ------------------------------------ the op layer's tuning contract
     phase_autotune(kernels, default_cache)
+    mark("autotune")
 
     replaces = {
         "sat_moments_f64": "src/repro/kernels/sat2d/kernel.py:78",
@@ -4953,6 +5248,7 @@ def run(default_cache) -> int:
                       "serving_launches": serve_counts[r["name"]],
                       "cluster_launches": cluster_counts[r["name"]],
                       "mesh_launches": mesh_counts.get(r["name"], 0),
+                      "gates_launches": gates_counts[r["name"]],
                       "train_launches": train_counts[r["name"]],
                       "train_dp_launches": train_dp_counts[r["name"]],
                       "train_tp_launches": train_tp_counts[r["name"]],
@@ -4975,6 +5271,9 @@ def run(default_cache) -> int:
                          if "round_trip_host_ms" in r else {}),
                       **({key: r[key] for key in ("launch", "overlap_share")}
                          if "overlap_share" in r else {})})
+    emit("timeline", seconds={name: t - marks[i][1]
+                              for i, (name, t) in enumerate(marks[1:])},
+         total=marks[-1][1] - marks[0][1])
     print(json.dumps({"kernels": table}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -5,9 +5,22 @@ from __future__ import annotations
 import torch
 
 from .kernel import delta_sat_cuda, sat_moments_cuda, sat_stack_cuda
-from .ref import STACK_ORDER, delta_sat_ref, sat_moments_ref, sat_stack_ref
+from .ref import (STACK_ORDER, delta_sat_ref, sat2d_ref, sat_moments_ref,
+                  sat_stack_ref)
 
-__all__ = ["sat_moments", "delta_sat_moments", "sat_stack"]
+__all__ = ["sat", "sat_moments", "delta_sat_moments", "sat_stack"]
+
+
+def sat(x: torch.Tensor) -> torch.Tensor:
+    """Summed-area table of a 2-D tensor, in x's dtype: ``ref.sat2d_ref`` on
+    the CPU; on the card the ``sat_stack`` kernel on a stack of one, in the
+    order of its dtype's kernel (``ref.STACK_ORDER``: float64 columns first,
+    as ``sat2d_ref``; float32 rows first, as the reference's Pallas ``sat``)."""
+    if x.dim() != 2:
+        raise ValueError(f"sat takes a 2-D tensor, got shape {tuple(x.shape)}")
+    if x.device.type == "cpu":
+        return sat2d_ref(x)
+    return sat_stack_cuda(x[None])[0]
 
 
 def sat_moments(y: torch.Tensor) -> torch.Tensor:

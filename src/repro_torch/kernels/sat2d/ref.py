@@ -2,6 +2,7 @@
 
 The same functions as ``csrc/sat2d.cu``:
 
+- ``sat2d_ref``: the summed-area table of one 2-D array;
 - ``sat_moments_ref``: a within-row scan, then a scan down the rows, of the
   (1, y, y^2) stack;
 - ``delta_sat_ref``: the rows of those images that change when the rows
@@ -27,8 +28,8 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["sat_moments_ref", "delta_sat_ref", "sat_stack_ref", "STACK_ORDER",
-           "split_hi_lo", "comp_cumsum", "sat_moments_comp_ref",
+__all__ = ["sat2d_ref", "sat_moments_ref", "delta_sat_ref", "sat_stack_ref",
+           "STACK_ORDER", "split_hi_lo", "comp_cumsum", "sat_moments_comp_ref",
            "delta_sat_comp_ref", "sat_stack_comp_ref"]
 
 # the order of each dtype's sat_stack kernel: float64 integrates the columns
@@ -50,6 +51,13 @@ def _cumsum(x: torch.Tensor, dim: int) -> torch.Tensor:
         return s
     neg0 = (torch.signbit(x) & (x == 0)).to(torch.uint8)
     return s.masked_fill(torch.cumprod(neg0, dim).bool(), -0.0)
+
+
+def sat2d_ref(x: torch.Tensor) -> torch.Tensor:
+    """Inclusive 2-D prefix sum (summed-area table) of an (n, m) tensor,
+    down the columns first, then along the rows, as the reference's
+    ``sat2d_ref`` sums."""
+    return sat_stack_ref(x, "cols_first")
 
 
 def sat_moments_ref(y: torch.Tensor) -> torch.Tensor:

@@ -44,7 +44,7 @@ import numpy as np
 from repro_torch.client import CoresetClient
 from repro_torch.service import CoresetEngine, ServiceMetrics, make_server, serve_forever_in_thread
 
-__all__ = ["main", "run_smoke", "require_backends"]
+__all__ = ["main", "run_smoke", "require_backends", "runtime_hygiene"]
 
 
 def run_smoke(*, clients: int = 4, rounds: int = 6, verbose: bool = True) -> int:
@@ -187,7 +187,7 @@ def require_backends() -> dict:
     return backends
 
 
-def _runtime_hygiene(backends: dict, verbose: bool = True) -> None:
+def runtime_hygiene(backends: dict, verbose: bool = True) -> None:
     """Serving-process start-up work, so the first request does not pay it:
 
       * where an op runs on the card, build every CUDA kernel of
@@ -293,7 +293,7 @@ def main() -> None:
 
     backends = require_backends()
     if not args.no_runtime_hygiene:
-        _runtime_hygiene(backends, verbose=not args.smoke)
+        runtime_hygiene(backends, verbose=not args.smoke)
 
     if args.smoke:
         sys.exit(run_smoke())

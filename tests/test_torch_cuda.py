@@ -731,6 +731,22 @@ def test_stack_f32_matches_plain(cuda, planes, n, m):
     assert ((got - want).abs() <= 5e-4 * scale).all()
 
 
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("n,m", [(1, 1), (33, 20), (257, 5), (512, 1024)])
+def test_sat_is_the_stack_kernel_on_a_stack_of_one(cuda, n, m, dtype):
+    x = _stack(1, n, m, dtype, seed=2)[0]
+    kern = (sat_kernel.SAT_STACK_F64 if dtype == torch.float64
+            else sat_kernel.SAT_STACK_F32)
+    before = kern.launches
+    got = sat_ops.sat(x.to(cuda)).cpu()
+    assert kern.launches == before + 1
+    if dtype == torch.float64:                   # sat2d_ref's order, bitwise
+        assert torch.equal(got, sat_ref.sat2d_ref(x))
+    else:                                        # rows first, as the Pallas sat
+        want = sat_ref.sat_stack_ref(x.to(cuda), "rows_first").cpu()
+        assert ((got - want).abs() <= 5e-4 * want.abs().max().clamp(min=1.0)).all()
+
+
 # sat_moments and sat_stack on the row and column passes they share with the
 # delta kernels (csrc/sat2d.cu): n or m = 1; widths around a row pass's
 # 64-column tile and its ring of 8 tiles, and not a multiple of either; row

@@ -209,3 +209,55 @@ def test_non_finite_label_on_a_zero_area_leaf_follows_the_xla_backend(label):
     assert np.isnan(got_b).all() and np.isnan(want_b).all()
     assert ops.fitting_loss(port, rects, labels, backend="numpy") == 24.0
     assert ref_ops.fitting_loss(cs, rects, labels, backend="numpy") == 24.0
+
+
+# --------------------------------------------------------- deprecated shim
+# the contract of the reference's shim (tests/test_ops.py): it warns once,
+# scores a uniform candidate set through the fused batched op and a ragged
+# one (differing leaf counts) a tree at a time
+@pytest.mark.parametrize("backend", ["numpy", "torch"])
+def test_coreset_loss_many_shim_delegates_and_warns_once(backend):
+    import warnings
+    cs = _coreset(57, 41, 5, seed=10)
+    port = _carried(cs)
+    sr, sl = _trees(57, 41, 4, 3, seed=11)
+    fl_ops._MANY_DEPRECATION_WARNED = False
+    ref_fl._MANY_DEPRECATION_WARNED = False
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        got = fl_ops.coreset_loss_many(port, list(sr), list(sl), backend=backend)
+        again = fl_ops.coreset_loss_many(port, list(sr), list(sl), backend=backend)
+        pallas = np.asarray(ref_fl.coreset_loss_many(cs, list(sr), list(sl),
+                                                     interpret=True))
+    deps = [w for w in caught if issubclass(w.category, DeprecationWarning)
+            and "repro_torch" in str(w.message)]
+    assert len(deps) == 1                                     # warn once
+    assert np.array_equal(got, again)
+    assert np.array_equal(got, ops.fitting_loss_batched(port, sr, sl,
+                                                        backend=backend))
+    if backend == "numpy":                   # the reference's oracle, bitwise
+        assert np.array_equal(got, ref_ops.fitting_loss_batched(
+            cs, sr, sl, backend="numpy"))
+    want = np.array([ref_fitting_loss(cs, r, lab) for r, lab in zip(sr, sl)])
+    np.testing.assert_allclose(got, want, rtol=2e-3)         # the shim's bar
+    np.testing.assert_allclose(got, pallas, rtol=2e-3)
+
+
+def test_coreset_loss_many_shim_accepts_ragged_leaf_counts():
+    cs = _coreset(57, 41, 5, seed=14)
+    port = _carried(cs)
+    rng = np.random.default_rng(15)
+    segs = [ref_random_tree(57, 41, k, rng) for k in (3, 6)]
+    rects, labels = [s.rects for s in segs], [s.labels for s in segs]
+    fl_ops._MANY_DEPRECATION_WARNED = False
+    with pytest.warns(DeprecationWarning, match="fitting_loss_batched"):
+        got = fl_ops.coreset_loss_many(port, rects, labels, backend="numpy")
+    want = np.array([ref_fitting_loss(cs, s.rects, s.labels) for s in segs])
+    assert np.array_equal(got, [ref_ops.fitting_loss(cs, r, lab, backend="numpy")
+                                for r, lab in zip(rects, labels)])
+    np.testing.assert_allclose(got, want, rtol=2e-3)
+    ref_fl._MANY_DEPRECATION_WARNED = True
+    pallas = np.asarray(ref_fl.coreset_loss_many(cs, rects, labels,
+                                                 interpret=True))
+    np.testing.assert_allclose(got, pallas, rtol=2e-3)
+    assert "coreset_loss_many" in fl_ops.__all__

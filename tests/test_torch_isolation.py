@@ -321,9 +321,14 @@ def test_sources_import_neither_jax_nor_reference():
     assert {p.name for p in scripts} >= {
         "fitting_loss_turns.py", "flash_attention_turns.py",
         "hist_f32_turns.py", "sat_delta_turns.py", "serve_turns.py",
-        "cluster_gate_torch.py"}
+        "cluster_gate_torch.py", "coalesce_gate_torch.py",
+        "trace_gate_torch.py", "stream_gate_torch.py",
+        "overload_gate_torch.py"}
     examples = sorted((ROOT / "examples").glob("*_torch.py"))
-    assert {p.name for p in examples} >= {"lm_pretrain_torch.py"}
+    assert {p.name for p in examples} >= {
+        "lm_pretrain_torch.py", "quickstart_torch.py",
+        "image_compression_torch.py", "automl_tuning_torch.py",
+        "client_quickstart_torch.py"}
     port = ROOT / "src" / "repro_torch"
     assert {port / "data" / "tokens.py", port / "launch" / "train.py",
             port / "train" / "train_step.py", port / "train" / "optimizer.py",

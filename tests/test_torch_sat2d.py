@@ -1,4 +1,4 @@
-"""repro_torch sat2d: sat_moments, delta_sat and sat_stack, the plain
+"""repro_torch sat2d: sat, sat_moments, delta_sat and sat_stack, the plain
 versions against the reference's numpy oracle, PrefixStats.build_moments
 and its interpret-mode Pallas kernels (the CUDA kernels are held to them in
 test_torch_cuda.py)."""
@@ -10,6 +10,7 @@ torch = pytest.importorskip("torch")
 import repro.core as ref_core  # noqa: E402
 from repro import ops as ref_ops  # noqa: E402
 from repro.kernels.sat2d import ops as ref_sat  # noqa: E402
+from repro.kernels.sat2d.ref import sat2d_ref as ref_sat2d_ref  # noqa: E402
 from repro_torch import ops  # noqa: E402
 from repro_torch.kernels.sat2d import kernel as sat_kernel  # noqa: E402
 from repro_torch.kernels.sat2d import ops as sat_ops  # noqa: E402
@@ -64,6 +65,36 @@ def test_dispatched_f32_matches_reference_pallas_interpret(backend):
                                           interpret=True))
     assert got.dtype == np.float32
     np.testing.assert_allclose(got, want, rtol=5e-4, atol=5e-3)
+
+
+# ------------------------------------------------------------------- sat
+@pytest.mark.parametrize("shape", SHAPES)
+def test_sat_plain_f64_bitwise_equals_the_reference_order(shape):
+    # the reference's sat2d_ref sums down the columns, then along the rows;
+    # in float64 that is numpy's cumsum of a cumsum, which the plain
+    # version keeps bitwise
+    x = _signal(shape, seed=7)
+    got = sat_ops.sat(torch.as_tensor(x))
+    assert got.dtype == torch.float64
+    assert torch.equal(got, sat_ref.sat2d_ref(torch.as_tensor(x)))
+    assert np.array_equal(got.numpy(), np.cumsum(np.cumsum(x, axis=0), axis=1))
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+def test_sat_f32_matches_reference_sat_interpret_and_sat2d_ref(shape):
+    import jax.numpy as jnp
+    x = _signal(shape, seed=8).astype(np.float32)
+    got = sat_ops.sat(torch.as_tensor(x)).numpy()
+    assert got.dtype == np.float32
+    for want in (ref_sat.sat(jnp.asarray(x), interpret=True),
+                 ref_sat2d_ref(jnp.asarray(x))):
+        np.testing.assert_allclose(got, np.asarray(want), rtol=5e-4, atol=5e-3)
+
+
+def test_sat_takes_a_2d_tensor_and_is_public():
+    assert "sat" in sat_ops.__all__ and "sat2d_ref" in sat_ref.__all__
+    with pytest.raises(ValueError):
+        sat_ops.sat(torch.zeros(2, 3, 4))
 
 
 # ------------------------------------------------------------- delta_sat
