@@ -193,6 +193,23 @@ Phases, one JSON line each:
               python -m repro_torch.launch.train --reduced twice in one
               checkpoint directory, the second run resuming from step 3
               (train_launches in the kernel table)
+  lm_train_families  zamba2-1.2b and musicgen-medium through the trainer,
+              every kernel's count at 0 before each part: (a) full width at
+              6 and 2 layers in float32, 3 steps of 1 x 128 on the card
+              against the CPU from one set of weights (losses within 1e-4
+              relative; each step's gradients compared, the first's worst
+              leaf within 1e-4 of its norm; the params within 1e-4, but for
+              zamba2 at full width at most 1e-5 of them past it and none
+              further apart than AdamW can drift in 3 steps, each step's
+              sign flips and the params where none flipped recorded, all
+              its params held at the reduced width), remat on against off
+              (losses bitwise); (b) full width
+              and depth in bf16 with remat through train_loop, 3 steps at
+              4 x 2048: losses and grad norms finite, the batches' shapes
+              ((4, 2048, 4) for musicgen), step ms, tokens/s, peak memory,
+              one step's device busy time and top kernels, zamba2's SSD
+              loop's share of a step; no kernel launched
+              (train_families_launches in the kernel table)
   lm_train_dp  LM training over two gloo ranks sharing the card, processes
               of this script (--mesh-rank) whose collectives cross through
               host copies (NCCL refuses two ranks on one card), each rank
@@ -504,6 +521,28 @@ LM_TRAIN_RESUME = dict(steps=10, batch=4, seq_len=256, save_every=5)
 LM_TRAIN_FAIL_AT = 7
 LM_TRAIN_RESUME_RTOL, LM_TRAIN_RESUME_ATOL = 1e-5, 1e-6
 LM_TRAIN_CLI_TIMEOUT_S = 300
+# lm_train_families: the SSM-hybrid and audio families through the trainer.
+# (a) full width at a cut depth in float32, card against CPU: zamba2 at 6
+# layers (its shared block runs after every 6th, so once), musicgen at 2;
+# batch, tokens and steps.  (b) full width and depth in bf16 with remat
+# through train_loop: LM_TRAIN_FULL's batch and tokens, 3 steps
+TRAIN_FAMILIES = ("zamba2-1.2b", "musicgen-medium")
+TRAIN_FAMILIES_LAYERS = {"zamba2-1.2b": 6, "musicgen-medium": 2}
+TRAIN_FAMILIES_XCHECK = (1, 128, 3)
+TRAIN_FAMILIES_FULL = (LM_TRAIN_FULL[0], LM_TRAIN_FULL[1], 3)
+# zamba2's full-width float32 gradients differ between the card and the CPU
+# by ~3e-5 of a leaf's norm (the SSD's exp of prefix-sum differences near
+# 88), ~1e-6 absolute: hundreds of elements of |g| below that take the other
+# sign, and AdamW's update, ~lr x sign(g) in its first steps, puts ~1e-3
+# between the runs' params there (and a same-signed gradient at the noise's
+# size moves m / sqrt(v) by up to a third).  So at full width at most
+# TRAIN_FAMILIES_MAX_OVER_TOL_SHARE of its params may lie past LM_TRAIN_TOL,
+# and none further apart than two AdamW runs can drift (each step moves an
+# element by at most lr_t: |m_hat| / sqrt(v_hat) <= 1.001 over the first
+# three steps at these betas); all of them are held at the reduced width.
+# Each step's sign flips, and the params where none flipped, are recorded
+TRAIN_FAMILIES_SIGN_NOISE = ("zamba2-1.2b",)
+TRAIN_FAMILIES_MAX_OVER_TOL_SHARE = 1e-5
 # LM training over ranks (train/zero1.py, sharding/, runtime/elastic.py,
 # restore(shardings=)): LM_DP_RANKS gloo ranks on the card over a
 # (LM_DP_RANKS, 1) mesh; (a) lm_train's full-width batch for LM_DP_STEPS
@@ -1616,15 +1655,16 @@ def check_flash_attention():
 
 
 def device_busy(fn, top: int = 6) -> tuple[float, list, int]:
-    """One call of ``fn`` under torch.profiler: the device's busy ms (the
-    sum of its kernels' own times, the profiler's "Self CUDA time total"),
-    the ``top`` kernels with the most time, [name, ms, calls] each, and the
-    number of device kernels it ran."""
+    """One call of ``fn`` under torch.profiler, recording the device's
+    activity only: the device's busy ms (the sum of its kernels' own times,
+    the profiler's "Self CUDA time total"), the ``top`` kernels with the
+    most time, [name, ms, calls] each, and the number of device kernels it
+    ran."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
     kern = [e for e in prof.key_averages()
@@ -2503,12 +2543,159 @@ def _max_abs(a_tree, b_tree) -> float:
                for a, b in zip(la, lb))
 
 
+def _grads_at(cfg, params, batch: dict) -> list:
+    """The gradient of ``loss_fn`` at ``params`` on ``batch``, leaf by leaf,
+    where the params lie."""
+    import torch
+    from repro_torch import train
+    from repro_torch.tree import flatten, leaves, tree_map, unflatten
+    dev = leaves(params)[0].device
+    _, lv = flatten(tree_map(lambda t: t.detach().requires_grad_(True), params))
+    loss, _ = train.loss_fn(cfg, unflatten(params, lv),
+                            {k: torch.as_tensor(v, device=dev) for k, v in batch.items()})
+    return list(torch.autograd.grad(loss, lv))
+
+
 def _trees_equal(a_tree, b_tree) -> bool:
     import torch
     from repro_torch.tree import flatten
     (ka, la), (kb, lb) = flatten(a_tree), flatten(b_tree)
     return ka == kb and all(a.dtype == b.dtype and torch.equal(a.cpu(), b.cpu())
                             for a, b in zip(la, lb))
+
+
+class _GradSigns:
+    """The card's and the CPU's gradients at each step of their own runs,
+    compared leaf by leaf: each step's worst leaf's ||card - CPU|| / ||CPU||,
+    the elements whose sign differs where |CPU's| > Adam's eps (AdamW's
+    update is about lr x sign(g) there in its first steps, so each such
+    element puts up to ~2 lr between the two runs' params), and the
+    elements whose sign differed at any step, at any size."""
+
+    def __init__(self, keys):
+        self.keys, self.card, self.flipped = keys, [], None
+        self.rel, self.worst, self.flips, self.flip_max = [], [], [], []
+
+    def add(self, dev: str, grads) -> None:
+        if dev == "cuda":
+            self.card.append([g.cpu() for g in grads])
+            return
+        import torch
+        from repro_torch.train import AdamWConfig
+        eps = AdamWConfig().eps
+        card, self.card[len(self.rel)] = self.card[len(self.rel)], None
+        if self.flipped is None:
+            self.flipped = [torch.zeros(g.shape, dtype=torch.bool) for g in grads]
+        rel, flips, flip_max = {}, 0, 0.0
+        for i, (k, a, b) in enumerate(zip(self.keys, card, grads)):
+            a, b = a.double(), b.detach().double()
+            rel[k] = float((a - b).norm() / max(float(b.norm()), 1e-30))
+            differ = a.sign() != b.sign()
+            self.flipped[i] |= differ
+            over = differ & (b.abs() > eps)
+            flips += int(over.sum())
+            if over.any():
+                flip_max = max(flip_max, float(b.abs()[over].max()))
+        worst = max(rel, key=rel.get)
+        self.rel.append(rel[worst])
+        self.worst.append(worst)
+        self.flips.append(flips)
+        self.flip_max.append(flip_max)
+
+    def params(self, card_p, cpu_p) -> dict:
+        """The params' distance on the elements whose gradient never took
+        two signs, and the count of those that did."""
+        from repro_torch.tree import leaves
+        diffs = [(a.detach().cpu().double() - b.detach().cpu().double()).abs()
+                 for a, b in zip(leaves(card_p), leaves(cpu_p))]
+        kept = [d[~f] for d, f in zip(diffs, self.flipped)]
+        return {"params_numel": sum(d.numel() for d in diffs),
+                "params_over_tol": sum(int((d > LM_TRAIN_TOL).sum()) for d in diffs),
+                "elements_flipped_any_step": sum(int(f.sum()) for f in self.flipped),
+                "params_over_tol_unflipped": sum(int((d > LM_TRAIN_TOL).sum())
+                                                 for d in kept),
+                "params_max_abs_err_unflipped": max(float(d.max()) if d.numel() else 0.0
+                                                    for d in kept)}
+
+    def fields(self) -> dict:
+        return {"grads_max_leaf_rel_err": self.rel[0], "grads_worst_leaf": self.worst[0],
+                "grads_max_leaf_rel_err_by_step": self.rel,
+                "grads_worst_leaf_by_step": self.worst,
+                "grad_sign_flips_by_step": self.flips,
+                "grad_sign_flips_max_abs_by_step": self.flip_max}
+
+
+def _train_card_vs_cpu(cfg_a, stream, n_steps: int, launched, signs: bool = False,
+                       hold_all: bool = True) -> dict:
+    """``n_steps`` of ``make_train_step`` with LM_TRAIN_OPT on ``stream``'s
+    batches from one set of float32 weights made on the card: on the card
+    and on the CPU with remat off, and on the card with remat on.  Checks
+    the losses within LM_TRAIN_TOL relative, the params having moved by
+    more than 10 x LM_TRAIN_TOL and (``hold_all``) within LM_TRAIN_TOL
+    absolute, remat's losses equal to the card's, and no kernel launched.
+    ``signs``: each run's gradient at each step, before it is taken, the
+    card's against the CPU's (``_GradSigns``), the first step's worst leaf
+    within LM_TRAIN_TOL; without ``hold_all``, at most
+    TRAIN_FAMILIES_MAX_OVER_TOL_SHARE of the params past LM_TRAIN_TOL and
+    none further apart than 2.002 x the steps' summed learning rates."""
+    import dataclasses
+    import math
+    import torch
+    from repro_torch.models import init_params
+    from repro_torch.train import AdamWConfig, adamw_init, cosine_lr, make_train_step
+    from repro_torch.tree import flatten, tree_map
+    init = init_params(cfg_a, torch.Generator(device="cuda").manual_seed(0))
+    grads = _GradSigns(flatten(init)[0]) if signs else None
+    runs = {}
+    for dev, remat in (("cuda", False), ("cpu", False), ("cuda", True)):
+        cfg = dataclasses.replace(cfg_a, remat=remat)
+        p = tree_map(lambda t: t.to(dev, copy=True), init)
+        o = adamw_init(p)
+        step = make_train_step(cfg, AdamWConfig(**LM_TRAIN_OPT))
+        losses = []
+        for s in range(n_steps):
+            if grads is not None and not remat:
+                grads.add(dev, _grads_at(cfg, p, stream.batch_at(s)))
+            b = {k: torch.as_tensor(v, device=dev) for k, v in stream.batch_at(s).items()}
+            p, o, m = step(p, o, b)
+            losses.append(float(m["loss"]))
+        runs[dev, remat] = (losses, p)
+    (card, card_p), (cpu, cpu_p) = runs["cuda", False], runs["cpu", False]
+    remat_losses, remat_p = runs["cuda", True]
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(card, cpu))
+    param_abs = _max_abs(card_p, cpu_p)
+    moved = _max_abs(card_p, init)
+    check(all(map(math.isfinite, card)) and loss_rel <= LM_TRAIN_TOL,
+          f"{cfg_a.name}: card vs CPU train losses: {card} vs {cpu}")
+    check((param_abs <= LM_TRAIN_TOL or not hold_all) and moved > 10 * LM_TRAIN_TOL,
+          f"{cfg_a.name}: card vs CPU params after {n_steps} steps: {param_abs} "
+          f"(moved {moved})")
+    check(remat_losses == card,
+          f"{cfg_a.name}: remat changed the losses: {remat_losses} vs {card}")
+    part = {"arch": cfg_a.name, "dtype": "float32", "batch": stream.batch,
+            "tokens": stream.seq_len, "steps": n_steps, "optimizer": LM_TRAIN_OPT,
+            "card_losses": card, "cpu_losses": cpu, "max_loss_rel_err": loss_rel,
+            "params_max_abs_err": param_abs, "params_moved": moved,
+            "params_all_held_to_tol": hold_all,
+            "remat_losses_bitwise": remat_losses == card,
+            "remat_params_bitwise": _trees_equal(remat_p, card_p),
+            "launches": launched()}
+    if grads is not None:
+        part.update(grads.fields(), **grads.params(card_p, cpu_p))
+        check(part["grads_max_leaf_rel_err"] <= LM_TRAIN_TOL,
+              f"{cfg_a.name}: card vs CPU gradient of {part['grads_worst_leaf']}: "
+              f"{part['grads_max_leaf_rel_err']}")
+        ocfg = AdamWConfig(**LM_TRAIN_OPT)
+        part["params_drift_bound"] = 2.002 * sum(
+            float(cosine_lr(ocfg, torch.tensor(t))) for t in range(1, n_steps + 1))
+        check(hold_all or (part["params_over_tol"] <= TRAIN_FAMILIES_MAX_OVER_TOL_SHARE
+                           * part["params_numel"]
+                           and param_abs <= part["params_drift_bound"]),
+              f"{cfg_a.name}: card vs CPU params: {part['params_over_tol']} of "
+              f"{part['params_numel']} past {LM_TRAIN_TOL}, {param_abs} apart "
+              f"(bound {part['params_drift_bound']})")
+    check(not part["launches"], f"{cfg_a.name}: the (a) steps launched {part['launches']}")
+    return part
 
 
 def phase_lm_train(kernels, smi):
@@ -2530,9 +2717,8 @@ def phase_lm_train(kernels, smi):
     from repro_torch.configs import get_arch, reduced_config
     from repro_torch.data import TokenStream
     from repro_torch.launch.train import train_loop
-    from repro_torch.models import init_params
     from repro_torch.models.attention import chunked_attention
-    from repro_torch.train import AdamWConfig, adamw_apply, adamw_init, make_train_step
+    from repro_torch.train import AdamWConfig, adamw_apply, make_train_step
     from repro_torch.tree import leaves, tree_map
     torch.backends.cuda.matmul.allow_tf32 = False
     t_phase = time.perf_counter()
@@ -2544,39 +2730,8 @@ def phase_lm_train(kernels, smi):
     B, L, n_steps = LM_TRAIN_XCHECK
     cfg_a = dataclasses.replace(reduced_config(get_arch(LM_ARCH)), dtype="float32",
                                 remat=False)
-    init = init_params(cfg_a, torch.Generator(device="cuda").manual_seed(0))
-    stream = TokenStream(cfg_a.vocab, B, L, seed=0)
-    runs = {}
-    for dev, remat in (("cuda", False), ("cpu", False), ("cuda", True)):
-        cfg = dataclasses.replace(cfg_a, remat=remat)
-        p = tree_map(lambda t: t.to(dev, copy=True), init)
-        o = adamw_init(p)
-        step = make_train_step(cfg, AdamWConfig(**LM_TRAIN_OPT))
-        losses = []
-        for s in range(n_steps):
-            b = {k: torch.as_tensor(v, device=dev) for k, v in stream.batch_at(s).items()}
-            p, o, m = step(p, o, b)
-            losses.append(float(m["loss"]))
-        runs[dev, remat] = (losses, p)
-    (card, card_p), (cpu, cpu_p) = runs["cuda", False], runs["cpu", False]
-    remat_losses, remat_p = runs["cuda", True]
-    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(card, cpu))
-    param_abs = _max_abs(card_p, cpu_p)
-    moved = _max_abs(card_p, init)
-    check(all(map(math.isfinite, card)) and loss_rel <= LM_TRAIN_TOL,
-          f"card vs CPU train losses: {card} vs {cpu}")
-    check(param_abs <= LM_TRAIN_TOL and moved > 10 * LM_TRAIN_TOL,
-          f"card vs CPU params after {n_steps} steps: {param_abs} (moved {moved})")
-    check(remat_losses == card, f"remat changed the losses: {remat_losses} vs {card}")
-    part_a = {"arch": cfg_a.name, "dtype": "float32", "batch": B, "tokens": L,
-              "steps": n_steps, "optimizer": LM_TRAIN_OPT, "card_losses": card,
-              "cpu_losses": cpu, "max_loss_rel_err": loss_rel,
-              "params_max_abs_err": param_abs, "params_moved": moved,
-              "remat_losses_bitwise": remat_losses == card,
-              "remat_params_bitwise": _trees_equal(remat_p, card_p),
-              "launches": launched()}
-    check(not part_a["launches"], f"the (a) steps launched {part_a['launches']}")
-    del init, runs, card_p, cpu_p, remat_p
+    part_a = _train_card_vs_cpu(cfg_a, TokenStream(cfg_a.vocab, B, L, seed=0), n_steps,
+                                launched)
 
     # (b) full width through train_loop
     cfg_b = get_arch(LM_ARCH)
@@ -2717,6 +2872,199 @@ def phase_lm_train(kernels, smi):
          d_cli={"runs": cli, "checkpoint_files": cli_files}, device=smi,
          seconds=time.perf_counter() - t_phase)
     return launches, part_b["losses"]
+
+
+@contextlib.contextmanager
+def fed_batches():
+    """The shapes of every batch that ``train_loop`` feeds its step
+    function, recorded while the context is open."""
+    from repro_torch.launch import train as train_mod
+    make, shapes = train_mod.make_train_step, []
+
+    def recording(*args, **kwargs):
+        step = make(*args, **kwargs)
+
+        def fed(p, o, b):
+            shapes.append({k: list(v.shape) for k, v in b.items()})
+            return step(p, o, b)
+        return fed
+    train_mod.make_train_step = recording
+    try:
+        yield shapes
+    finally:
+        train_mod.make_train_step = make
+
+
+def ssd_train_ms(cfg, B: int, L: int, reps: int = 2) -> dict:
+    """Host ms of one layer's SSD chunk loop (``_mamba2_ssd_chunked``) at
+    (B, L) as a train step with remat runs it: its forward recording
+    autograd (the checkpointed forward, whose saved tensors are dropped),
+    then forward and backward (the recompute and the backward), each to
+    its last kernel's end, on inputs of the model's ranges (ssm_scan_ms's).
+    Host ms, not CUDA events: a forward and backward queue more kernels
+    than the launch queue holds, so the device waits on the host and an
+    event pair would time the host."""
+    import torch
+    from repro_torch.models import ssm
+    g = torch.Generator(device="cuda").manual_seed(1)
+    H, P, s = cfg.ssm_heads, cfg.mamba_headdim, cfg.ssm_state
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device="cuda")
+    delta = torch.nn.functional.softplus(randn(B, L, H))
+    args = [t.requires_grad_(True) for t in (
+        torch.exp(-delta), randn(B, L, H, P) * delta[..., None], randn(B, L, s),
+        randn(B, L, s))]
+
+    def forward():
+        return ssm._mamba2_ssd_chunked(*args, cfg.ssm_chunk)
+
+    def wall_ms(fn) -> float:
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / reps
+    out = {"chunks_per_layer": -(-L // cfg.ssm_chunk), "forward_host_ms": wall_ms(forward),
+           "forward_backward_host_ms": wall_ms(lambda: forward().sum().backward())}
+    del args
+    torch.cuda.empty_cache()
+    return out
+
+
+def family_card_vs_cpu(arch: str, launched) -> dict:
+    """lm_train_families (a) for one arch: full width at TRAIN_FAMILIES_LAYERS'
+    depth, float32, the card against the CPU with each step's gradients
+    compared (``_train_card_vs_cpu`` with ``signs``).  An arch in
+    TRAIN_FAMILIES_SIGN_NOISE has its params held at full width where no
+    gradient sign flipped, and all of them at the reduced width, at the
+    same depth."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_arch, reduced_config
+    from repro_torch.data import TokenStream
+    B, L, n_steps = TRAIN_FAMILIES_XCHECK
+
+    def run(cfg_a, hold_all):
+        stream = TokenStream(cfg_a.vocab, B, L, seed=0, n_codebooks=cfg_a.n_codebooks)
+        part = _train_card_vs_cpu(cfg_a, stream, n_steps, launched, signs=True,
+                                  hold_all=hold_all)
+        part.update(n_layers=cfg_a.n_layers, d_model=cfg_a.d_model,
+                    token_shape=list(stream.batch_at(0)["tokens"].shape),
+                    shared_block_uses=(cfg_a.n_layers // cfg_a.attn_every
+                                       if cfg_a.attn_every else 0))
+        torch.cuda.empty_cache()
+        return part
+
+    layers = TRAIN_FAMILIES_LAYERS[arch]
+    noisy = arch in TRAIN_FAMILIES_SIGN_NOISE
+    part_a = run(dataclasses.replace(get_arch(arch), n_layers=layers, dtype="float32",
+                                     remat=False), hold_all=not noisy)
+    if noisy:
+        part_a["reduced_width"] = run(reduced_config(
+            get_arch(arch), n_layers=layers, dtype="float32", remat=False), True)
+    return part_a
+
+
+def family_full_width(arch: str, launched) -> dict:
+    """lm_train_families (b) for one arch: full width and depth in bf16
+    with remat through ``train_loop``."""
+    import dataclasses
+    import math
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.data import TokenStream
+    from repro_torch.launch.train import train_loop
+    from repro_torch.train import AdamWConfig, make_train_step
+    from repro_torch.tree import leaves
+    cfg_b = dataclasses.replace(get_arch(arch), remat=True)
+    B, L, n_steps = TRAIN_FAMILIES_FULL
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with fed_batches() as shapes:
+        state = train_loop(cfg_b, steps=n_steps, batch=B, seq_len=L, device="cuda",
+                           log_every=1)
+    loop_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    losses, gnorms, step_s = state["losses"], state["grad_norms"], state["step_s"]
+    check(len(losses) == n_steps and all(map(math.isfinite, losses + gnorms)),
+          f"{arch} at full width: losses {losses}, grad norms {gnorms}")
+    grid = [B, L, cfg_b.n_codebooks] if cfg_b.n_codebooks else [B, L]
+    check(len(shapes) == n_steps and all(b == {"tokens": grid, "targets": grid}
+                                         for b in shapes),
+          f"{arch}: train_loop fed {shapes}, not {n_steps} batches of {grid}")
+    step_ms = float(np.median(step_s[1:])) * 1e3
+    n_params = sum(t.numel() for t in leaves(state["params"]))
+    state_bytes = {key: sum(t.numel() * t.element_size() for t in leaves(state[key]))
+                   for key in ("params", "opt")}
+    step_fn = make_train_step(cfg_b, AdamWConfig(total_steps=n_steps))
+    batch = {k: torch.as_tensor(v, device="cuda") for k, v in TokenStream(
+        cfg_b.vocab, B, L, seed=0, n_codebooks=cfg_b.n_codebooks).batch_at(n_steps).items()}
+    t0 = time.perf_counter()
+    busy_ms, top, n_kernels = device_busy(
+        lambda: step_fn(state["params"], state["opt"], batch), top=12)
+    profile_s = time.perf_counter() - t0
+    part_b = {"arch": arch, "dtype": cfg_b.dtype, "remat": cfg_b.remat,
+              "n_layers": cfg_b.n_layers, "d_model": cfg_b.d_model, "batch": B,
+              "tokens": L, "token_shape": grid, "steps": n_steps, "params": n_params,
+              "param_count_config": cfg_b.param_count(),
+              "losses": losses, "ln_vocab": math.log(cfg_b.vocab), "grad_norms": gnorms,
+              "step_s": step_s, "loop_s": loop_s, "median_step_ms_2_to_last": step_ms,
+              "tokens_per_s": B * L / (step_ms / 1e3),
+              "model_flops_6nd": 6 * n_params * B * L,
+              "model_flops_6nd_bound_ms": 6 * n_params * B * L / BF16_FLOP_PER_S * 1e3,
+              "peak_memory_bytes": peak, "state_bytes": state_bytes,
+              "state_bytes_predicted_16_per_param": 16 * n_params,
+              "profiled_step_device_busy_ms": busy_ms,
+              "device_busy_share": busy_ms / step_ms,
+              "profiled_step_device_kernels": n_kernels, "device_top_ms_calls": top,
+              "profile_s": profile_s}
+    del state, step_fn, batch
+    torch.cuda.empty_cache()
+    if cfg_b.family == "hybrid":
+        t0 = time.perf_counter()
+        ssd = ssd_train_ms(cfg_b, B, L)
+        ssd["seconds"] = time.perf_counter() - t0
+        per_layer = ssd["forward_host_ms"] + ssd["forward_backward_host_ms"]
+        part_b["ssd_loop"] = {**ssd, "layers": cfg_b.n_layers,
+                              "step_host_ms": cfg_b.n_layers * per_layer,
+                              "step_host_share": cfg_b.n_layers * per_layer / step_ms}
+    part_b["launches"] = launched()
+    check(not part_b["launches"], f"{arch}: full-width training launched "
+                                  f"{part_b['launches']}")
+    torch.cuda.empty_cache()
+    return part_b
+
+
+def phase_lm_train_families(kernels, smi) -> dict:
+    """Training of the SSM-hybrid and audio families on the card, for each
+    of TRAIN_FAMILIES: (a) at full width and a cut depth in float32, three
+    steps on the card against the CPU from the same weights and batches,
+    and remat on against off; (b) at full width and depth in bf16 with remat
+    through train_loop, with its losses, grad norms, fed batches' shapes,
+    step ms, tokens/s, peak memory, one step's device busy time and top
+    kernels, and for zamba2 the SSD loop's share of a step.  No part may
+    launch a kernel (training takes the plain attention: kernel 8 is
+    forward only).  Returns every kernel's launches (0)."""
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t_phase = time.perf_counter()
+    launched = lambda: {n: k.launches for n, k in kernels.items() if k.launches}  # noqa: E731
+    out = {}
+    for arch in TRAIN_FAMILIES:
+        t_arch, parts = time.perf_counter(), {}
+        for part, run_part in (("a_card_vs_cpu", family_card_vs_cpu),
+                               ("b_full_width", family_full_width)):
+            for kern in kernels.values():
+                kern.launches = 0
+            parts[part] = run_part(arch, launched)
+        out[arch] = {**parts, "seconds": time.perf_counter() - t_arch}
+    emit("lm_train_families", **out, device=smi, seconds=time.perf_counter() - t_phase)
+    return {name: kern.launches for name, kern in kernels.items()}
 
 
 def _pct(xs, q) -> float:
@@ -4720,11 +5068,14 @@ def _run_example(path: str) -> int:
 
 
 def _load_gate(name: str):
-    import importlib.util
-    spec = importlib.util.spec_from_file_location(name, ROOT / "scripts" / f"{name}.py")
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
+    """A gate script imported as a module of its name, from ``scripts/``
+    on the path, so that the processes it spawns (the overload gate's
+    tenants) import it too."""
+    import importlib
+    scripts = str(ROOT / "scripts")
+    if scripts not in sys.path:
+        sys.path.insert(0, scripts)
+    return importlib.import_module(name)
 
 
 def phase_coreset_gates(kernels, smi):
@@ -5183,6 +5534,8 @@ def run(default_cache) -> int:
     # ---------------------------------------------------- LM training
     train_counts, full_losses = phase_lm_train(kernels, smi)
     mark("lm_train")
+    train_families_counts = phase_lm_train_families(kernels, smi)
+    mark("lm_train_families")
     train_dp_counts = phase_lm_train_dp(kernels, smi, full_losses)
     mark("lm_train_dp")
     # lm_dryrun (b)'s cells (CPU only) run beside lm_train_tp's untimed
@@ -5250,6 +5603,7 @@ def run(default_cache) -> int:
                       "mesh_launches": mesh_counts.get(r["name"], 0),
                       "gates_launches": gates_counts[r["name"]],
                       "train_launches": train_counts[r["name"]],
+                      "train_families_launches": train_families_counts[r["name"]],
                       "train_dp_launches": train_dp_counts[r["name"]],
                       "train_tp_launches": train_tp_counts[r["name"]],
                       "ssm_launches": ssm_counts[r["name"]],

@@ -26,7 +26,17 @@ Gates (those of the reference's gate, verbatim):
     colds offered under their shares, so refusing them would be unfair).
 
 The phases, constants, bars and defaults are those of
-``scripts/overload_gate.py``, its SKIP (capacity under 20 rps) included.
+``scripts/overload_gate.py``, its SKIP (capacity under 20 rps) included,
+and so are the closed loops (``drive``): as many for each tenant, the same
+2 ms reject turnaround and cold pace.  They run elsewhere: each tenant's
+loops are threads of a process of the tenant's own (``tenant_process``,
+started with ``spawn`` before the baseline phase and idle until its phase),
+which sends its counts back through a pipe.  The gate's own interpreter
+holds only the server, the engine and admission, as in a deployment whose
+clients are remote: run as threads beside the server, the hot tenant's
+refused requests (re-sent 2 ms after each refusal) cost that one
+interpreter about as much client work as the baseline's admitted ones, and
+the cold tenants' requests waited on it.
 The ops run where selection puts them: unpinned on the card (the server's
 start-up work, ``serve_coresets.runtime_hygiene``, builds and loads every
 kernel first), or on the CPU under ``REPRO_TORCH_OPS_BACKEND=numpy|torch``.
@@ -38,6 +48,7 @@ Run:  python scripts/overload_gate_torch.py [--duration 3.0] [--smoke]
 from __future__ import annotations
 
 import argparse
+import multiprocessing
 import pathlib
 import sys
 import threading
@@ -113,6 +124,73 @@ def drive(base: str, stats: TenantStats, segs, stop: threading.Event,
             time.sleep(pace_s)
 
 
+def tenant_process(conn, base: str, name: str, segs) -> None:
+    """One tenant's closed loops in a process of their own.  Warms the
+    process's HTTP client (its first request builds urllib's opener and
+    loads the default TLS certificates, tens of ms that a long-running
+    client, or a loop in the gate's own warm process, does not pay inside
+    its loop), says it is ready, takes its loops' paces (one ``drive``
+    thread a pace), runs them until told to stop, then sends back its
+    ``TenantStats`` fields."""
+    stats = TenantStats(name)
+    CoresetClient(base).healthz()
+    conn.send(None)
+    paces = conn.recv()
+    stop = threading.Event()
+    threads = [threading.Thread(target=drive, args=(base, stats, segs, stop, pace))
+               for pace in paces]
+    for t in threads:
+        t.start()
+    conn.recv()
+    stop.set()
+    for t in threads:
+        t.join()
+    conn.send({k: v for k, v in vars(stats).items() if k != "lock"})
+
+
+def start_tenants(base: str, names, segs) -> dict:
+    """One spawned process a tenant, each waiting for its paces; returns
+    {name: (process, pipe end)} once every one is ready."""
+    ctx = multiprocessing.get_context("spawn")
+    procs = {}
+    for name in names:
+        conn, child = ctx.Pipe()
+        proc = ctx.Process(target=tenant_process, args=(child, base, name, segs),
+                           name=f"tenant-{name}", daemon=True)
+        proc.start()
+        child.close()
+        procs[name] = (proc, conn)
+    for _, conn in procs.values():
+        conn.recv()
+    return procs
+
+
+def run_tenants(procs: dict, paces: dict, seconds: float) -> dict:
+    """Each named tenant's loops at their paces for ``seconds``; returns
+    each one's ``TenantStats`` as its process counted them."""
+    running = {name: procs[name] for name in paces}
+    for name, (_, conn) in running.items():
+        conn.send(paces[name])
+    time.sleep(seconds)
+    for _, conn in running.values():
+        conn.send(None)
+    out = {}
+    for name, (proc, conn) in running.items():
+        out[name] = TenantStats(name)
+        vars(out[name]).update(conn.recv())
+        proc.join()
+    return out
+
+
+def stop_tenants(procs: dict) -> None:
+    """Kill every tenant process still running and reap it."""
+    for proc, conn in procs.values():
+        if proc.is_alive():
+            proc.kill()
+        proc.join()
+        conn.close()
+
+
 def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--duration", type=float, default=3.0,
@@ -140,6 +218,7 @@ def main(argv: list[str] | None = None) -> int:
     serve_forever_in_thread(srv)
     base = f"http://127.0.0.1:{srv.server_address[1]}"
     failures: list[str] = []
+    tenants: dict = {}
     try:
         y = piecewise_signal(N, M, KMAX, noise=0.15, seed=7)
         setup = CoresetClient(base)
@@ -149,19 +228,11 @@ def main(argv: list[str] | None = None) -> int:
         segs = [random_tree_segmentation(N, M, 6, rng) for _ in range(16)]
         for q in segs[:4]:                     # warm the scoring path
             setup.query_loss("sig", q.rects, q.labels, eps=0.3)
+        tenants = start_tenants(base, ["baseline", *WEIGHTS], segs)
 
         # ---- phase 1: unloaded capacity + cold p95 floor (no admission)
-        bstats = TenantStats("baseline")
-        stop = threading.Event()
-        threads = [threading.Thread(target=drive,
-                                    args=(base, bstats, segs, stop, None))
-                   for _ in range(4)]
-        for t in threads:
-            t.start()
-        time.sleep(args.baseline)
-        stop.set()
-        for t in threads:
-            t.join()
+        bstats = run_tenants(tenants, {"baseline": [None] * 4},
+                             args.baseline)["baseline"]
         capacity = bstats.ok / args.baseline
         cold_p95_floor = p95(bstats.latencies)
         print(f"[overload_gate_torch] baseline: capacity={capacity:.0f} rps  "
@@ -183,20 +254,8 @@ def main(argv: list[str] | None = None) -> int:
         cold_share = rate * WEIGHTS["cold1"] / wsum
         # colds trickle at ~40% of their own share -> must never be refused
         cold_pace = 1.0 / max(cold_share * 0.4, 1.0)
-        tstats = {name: TenantStats(name) for name in WEIGHTS}
-        stop = threading.Event()
-        threads = [threading.Thread(
-            target=drive, args=(base, tstats["hot"], segs, stop, None))
-            for _ in range(4)]
-        threads += [threading.Thread(
-            target=drive, args=(base, tstats[c], segs, stop, cold_pace))
-            for c in ("cold1", "cold2")]
-        for t in threads:
-            t.start()
-        time.sleep(args.duration)
-        stop.set()
-        for t in threads:
-            t.join()
+        tstats = run_tenants(tenants, {"hot": [None] * 4, "cold1": [cold_pace],
+                                       "cold2": [cold_pace]}, args.duration)
 
         hot = tstats["hot"]
         hot_rps = hot.ok / args.duration
@@ -251,6 +310,7 @@ def main(argv: list[str] | None = None) -> int:
             failures.append("admission snapshot disagrees with client-side "
                             "reject count")
     finally:
+        stop_tenants(tenants)
         srv.shutdown()
         srv.server_close()
         eng.close()

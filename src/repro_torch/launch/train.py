@@ -81,7 +81,10 @@ def train_loop(cfg, *, steps: int, batch: int, seq_len: int, mesh=None,
     n_params = sum(t.numel() for t in leaves(params))
     if engine is None:
         opt = adamw_init(params)
-        step_fn = make_train_step(cfg, ocfg, num_microbatches=microbatches)
+        # the step owns the state, as the reference's jit donates it: no
+        # second copy of the params and the optimizer is made in AdamW
+        step_fn = make_train_step(cfg, ocfg, num_microbatches=microbatches,
+                                  donate=True)
     else:
         params, opt = engine.init(params)
         step_fn = engine.make_step(ocfg, num_microbatches=microbatches)

@@ -198,10 +198,16 @@ def _ssd_chunk(S0, av, xv, bv, cv):
     chunk's outputs (B, Q, H, P) and the state after it."""
     Q = av.shape[1]
     cum = torch.cumsum(torch.log(torch.clamp(av, min=1e-30)), dim=1)   # (B, Q, H)
-    # intra-chunk: Gamma[i, j] = prod_{r=j+1..i} a_r  (i >= j)
-    gam = torch.exp(cum[:, :, None, :] - cum[:, None, :, :])           # (B, Qi, Qj, H)
+    # intra-chunk: Gamma[i, j] = prod_{r=j+1..i} a_r  (i >= j), 0 above the
+    # diagonal.  The mask goes in before the exp: above it cum_i - cum_j is
+    # the decays' logs summed the other way, positive, and past ~88.7 (a
+    # 128-step chunk of decays at softplus(0) already gets there) its exp
+    # overflows float32.  Masked after the exp, as the reference does, the
+    # forward still reads 0 there, but the backward multiplies a zero
+    # gradient by that inf and every weight's gradient turns NaN.
     mask = torch.ones((Q, Q), dtype=torch.bool, device=av.device).tril()
-    gam = torch.where(mask[None, :, :, None], gam, 0.0)
+    gam = torch.exp(torch.where(mask[None, :, :, None],
+                                cum[:, :, None, :] - cum[:, None, :, :], -torch.inf))
     cb = torch.einsum("bis,bjs->bij", cv, bv)                          # (B, Qi, Qj)
     y_intra = torch.einsum("bijh,bjhp->bihp", cb[..., None] * gam, xv)
     # carry-in: C_i (prod_{r<=i} a) S0

@@ -42,6 +42,12 @@ constructed with ``admission=``), requests may instead be refused ON
 ARRIVAL with 503 ``overloaded`` + a fractional-seconds ``Retry-After``
 header and ``reason``/``tenant``/``retry_after`` fields in the envelope;
 the tenant comes from ``X-Coreset-Tenant`` (default tenant otherwise).
+A tenant refused for its rate (``tenant_rate``) gets its 503 only after
+``min(n x Retry-After, RATE_REFUSAL_HOLD_S, the request's deadline left)``,
+n its place among the tenant's refusals held at that moment, its handler
+thread asleep meanwhile (``_RefusalHolds``); the reference answers at once,
+and so does this server past RATE_REFUSAL_MAX_HELD_PER_TENANT refusals held
+for the tenant or RATE_REFUSAL_MAX_HELD in all.
 
 The pre-v1 unversioned routes (``/signals``, ``/ingest``, ``/build``,
 ``/query/*``, ``/healthz``, ``/stats``, ``/metrics``) remain as thin
@@ -77,6 +83,58 @@ __all__ = ["make_server", "serve_forever_in_thread", "ApiError"]
 
 _MAX_BODY = 256 << 20
 _TRACE_WAIT_S = 0.25   # bounded wait for an in-flight trace to finalize
+# The longest a rate refusal's 503 is held before it is written.  A client
+# that re-sends as soon as it is refused then waits for its next token
+# asleep in the handler thread, which holds no interpreter lock, instead of
+# costing this process a refusal's CPU every few ms while the other
+# tenants' requests wait for the interpreter.  A rate refusal's Retry-After
+# is one token's refill time, so one second covers it for every tenant
+# whose share is at least 1 rps.
+RATE_REFUSAL_HOLD_S = 1.0
+# The most rate refusals held at once for one tenant, and in all; a refusal
+# past either is answered at once.  A client that sends without waiting for
+# its answers (open loop) then holds at most this many handler threads and
+# sockets, whatever its rate, and a closed-loop one holds one per loop.
+RATE_REFUSAL_MAX_HELD_PER_TENANT = 8
+RATE_REFUSAL_MAX_HELD = 32
+
+
+class _RefusalHolds:
+    """The rate refusals one server holds, counted by tenant.  The n-th
+    refusal held for a tenant at once is held ``n x`` its Retry-After: a
+    rate refusal's Retry-After is the time to the tenant's next token, and
+    the n-1 held before it are waiting for the tokens ahead of its own.
+    Held to one instant, they would come back together, one to take the
+    token and the rest to be refused again."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._held: dict[str, int] = {}
+        self._total = 0
+
+    def hold(self, tenant: str, retry_after: float, budget_s: float | None) -> bool:
+        """Sleeps through the refusal's hold; False, at once, where the
+        tenant's or the server's holds are at their bounds."""
+        with self._lock:
+            n = self._held.get(tenant, 0) + 1
+            if (n > RATE_REFUSAL_MAX_HELD_PER_TENANT
+                    or self._total >= RATE_REFUSAL_MAX_HELD):
+                return False
+            self._held[tenant] = n
+            self._total += 1
+        try:
+            wait = min(n * retry_after, RATE_REFUSAL_HOLD_S)
+            if budget_s is not None:
+                wait = min(wait, budget_s)
+            if wait > 0:
+                time.sleep(wait)
+        finally:
+            with self._lock:
+                self._total -= 1
+                self._held[tenant] -= 1
+                if not self._held[tenant]:
+                    del self._held[tenant]
+        return True
 
 # concurrent.futures.TimeoutError aliases builtins.TimeoutError on 3.11+,
 # but is a distinct class before — catch whichever this runtime has
@@ -577,6 +635,12 @@ class _Handler(BaseHTTPRequestHandler):
             # refused ON ARRIVAL (503 overloaded + Retry-After): the request
             # never touched the engine.  Distinct from 504 deadline_exceeded,
             # which is admitted work dying at its deadline.
+            if exc.reason == "tenant_rate":
+                deadline_ms = getattr(msg, "deadline_ms", None)
+                self.server.refusal_holds.hold(
+                    exc.tenant, exc.retry_after,
+                    None if deadline_ms is None
+                    else deadline_ms / 1e3 - (time.perf_counter() - t0))
             eng.metrics.inc("http_503")
             if root:
                 root.set_attr("admission.rejected", True)
@@ -748,6 +812,10 @@ class _Server(ThreadingHTTPServer):
     # cluster gathers) overflows socketserver's default listen backlog of 5
     # into kernel RSTs when the accept loop lags; give the queue real depth
     request_queue_size = 128
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.refusal_holds = _RefusalHolds()
 
 
 def serve_forever_in_thread(srv: ThreadingHTTPServer) -> threading.Thread:

@@ -4,9 +4,10 @@ State layout per parameter: {master fp32, m fp32, v fp32} — 12 bytes/param
 on top of the bf16 params — and an int32 step.  The update follows the
 reference's arithmetic in float32 term by term, ``beta ** step`` and the
 cosine schedule included.  It is functional: ``adamw_apply`` returns new
-tensors and leaves its arguments as they were (the reference donates its
-buffers to the jitted step instead; here the old ones are freed when the
-caller drops them).
+tensors and leaves its arguments as they were, the old ones freed when the
+caller drops them; or, with ``donate=True`` (as the reference's training
+loop donates its buffers to the jitted step), it updates the state and the
+params in place, leaf by leaf, so that no second copy of them is made.
 """
 from __future__ import annotations
 
@@ -63,12 +64,15 @@ def cosine_lr(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
 
 
 @torch.no_grad()
-def adamw_apply(ocfg: AdamWConfig, grads, opt_state, params, gnorm=None):
+def adamw_apply(ocfg: AdamWConfig, grads, opt_state, params, gnorm=None,
+                donate: bool = False):
     """One AdamW step. Returns (new_params, new_opt_state, metrics): new
     params in each param's own dtype, the masters, m and v in float32, the
     metrics ``grad_norm`` and ``lr`` (float32 tensors).  ``gnorm``: the
     norm to clip by, where ``grads`` are a part of the gradients (a ZeRO-1
-    rank's); default ``global_norm(grads)``."""
+    rank's); default ``global_norm(grads)``.  ``donate``: the masters, m, v
+    and params are updated in place and returned (the same values, bit for
+    bit); the caller must not read the old ones."""
     step = opt_state["step"] + 1
     lr = cosine_lr(ocfg, step)
     if gnorm is None:
@@ -87,6 +91,19 @@ def adamw_apply(ocfg: AdamWConfig, grads, opt_state, params, gnorm=None):
         u = mhat / (torch.sqrt(vhat) + ocfg.eps) + ocfg.weight_decay * master
         return m_new, v_new, master - lr * u
 
+    def upd_(g, m, v, master, p):
+        g = g.to(torch.float32) * scale
+        m.mul_(ocfg.beta1).add_((1 - ocfg.beta1) * g)
+        v.mul_(ocfg.beta2).add_((1 - ocfg.beta2) * g * g)
+        u = (m / bc1) / (torch.sqrt(v / bc2) + ocfg.eps) + ocfg.weight_decay * master
+        p.copy_(master.sub_(lr * u))
+
+    if donate:
+        for g, m, v, w, p in zip(leaves(grads), leaves(opt_state["m"]),
+                                 leaves(opt_state["v"]), leaves(opt_state["master"]),
+                                 leaves(params)):
+            upd_(g, m, v, w, p)
+        return params, {**opt_state, "step": step}, {"grad_norm": gnorm, "lr": lr}
     out = [upd(g, m, v, w) for g, m, v, w in zip(
         leaves(grads), leaves(opt_state["m"]), leaves(opt_state["v"]),
         leaves(opt_state["master"]))]

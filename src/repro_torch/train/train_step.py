@@ -203,15 +203,17 @@ def make_grad_fn(cfg, attn_impl: str = "torch", num_microbatches: int = 1,
 
 
 def make_train_step(cfg, ocfg: AdamWConfig, attn_impl: str = "torch",
-                    num_microbatches: int = 1):
+                    num_microbatches: int = 1, donate: bool = False):
     """Returns train_step(params, opt_state, batch) -> (params, opt, metrics),
     metrics ``loss``, ``ce``, ``aux``, ``grad_norm`` and ``lr`` (0-d
-    tensors), the gradients as ``make_grad_fn`` takes them."""
+    tensors), the gradients as ``make_grad_fn`` takes them.  ``donate``: the
+    step updates ``params`` and ``opt_state`` in place (``adamw_apply``'s)."""
     compute_grads = make_grad_fn(cfg, attn_impl, num_microbatches)
 
     def train_step(params, opt_state, batch):
         loss, grads, met = compute_grads(params, batch)
-        params, opt_state, opt_met = adamw_apply(ocfg, grads, opt_state, params)
+        params, opt_state, opt_met = adamw_apply(ocfg, grads, opt_state, params,
+                                                 donate=donate)
         return params, opt_state, {"loss": loss, **met, **opt_met}
 
     return train_step

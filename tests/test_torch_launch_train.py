@@ -72,10 +72,20 @@ def test_train_resume_is_deterministic(tmp_path):
         "latest", "step_00000005", "step_00000010"]
 
 
-def test_train_loop_losses_match_the_reference_s(monkeypatch, capsys):
+def _loop_cfg(pkg, arch: str):
+    """qwen2 tiny; the hybrid and audio families reduced, in float32."""
+    if arch == "qwen2-0.5b":
+        return _tiny(pkg)
+    return pkg.reduced_config(pkg.ARCHS[arch], dtype="float32", remat=False)
+
+
+@pytest.mark.parametrize("arch", ["qwen2-0.5b", "zamba2-1.2b", "musicgen-medium"])
+def test_train_loop_losses_match_the_reference_s(arch, monkeypatch, capsys):
     """Both loops from the reference's weights for seed 0 (the port's init
-    draws from a torch.Generator, so its weights are carried across)."""
-    rcfg, tcfg = _tiny(ref_configs), _tiny(configs)
+    draws from a torch.Generator, so its weights are carried across): the
+    dense model, zamba2's Mamba2 layers and shared block, and musicgen's
+    summed codebook embeddings with its (B, L, 4) targets."""
+    rcfg, tcfg = _loop_cfg(ref_configs, arch), _loop_cfg(configs, arch)
     want = ref_train_loop(rcfg, steps=6, batch=2, seq_len=16, log_every=100)
     init = jax.tree.map(np.asarray, ref_models.init_params(rcfg, jax.random.PRNGKey(0)))
     monkeypatch.setattr(launch_train, "init_params",
@@ -86,7 +96,7 @@ def test_train_loop_losses_match_the_reference_s(monkeypatch, capsys):
     assert len(got["grad_norms"]) == len(got["step_s"]) == 6
     assert all(np.isfinite(got["grad_norms"])) and all(s > 0 for s in got["step_s"])
     out = capsys.readouterr().out
-    assert "[train] arch=qwen2-0.5b" in out and "device=cpu" in out
+    assert f"[train] arch={arch}" in out and "device=cpu" in out
     assert "[train] step     4 loss" in out
 
 

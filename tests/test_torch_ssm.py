@@ -189,3 +189,36 @@ def test_port_init_matches_the_reference_s_init(version):
         assert mine["dt_bias"].dtype == torch.float32
     W = tcfg.ssm_conv
     assert mine["conv"].float().abs().max() <= 2 * W ** -0.5 * (1 + 2 ** -7)
+
+
+def test_ssd_gradient_stays_finite_where_a_chunk_s_decays_overflow(mixers):
+    """Strong decays (Δ ≈ 2.1) over a 128-step chunk, zamba2-1.2b's: above
+    the diagonal the decays' log sums pass float32's exp limit.  The
+    reference masks after the exp, so its gradient turns NaN there; the
+    port masks before it.  Its forward at chunk 128 is the reference's
+    (1e-4), and its gradient is the reference's at chunk 8, where nothing
+    overflows, within 2e-4 (the chunk-invariance bar)."""
+    rcfg, tcfg, rmix, tmix = mixers[2, "float32"]
+    rcfg = {c: dataclasses.replace(rcfg, ssm_chunk=c) for c in (8, 128)}
+    tcfg = dataclasses.replace(tcfg, ssm_chunk=128)
+    rmix = dict(rmix, dt_bias=rmix["dt_bias"] + 2.0)
+    x = np.random.default_rng(3).normal(size=(2, 128, tcfg.d_model)).astype(np.float32)
+
+    def ref(c):
+        return jax.value_and_grad(
+            lambda p: ref_ssm.mamba2_forward(p, rcfg[c], jnp.asarray(x)).sum())(rmix)
+
+    (_, grad8), (_, grad128) = ref(8), ref(128)
+    assert not all(np.isfinite(np.asarray(g)).all() for g in jax.tree.leaves(grad128))
+    p = {k: v.detach().clone() for k, v in tmix.items() if isinstance(v, torch.Tensor)}
+    p["dt_bias"] = p["dt_bias"] + 2.0
+    for v in p.values():
+        v.requires_grad_(True)
+    out = ssm.mamba2_forward({**tmix, **p}, tcfg, torch.as_tensor(x))
+    _close(out, ref_ssm.mamba2_forward(rmix, rcfg[128], jnp.asarray(x)), 1e-4)
+    out.sum().backward()
+    for name, v in p.items():
+        assert torch.isfinite(v.grad).all(), name
+        g = np.asarray(grad8[name])
+        np.testing.assert_allclose(v.grad.numpy(), g, rtol=2e-4,
+                                   atol=2e-4 * np.abs(g).max(), err_msg=name)

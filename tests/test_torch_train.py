@@ -247,6 +247,42 @@ def test_remat_changes_neither_the_loss_nor_the_gradient(monkeypatch):
     assert len(checkpointed) == tcfg.n_layers and logits.grad_fn is None
 
 
+def test_zamba2_remat_with_two_shared_block_uses_changes_nothing(monkeypatch):
+    """Reduced float32 zamba2 at 12 layers, its shared block after layers 6
+    and 12: under torch.utils.checkpoint (each layer, the block inside the
+    layer it follows) its two uses' gradients sum into one leaf as without
+    remat.  The loss, every gradient and two train steps' losses bitwise
+    with remat on and off."""
+    tcfg = configs.reduced_config(configs.ARCHS["zamba2-1.2b"], dtype="float32",
+                                  remat=False, n_layers=12, attn_every=6)
+    params = models.init_params(tcfg, torch.Generator().manual_seed(0))
+    stream = TokenStream(tcfg.vocab, 2, 32, seed=1)
+    tb = {k: torch.as_tensor(v) for k, v in stream.batch_at(0).items()}
+    checkpointed = []
+    real = torch.utils.checkpoint.checkpoint
+    monkeypatch.setattr(torch.utils.checkpoint, "checkpoint",
+                        lambda *a, **kw: checkpointed.append(a[6] is not None) or real(*a, **kw))
+    out = []
+    for remat in (False, True):
+        cfg = dataclasses.replace(tcfg, remat=remat)
+        keys, leaves_ = flatten(tree_map(lambda t: t.detach().requires_grad_(True), params))
+        loss, _ = train.loss_fn(cfg, unflatten(params, leaves_), tb)
+        grads = torch.autograd.grad(loss, leaves_)
+        step = train.make_train_step(cfg, train.AdamWConfig(**OCFG))
+        p, o, losses = params, train.adamw_init(params), []
+        for s in range(2):
+            p, o, m = step(p, o, {k: torch.as_tensor(v)
+                                  for k, v in stream.batch_at(s).items()})
+            losses.append(float(m["loss"]))
+        out.append((loss.detach(), dict(zip(keys, grads)), losses))
+    assert checkpointed.count(True) == 2 * 3 and len(checkpointed) == 12 * 3
+    assert torch.equal(out[0][0], out[1][0]) and out[0][2] == out[1][2]
+    assert out[0][1].keys() == out[1][1].keys()
+    assert all(torch.equal(out[0][1][k], out[1][1][k]) for k in out[0][1])
+    shared = [k for k in out[0][1] if k.startswith("shared_attn/")]
+    assert shared and all(out[0][1][k].abs().max() > 0 for k in shared)
+
+
 # ---------------------------------------------------------------- optimizer
 @pytest.mark.parametrize("ocfg", [{}, OCFG, dict(warmup_steps=0, total_steps=7,
                                                  min_lr_frac=0.0)])
@@ -287,6 +323,38 @@ def test_adamw_apply_matches_the_reference(lm):
         _assert_trees_close(go[key], want_opt[key], rtol=1e-6, atol=1e-6)
     for key in ("grad_norm", "lr"):
         np.testing.assert_allclose(float(gm[key]), float(wm[key]), rtol=1e-6)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_donated_train_steps_equal_the_functional_ones_in_place(dtype):
+    """Three train steps of reduced qwen2 with ``donate=True`` against
+    ``donate=False`` from copies of one state: the losses, the grad norms,
+    the params and every optimizer leaf bitwise; the donated steps write
+    into the tensors they were given (each leaf's storage unchanged)."""
+    _, tcfg = _cfgs(dtype=dtype)
+    init = models.init_params(tcfg, torch.Generator().manual_seed(3))
+    stream = TokenStream(tcfg.vocab, 2, 32, seed=4)
+    runs = {}
+    for donate in (False, True):
+        p = tree_map(lambda t: t.clone(), init)
+        o = train.adamw_init(p)
+        ptrs = [t.data_ptr() for t in flatten({"p": p, "o": o})[1]
+                if t.dim()]
+        step = train.make_train_step(tcfg, train.AdamWConfig(**OCFG), donate=donate)
+        mets = []
+        for s in range(3):
+            p, o, m = step(p, o, {k: torch.as_tensor(v)
+                                  for k, v in stream.batch_at(s).items()})
+            mets.append((float(m["loss"]), float(m["grad_norm"])))
+        after = [t.data_ptr() for t in flatten({"p": p, "o": o})[1]
+                 if t.dim()]
+        runs[donate] = (p, o, mets, ptrs == after)
+    (fp, fo, fm, f_same), (dp, do, dm, d_same) = runs[False], runs[True]
+    assert dm == fm and d_same and not f_same
+    assert int(do["step"]) == int(fo["step"]) == 3
+    (kf, lf), (kd, ld) = flatten({"p": fp, "o": fo}), flatten({"p": dp, "o": do})
+    assert kf == kd
+    assert all(a.dtype == b.dtype and torch.equal(a, b) for a, b in zip(lf, ld))
 
 
 def test_adamw_decreases_quadratic():
